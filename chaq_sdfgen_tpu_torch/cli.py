@@ -1,12 +1,16 @@
-"""CLI of the PyTorch port: the hard flag set of chaq_sdfgen_tpu/cli.py.
+"""CLI of the PyTorch port: the hard and soft flag sets of
+chaq_sdfgen_tpu/cli.py.
 
 Short flags mirror chaq_sdfgen (openmp/sdfgen.c:32-49): -i/-o/-s/-q/-f,
 -a/-l/-n (argparse clusters them, so -al works). Long options mirror
 chaq_sdfgen_opencl (opencl/main.cpp:362-444): --list-platforms,
 --platform, --list-devices, --device, --log-level, --time, --two-channel.
-Platforms are ``cuda`` (when a card is present) and ``cpu``; the default
-device is the first CUDA device when there is one. --algorithm offers only
-``exact`` until BRUTE and JFA are ported.
+Platforms are ``cuda`` (when a card is present) and ``cpu``. The default is
+the first CUDA device; without a card the CLI runs only when asked for the
+CPU (--platform cpu). --algorithm offers only ``exact`` until BRUTE and
+JFA are ported. --soft runs the differentiable path on a declared gray
+range (--gray-range, default 0 255); an undeclared or out-of-gamut range is
+not ported yet (ROADMAP Queue 1 item 6), nor is --soft-prec.
 
 Usage:  python -m chaq_sdfgen_tpu_torch -i in.png -o out.png -s 100 -al
 """
@@ -14,10 +18,13 @@ Usage:  python -m chaq_sdfgen_tpu_torch -i in.png -o out.png -s 100 -al
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 import time
 from typing import List, Optional
+
+import numpy as np
 
 log = logging.getLogger("chaq_sdfgen_tpu_torch")
 
@@ -63,6 +70,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--time", action="store_true", dest="time_kernel",
                    help="print the pipeline's device time (median of 10 runs, "
                         "CUDA events) like the OpenCL --time flag")
+    p.add_argument("--soft", action="store_true",
+                   help="differentiable soft pipeline: sigmoid threshold + "
+                        "soft-min EDT (no reference analogue). Output is the "
+                        "clamped soft byte map; --soft-field additionally "
+                        "dumps the raw float signed field")
+    p.add_argument("--soft-tau", type=float, default=1.0,
+                   help="soft threshold temperature in pixel units (default: 1.0)")
+    p.add_argument("--soft-temperature", type=float, default=0.5,
+                   help="soft-min temperature T in squared-pixel units (default: 0.5)")
+    p.add_argument("--soft-eps", type=float, default=1e-6,
+                   help="sqrt smoothing epsilon (default: 1e-6)")
+    p.add_argument("--soft-clamp", default="hard", choices=["hard", "tanh", "none"],
+                   help="output clamping of the soft remap (default: hard)")
+    p.add_argument("--soft-field", default=None, metavar="FILE.npy",
+                   help="with --soft: also save the raw float32 signed field as .npy")
+    p.add_argument("--gray-range", nargs=2, type=float, default=(0.0, 255.0),
+                   metavar=("LO", "HI"),
+                   help="declared input-value bound for the soft path (default: "
+                        "0 255, always valid for u8 images); a range outside "
+                        "the kernels' gamut is not ported yet")
     return p
 
 
@@ -106,6 +133,9 @@ def main(argv: Optional[list] = None) -> int:
         return 0
 
     platform = _platforms()[0]
+    if args.platform is None and platform != "cuda":
+        print("No CUDA device found; pass --platform cpu to run on the CPU.", file=sys.stderr)
+        return 1
     if args.platform is not None:
         matches = [n for n in _platforms() if args.platform.lower() in n.lower()]
         if not matches:
@@ -149,8 +179,13 @@ def main(argv: Optional[list] = None) -> int:
         print("No output file specified.", file=sys.stderr)
         return 1
 
-    from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig
+    if args.soft_field is not None and not args.soft:
+        print("--soft-field requires --soft.", file=sys.stderr)
+        return 1
+
+    from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, SoftConfig
     from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
+    from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm
     from chaq_sdfgen_tpu_torch.utils import imageio as iio
 
     t0 = time.perf_counter()
@@ -169,13 +204,30 @@ def main(argv: Optional[list] = None) -> int:
         invert=args.invert,
         algorithm=Algorithm(args.algorithm),
     )
-    gen = SDFGenerator(cfg, device=device)
+    soft_cfg = None
+    if args.soft:
+        soft_cfg = SoftConfig(
+            tau=args.soft_tau,
+            temperature=args.soft_temperature,
+            eps=args.soft_eps,
+            clamp=args.soft_clamp,
+            gray_range=tuple(args.gray_range),
+        )
+    try:
+        gen = SDFGenerator(cfg, soft=soft_cfg, device=device)
+    except NotImplementedError as e:
+        print(e, file=sys.stderr)
+        return 1
     t0 = time.perf_counter()
     out = gen.generate(img2ch).cpu().numpy()
     log.info("sdf computed in %.3fs on %s (first call: includes device and kernel start-up)",
              time.perf_counter() - t0, device)
+    if args.soft_field is not None:
+        np.save(args.soft_field, gen.generate_field(img2ch).cpu().numpy())
+        log.info("saved raw soft field to %s", args.soft_field)
     if args.time_kernel:
         print(f"Kernel timing: {gen.kernel_time(img2ch):.6f} sec", file=sys.stderr)
+    log.info("kernel launches %s", json.dumps({**cuda_edt.LAUNCHES, **cuda_soft_mm.LAUNCHES}))
 
     t0 = time.perf_counter()
     try:

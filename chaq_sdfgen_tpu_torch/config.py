@@ -1,9 +1,10 @@
 """Frozen configuration, field for field the JAX package's
 (chaq_sdfgen_tpu/config.py), as plain dataclasses that import no JAX.
 
-The hard EXACT pipeline has no learned weights: the configuration is the
-only state carried from the JAX package to this one
-(``SdfConfig.from_dict(dataclasses.asdict(jax_cfg))``).
+Neither the hard EXACT pipeline nor the soft path has learned weights:
+the configuration is the only state carried from the JAX package to this
+one (``SdfConfig.from_dict(dataclasses.asdict(jax_cfg))``, and
+``SoftConfig.from_dict`` likewise).
 """
 
 from __future__ import annotations
@@ -81,14 +82,34 @@ class SdfConfig:
 @dataclasses.dataclass(frozen=True)
 class SoftConfig:
     """Differentiable-path configuration (same fields and defaults as the
-    JAX package's). The soft path is not ported yet (ROADMAP Queue 1
-    item 5); the dataclass exists so configurations carry across."""
+    JAX package's). The hard threshold img > 127 becomes
+    sigmoid((img - 127.5)/tau) and the hard min over parabolas a -T
+    logsumexp soft-min.
 
-    tau: float = 1.0
-    temperature: float = 0.5
-    eps: float = 1e-6
-    clamp: str = "hard"
+    gray_range: declared (lo, hi) bound on the tested pixel values. u8
+    inputs always satisfy (0, 255); only a declared range inside the
+    kernels' gamut is ported (None, the trained-image regime, is ROADMAP
+    Queue 1 item 6)."""
+
+    tau: float = 1.0          # threshold temperature (pixel units)
+    temperature: float = 0.5  # soft-min temperature T (squared-pixel units)
+    eps: float = 1e-6         # sqrt smoothing epsilon
+    clamp: str = "hard"       # "hard" | "tanh" | "none": output clamping
     gray_range: Optional[Tuple[float, float]] = (0.0, 255.0)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "SoftConfig":
+        """Build from ``dataclasses.asdict`` of a JAX ``SoftConfig`` (a
+        gray_range list, as JSON gives it back, becomes a tuple)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - names
+        if unknown:
+            raise ValueError(f"unknown SoftConfig fields: {sorted(unknown)}")
+        kw = dict(d)
+        if kw.get("gray_range") is not None:
+            lo, hi = kw["gray_range"]
+            kw["gray_range"] = (float(lo), float(hi))
+        return cls(**kw)
 
 
 @dataclasses.dataclass(frozen=True)

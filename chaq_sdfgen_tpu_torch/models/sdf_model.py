@@ -1,9 +1,12 @@
-"""SDF generator pipelines (chaq_sdfgen_tpu/models/sdf_model.py, EXACT).
+"""SDF generator pipelines (chaq_sdfgen_tpu/models/sdf_model.py).
 
   hard_sdf_exact  -- OpenMP-binary semantics, byte-identical (Algorithm.EXACT)
+  soft path       -- SDFGenerator(soft=SoftConfig(...)): the differentiable
+                     field on a declared-range input (ops/softsdf.py)
 
-BRUTE, JFA, the soft path and sharding are not ported yet (ROADMAP Queue 1
-items 5-8 and 11); asking for them raises NotImplementedError.
+BRUTE, JFA, the undeclared-range soft path and sharding are not ported yet
+(ROADMAP Queue 1 items 6-8 and 11); asking for them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -14,8 +17,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from chaq_sdfgen_tpu_torch.config import Algorithm, SdfConfig
-from chaq_sdfgen_tpu_torch.ops import cuda_edt, threshold
+from chaq_sdfgen_tpu_torch.config import Algorithm, SdfConfig, SoftConfig
+from chaq_sdfgen_tpu_torch.ops import cuda_edt, merge, softsdf, threshold
 
 
 def hard_sdf_exact(
@@ -44,8 +47,18 @@ def hard_sdf_exact_from_bool(
     return cuda_edt.fused_sdf_bytes(b, spread, asymmetric, band)
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """The device asked for, else the first CUDA device. Without a card
+    and without an explicit request for the CPU this raises: the port
+    never carries on on the CPU by itself."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device found (torch.cuda.is_available() is false); "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", 0)
 
 
 class SDFGenerator:
@@ -53,30 +66,40 @@ class SDFGenerator:
     ``generate(image_2ch)`` for uint8 SDF bitmaps. PyTorch runs eagerly,
     so there is no compile cache to keep.
 
-    device: where the pipeline runs (default: the first CUDA device when a
-    card is present, else the CPU). Inputs are moved there; the result
-    stays there."""
+    soft: optional SoftConfig. generate() then runs the differentiable
+    pipeline and returns the clamped soft byte map (truncated to uint8
+    like the hard remap, openmp/sdfgen.c:94); generate_field() returns the
+    raw float32 signed field.
+
+    device: where the pipeline runs (default: the first CUDA device; with
+    no card, only an explicit ``device="cpu"`` runs). Inputs are moved
+    there; the result stays there."""
 
     def __init__(
         self,
         config: SdfConfig = SdfConfig(),
-        soft=None,
+        soft: Optional[SoftConfig] = None,
         sharding=None,
         device: Union[str, torch.device, None] = None,
     ):
-        if soft is not None:
-            raise NotImplementedError("the soft path is not ported yet (ROADMAP Queue 1 item 5)")
         if sharding is not None:
             raise NotImplementedError(
                 "multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 11)"
             )
-        if config.algorithm != Algorithm.EXACT:
+        if soft is not None:
+            reason = softsdf.unported_reason(
+                config.effective_band, soft.tau, soft.temperature, soft.gray_range
+            )
+            if reason is not None:
+                raise NotImplementedError(f"SDFGenerator(soft=...): {reason}")
+        elif config.algorithm != Algorithm.EXACT:
             item = {Algorithm.BRUTE: 7, Algorithm.JFA: 8}[config.algorithm]
             raise NotImplementedError(
                 f"Algorithm.{config.algorithm.name} is not ported yet (ROADMAP Queue 1 item {item})"
             )
         self.config = config
-        self.device = torch.device(device) if device is not None else default_device()
+        self.soft = soft
+        self.device = resolve_device(device)
 
     def _as_input(self, img2ch) -> torch.Tensor:
         if isinstance(img2ch, np.ndarray):
@@ -91,13 +114,38 @@ class SDFGenerator:
         """(..., H, W, 2) uint8 (numpy or torch) -> (..., H, W) uint8 on
         ``self.device``."""
         cfg = self.config
+        x = self._as_input(img2ch)
+        if self.soft is not None:
+            v = merge.soft_remap(self._field(x), cfg.spread, cfg.asymmetric, clamp=self.soft.clamp)
+            # truncating u8 cast, matching the hard remap (sdfgen.c:94)
+            return torch.clamp(v, 0.0, 255.0).to(torch.int32).to(torch.uint8)
         return hard_sdf_exact(
-            self._as_input(img2ch),
+            x,
             spread=cfg.spread,
             asymmetric=cfg.asymmetric,
             channel=cfg.channel_offset,
             test_above=not cfg.invert,
             band=cfg.effective_band,
+        )
+
+    def generate_field(self, img2ch) -> torch.Tensor:
+        """Raw float32 signed soft field (pre-remap) of (..., H, W, 2) u8
+        images: the differentiable product. Requires a SoftConfig."""
+        if self.soft is None:
+            raise ValueError("generate_field needs SDFGenerator(soft=SoftConfig())")
+        return self._field(self._as_input(img2ch))
+
+    def _field(self, x: torch.Tensor) -> torch.Tensor:
+        cfg, soft = self.config, self.soft
+        return softsdf.soft_sdf_field(
+            x[..., cfg.channel_offset].to(torch.float32),
+            cfg.spread,
+            tau=soft.tau,
+            temperature=soft.temperature,
+            eps=soft.eps,
+            test_above=not cfg.invert,
+            band=cfg.effective_band,
+            gray_range=soft.gray_range,
         )
 
     def kernel_time(self, img2ch, iters: int = 10) -> float:

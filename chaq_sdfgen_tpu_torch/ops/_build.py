@@ -14,18 +14,22 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 # sm_90a: Hopper. No --use_fast_math: the kernels need IEEE sqrt and
-# division (they also spell them as _rn intrinsics).
+# division and the accurate expf/logf (they also spell them as _rn
+# intrinsics).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -61,20 +65,33 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, all started together, then one link (the sources
+    build in the time of the slowest, not of their sum)."""
     out = library_path()
     if os.path.exists(out):
         BUILD_INFO.update(seconds=0.0, path=out, log="(cached)")
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=out, log=res.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            jobs.append((obj, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                               stderr=subprocess.PIPE, text=True)))
+        logs = [(obj, proc.communicate()[1], proc.returncode) for obj, proc in jobs]
+        failed = [f"nvcc failed ({rc}) for {obj}:\n{log}" for obj, log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *(obj for obj, _ in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        os.replace(lib, out)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=out, log="".join(l for _, l, _ in logs))
     return out
 
 
@@ -94,5 +111,48 @@ def load() -> ctypes.CDLL:
         lib.chaq_edt_band_bytes.restype = i32
         lib.chaq_refined_sqrt_f32.argtypes = [vp, vp, ctypes.c_longlong, vp]
         lib.chaq_refined_sqrt_f32.restype = i32
+        f32 = ctypes.c_float
+        taps = ctypes.POINTER(f32)
+        # (n, h, w, k1, k2, taps, tau, T, eps, shift, test_above, stream)
+        soft_tail = [i32, i32, i32, i32, i32, taps, f32, f32, f32, f32, i32, vp]
+        lib.chaq_soft_mm_fwd.argtypes = [vp, vp, vp, vp, *soft_tail]
+        lib.chaq_soft_mm_fwd.restype = i32
+        lib.chaq_soft_mm_bwd.argtypes = [vp, vp, vp, vp, vp, *soft_tail]
+        lib.chaq_soft_mm_bwd.restype = i32
         _lib = lib
         return _lib
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call a launcher of the kernels' library (built at first use) on
+    the current stream of ``device``; raise if the launch failed."""
+    lib = load()
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA launch failed with cudaError {rc}")
+
+
+MAX_BATCH = 65535  # gridDim.z
+
+
+def check_cuda(name: str, *tensors) -> None:
+    """Raise unless the tensors share one device, are contiguous and are
+    at least 2-D (..., H, W)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.dim() < 2:
+            raise ValueError(f"{name}: expected (..., H, W), got shape {tuple(t.shape)}")
+
+
+def flat_shape(t) -> tuple:
+    """(batch, H, W) of a (..., H, W) tensor, the batch within gridDim.z."""
+    h, w = t.shape[-2:]
+    n = t.numel() // max(h * w, 1)
+    if n > MAX_BATCH:
+        raise ValueError(f"batch of {n} images exceeds {MAX_BATCH}")
+    return n, h, w

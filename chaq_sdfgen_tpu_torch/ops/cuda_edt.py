@@ -30,7 +30,6 @@ from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0}
 
 MAX_BAND = 65534  # band + 1 must fit the uint16 strips
-_MAX_BATCH = 65535  # gridDim.z
 
 
 def strip_dtype(band: int) -> torch.dtype:
@@ -51,35 +50,6 @@ def _canonical_codes(b: torch.Tensor) -> torch.Tensor:
     if b.dtype != torch.uint8:
         raise TypeError(f"expected a bool mask or uint8 codes, got {b.dtype}")
     return b
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-        if t.dim() < 2:
-            raise ValueError(f"{name}: expected (..., H, W), got shape {tuple(t.shape)}")
-
-
-def _launch(entry: str, device: torch.device, *args) -> None:
-    """Call a launcher of the kernels' library (built at first use) on
-    the current stream of ``device``; raise if the launch failed."""
-    lib = _build.load()
-    with torch.cuda.device(device):
-        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry}: CUDA launch failed with cudaError {rc}")
-
-
-def _flat(t: torch.Tensor) -> Tuple[int, int, int]:
-    h, w = t.shape[-2:]
-    n = t.numel() // max(h * w, 1)
-    if n > _MAX_BATCH:
-        raise ValueError(f"batch of {n} images exceeds {_MAX_BATCH}")
-    return n, h, w
 
 
 # --------------------------------------------------------------------- pass 1
@@ -108,15 +78,15 @@ def row_distances_u8(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Te
         raise ValueError(f"row_distances_u8: unsupported device {b.device}")
     _check_band(band)
     codes = _canonical_codes(b)
-    _check_cuda("row_distances_u8", codes)
+    _build.check_cuda("row_distances_u8", codes)
     dtype = strip_dtype(band)
     din = torch.empty(codes.shape, dtype=dtype, device=codes.device)
     dout = torch.empty_like(din)
-    n, h, w = _flat(codes)
+    n, h, w = _build.flat_shape(codes)
     if codes.numel() == 0:
         return din, dout
     clip = min(band + 1, 255 if dtype == torch.uint8 else 65535)
-    _launch("chaq_edt_rows", codes.device, codes.data_ptr(), din.data_ptr(), dout.data_ptr(),
+    _build.launch("chaq_edt_rows", codes.device, codes.data_ptr(), din.data_ptr(), dout.data_ptr(),
             n, h, w, clip, din.element_size())
     LAUNCHES["edt_rows"] += 1
     return din, dout
@@ -160,17 +130,17 @@ def fused_pass2_bytes(
     if din.device.type != "cuda":
         raise ValueError(f"fused_pass2_bytes: unsupported device {din.device}")
     _check_band(band)
-    _check_cuda("fused_pass2_bytes", din, dout)
+    _build.check_cuda("fused_pass2_bytes", din, dout)
     if din.shape != dout.shape or din.dtype != dout.dtype:
         raise ValueError("fused_pass2_bytes: din and dout must match in shape and dtype")
     if din.dtype not in (torch.uint8, torch.uint16):
         raise TypeError(f"fused_pass2_bytes: strips must be uint8 or uint16, got {din.dtype}")
     out = torch.empty(din.shape, dtype=torch.uint8, device=din.device)
-    n, h, w = _flat(din)
+    n, h, w = _build.flat_shape(din)
     if din.numel() == 0:
         return out
     s_min = 0.0 if asymmetric else -float(spread)
-    _launch("chaq_edt_band_bytes", din.device, din.data_ptr(), dout.data_ptr(), out.data_ptr(),
+    _build.launch("chaq_edt_band_bytes", din.device, din.data_ptr(), dout.data_ptr(), out.data_ptr(),
             n, h, w, band, s_min, float(spread), int(apply_sqrt), din.element_size())
     LAUNCHES["edt_band_bytes"] += 1
     return out
@@ -215,5 +185,5 @@ def refined_sqrt_cuda(n: torch.Tensor) -> torch.Tensor:
         raise ValueError("refined_sqrt_cuda: needs a contiguous float32 CUDA tensor")
     out = torch.empty_like(n)
     if n.numel() > 0:
-        _launch("chaq_refined_sqrt_f32", n.device, n.data_ptr(), out.data_ptr(), n.numel())
+        _build.launch("chaq_refined_sqrt_f32", n.device, n.data_ptr(), out.data_ptr(), n.numel())
     return out

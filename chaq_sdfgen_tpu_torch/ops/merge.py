@@ -1,14 +1,17 @@
-"""Signed merge + byte remap (chaq_sdfgen_tpu/ops/merge.py, hard part).
+"""Signed merge + byte remap (chaq_sdfgen_tpu/ops/merge.py).
 
 Float32 operation order mirrors the C code exactly so the output bytes are
 bit-identical: signed_merge <- transform_float_sub (openmp/sdfgen.c:98-106),
-remap_to_byte <- transform_float_to_byte (openmp/sdfgen.c:75-96). The OpenCL
-sign rule and the soft functions wait for BRUTE and the soft path.
+remap_to_byte <- transform_float_to_byte (openmp/sdfgen.c:75-96).
+soft_remap is the soft path's differentiable remap. The OpenCL sign rule
+waits for BRUTE.
 """
 
 from __future__ import annotations
 
 import torch
+
+from chaq_sdfgen_tpu_torch.ops.numerics import div
 
 
 def signed_merge(outside: torch.Tensor, inside: torch.Tensor) -> torch.Tensor:
@@ -30,3 +33,23 @@ def remap_to_byte(vals: torch.Tensor, spread: int, asymmetric: bool) -> torch.Te
     remap = ((v - s_min) * 255.0) / sn + 0.0
     # values are in [0, 255]: the int32 step truncates toward zero like C
     return remap.to(torch.int32).to(torch.uint8)
+
+
+def soft_remap(vals: torch.Tensor, spread: int, asymmetric: bool, clamp: str = "tanh") -> torch.Tensor:
+    """Differentiable remap to [0, 255] float32. clamp: 'hard' (min/max,
+    zero gradient outside the range), 'tanh' (smooth saturation), 'none'.
+    Divides by 0-d tensors on the input's device (IEEE on CUDA too)."""
+    if clamp not in ("hard", "tanh", "none"):
+        raise ValueError(f"unknown clamp {clamp!r}")
+    s_min = 0.0 if asymmetric else -float(spread)
+    s_max = float(spread)
+    sn = s_max - s_min  # exact: both are small integers
+    if clamp == "hard":
+        v = torch.clamp(vals, s_min, s_max)
+    elif clamp == "tanh":
+        mid = (s_max + s_min) * 0.5
+        half = sn * 0.5
+        v = mid + half * torch.tanh(div(vals - mid, half))
+    else:
+        v = vals
+    return div((v - s_min) * 255.0, sn)

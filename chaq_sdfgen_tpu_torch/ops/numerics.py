@@ -1,4 +1,5 @@
-"""Numerics helpers for bit-exact parity (chaq_sdfgen_tpu/ops/numerics.py).
+"""Numerics helpers for bit-exact parity (chaq_sdfgen_tpu/ops/numerics.py),
+plus the IEEE division and stable softplus that the soft path shares.
 
 ``torch.sqrt`` on the CPU is not correctly rounded: it differs by one ulp
 from the IEEE float32 result on about 105 thousand of the 2^24 integer
@@ -12,6 +13,19 @@ and add are contracted into an FMA, which would break the split.
 from __future__ import annotations
 
 import torch
+
+
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device. CUDA's ``div`` by a Python
+    float (or a CPU 0-d tensor) multiplies by the reciprocal; by a 0-d
+    tensor on the same device it is an IEEE division."""
+    return x / torch.full((), d, dtype=torch.float32, device=x.device)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """Stable softplus, max(x, 0) + log1p(exp(-|x|)), with no threshold
+    (torch's F.softplus returns x itself above 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def refined_sqrt(n: torch.Tensor) -> torch.Tensor:

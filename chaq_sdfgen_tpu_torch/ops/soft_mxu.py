@@ -1,0 +1,166 @@
+"""The collapsed two-conv soft SDF (chaq_sdfgen_tpu/ops/soft_mxu.py), plain
+PyTorch: the plain version of the kernel pair in ops/cuda_soft_mm.py.
+
+For inputs with a DECLARED value range the heights are bounded,
+h <= h_max = T softplus(max |logit|), so every tap that can contribute more
+than exp(-_CUT) relative lies within K columns, and one GLOBAL shift
+c = max(0, h_max - 60 T) keeps every term of the exp-sums inside float32.
+Pass 1's log and pass 2's exp then cancel, and the soft EDT collapses to
+two banded Gaussian convolutions of the shifted occupancy with one log at
+the end:
+
+    d2 = c - T log( Wcols (*) Wrows (*) exp(c/T) sigmoid(l) )
+
+Each conv here is a sum of 2k+1 shifted, weighted slices in float32 with
+zero fill at the border, in the order d = -k .. k, one rounding per
+multiply and per add: no F.conv* and no matmul, which cuDNN and cuBLAS may
+run in TF32 on the card. The kernels in csrc/soft_mm.cu do the same
+arithmetic in the same order. torch autograd through this form is the
+independent check of the backward kernel.
+
+The JAX module's window and corner-matrix variants and its pass2='kernel'
+branch are TPU layout tricks and are not ported.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from chaq_sdfgen_tpu_torch.ops import threshold
+from chaq_sdfgen_tpu_torch.ops.numerics import div
+
+_BLK = 128
+_CUT = 30.0  # tap-truncation exponent
+# beyond this h_max/T the global shift cannot keep the max term
+# representable in f32 (e^{c/T} <= e^85)
+_HMAX_OVER_T_LIMIT = 140.0
+# pass-2 value-bound margin: S1 >= -T log(2K+1) > -6T for any K <= _BLK
+_P2_MARGIN_T = 6.0
+_FLO = 1e-30  # live-window floor: the center tap alone gives >= e^-60
+PAD_D2 = 1e30  # d2 of a fully dead window (no live pixel within the taps)
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _range_stats(band, tau, temperature, gray_range, margin=0.0) -> Optional[Tuple[int, float]]:
+    """(K, shift c) for a declared input range; None when out of gamut.
+
+    ``margin`` widens the value bound (in units of the raw height): pass 2
+    consumes S1, which can dip below 0 by up to T log(#taps), so its tap
+    cutoff needs the extra slack."""
+    lo, hi = float(gray_range[0]), float(gray_range[1])
+    t = float(temperature)
+    labs = max(abs(lo - 127.5), abs(hi - 127.5)) / float(tau)
+    h_max = t * (max(labs, 0.0) + math.log1p(math.exp(-abs(labs))))
+    if h_max / t > _HMAX_OVER_T_LIMIT:
+        return None
+    k = min(int(math.ceil(math.sqrt(_CUT * t + h_max + margin))), int(band))
+    if k > _BLK:
+        return None
+    c = max(0.0, h_max - 60.0 * t)
+    return max(k, 1), c
+
+
+def range_stats(band, tau, temperature, gray_range):
+    """(k1, k2, shift) of both passes, or None when either is out of
+    gamut (or no range is declared)."""
+    if gray_range is None:
+        return None
+    s1 = _range_stats(band, tau, temperature, gray_range)
+    s2 = _range_stats(band, tau, temperature, gray_range, margin=_P2_MARGIN_T * float(temperature))
+    if s1 is None or s2 is None:
+        return None
+    return s1[0], s2[0], s1[1]
+
+
+@functools.lru_cache(maxsize=64)
+def tap_weights(k: int, temperature: float) -> Tuple[float, ...]:
+    """The 2k+1 float32 taps w(d) = exp(-d^2/T), d = -k .. k, computed on
+    the host as the JAX package's _wrow/_wcolt compute them. Subnormal
+    taps are flushed to zero, as XLA and the TPU flush them. Cached: a
+    kernel launch needs them on the host every time."""
+    d = torch.arange(-k, k + 1, dtype=torch.float32)
+    w = div(-(d * d), temperature).exp()
+    return tuple(torch.where(w >= _TINY, w, torch.zeros(())).tolist())
+
+
+def conv_rows(e: torch.Tensor, w: Sequence[float]) -> torch.Tensor:
+    """sum_d w(d) e(y, x + d) over the last axis, zero outside."""
+    k = (len(w) - 1) // 2
+    n = e.shape[-1]
+    ep = F.pad(e, (k, k))
+    acc = torch.zeros_like(e)
+    for i, wi in enumerate(w):
+        acc = acc + wi * ep[..., i : i + n]
+    return acc
+
+
+def conv_cols(e: torch.Tensor, w: Sequence[float]) -> torch.Tensor:
+    """sum_d w(d) e(y + d, x) over the second-to-last axis, zero outside."""
+    k = (len(w) - 1) // 2
+    n = e.shape[-2]
+    ep = F.pad(e, (0, 0, k, k))
+    acc = torch.zeros_like(e)
+    for i, wi in enumerate(w):
+        acc = acc + wi * ep[..., i : i + n, :]
+    return acc
+
+
+def shift_over_t(shift: float, temperature: float) -> float:
+    """c/T rounded once in float32, as the kernels compute it."""
+    return float(np.float32(shift) / np.float32(temperature))
+
+
+def occupancy(gray, tau, temperature, shift, test_above):
+    """gray -> (l, e_in, e_out): the logits and the shifted occupancies
+    exp(c/T + log sigmoid(l)) and exp(c/T + log sigmoid(-l)), with
+    log sigmoid(+-l) = min(+-l, 0) - log1p(exp(-|l|)). Each exponent is
+    formed as one sum, never as a product of exponentials, so it stays
+    inside float32 from e^-60 to e^70. (The TPU kernel forms the second as
+    c/T + log sigmoid(l) - l, equal in exact arithmetic; that difference
+    cancels to an ulp of |l| where l << 0, and its autograd derivative,
+    sigmoid(-l) - 1, loses all digits of the true -sigmoid(l) there.)
+
+    The values are those of the kernels' min(+-l, 0) and |l|, bit for bit,
+    but written as branches on l >= 0, so that autograd takes one smooth
+    branch at l = 0 (gray exactly 127.5): through min and |.| it would add
+    the subgradients of both kinks and double sigmoid(0) = 0.5 to 1."""
+    l = threshold.soft_logits(gray, tau=tau, test_above=test_above)
+    pos = l >= 0
+    sp = torch.log1p(torch.exp(torch.where(pos, -l, l)))  # log1p(exp(-|l|))
+    ct1 = shift_over_t(shift, temperature)
+    e_in = torch.exp(ct1 + torch.where(pos, -sp, l - sp))
+    e_out = torch.exp(ct1 + torch.where(pos, -l - sp, -sp))
+    return l, e_in, e_out
+
+
+def _safe_neglog(s, temperature, shift, dead_value):
+    """shift - T log(s), with fully dead windows (s below a normal-range
+    floor: nothing live within the taps) routed to ``dead_value``. The
+    log never sees a non-positive argument on either pass of autograd."""
+    live = s > _FLO
+    s_safe = torch.where(live, s, torch.ones((), device=s.device))
+    out = shift - temperature * torch.log(s_safe)
+    return torch.where(live, out, torch.full((), dead_value, device=s.device))
+
+
+def soft_field_collapsed(gray, k1, k2, shift, tau, temperature, eps, test_above=True):
+    """(..., H, W) float32 gray -> (field, d2_in, d2_out), each (..., H, W):
+    occupancy, rows conv with radius k1, cols conv with radius k2,
+    c - T log, sqrt, and the merge. Differentiable by torch autograd."""
+    w1, w2 = tap_weights(k1, temperature), tap_weights(k2, temperature)
+    _, e_in, e_out = occupancy(gray, tau, temperature, shift, test_above)
+    d2_in = _safe_neglog(conv_cols(conv_rows(e_in, w1), w2), temperature, shift, PAD_D2)
+    d2_out = _safe_neglog(conv_cols(conv_rows(e_out, w1), w2), temperature, shift, PAD_D2)
+    zero = torch.zeros((), device=gray.device)
+    # where(d2 > 0, d2, 0): max(d2, 0) with the kernel's zero gradient at 0
+    d_in = torch.sqrt(torch.where(d2_in > 0, d2_in, zero) + eps)
+    d_out = torch.sqrt(torch.where(d2_out > 0, d2_out, zero) + eps)
+    field = d_out - torch.where(d_in > 1, d_in - 1.0, zero)
+    return field, d2_in, d2_out
+

@@ -1,12 +1,15 @@
-"""Threshold / indicator ops (chaq_sdfgen_tpu/ops/threshold.py, hard part).
+"""Threshold / indicator ops (chaq_sdfgen_tpu/ops/threshold.py).
 
-Hard path mirrors transform_img_to_bool (openmp/sdfgen.c:52-62). The soft
-functions wait for the soft path (ROADMAP Queue 1 item 5).
+Hard path mirrors transform_img_to_bool (openmp/sdfgen.c:52-62); the soft
+path replaces the step with a temperature-controlled sigmoid so gradients
+flow to input intensities.
 """
 
 from __future__ import annotations
 
 import torch
+
+from chaq_sdfgen_tpu_torch.ops.numerics import div, softplus
 
 THRESHOLD = 127  # the fixed byte threshold (openmp/sdfgen.c:57)
 
@@ -24,3 +27,24 @@ def indicator(b: torch.Tensor, true_is_zero: bool, big: float) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.float32, device=b.device)
     bigv = torch.full((), big, dtype=torch.float32, device=b.device)
     return torch.where(b == true_is_zero, zero, bigv)
+
+
+def soft_logits(gray: torch.Tensor, tau: float = 1.0, test_above: bool = True) -> torch.Tensor:
+    """Threshold logits l = (v - 127.5)/tau (negated when inverted);
+    occupancy = sigmoid(l). 127.5 is the midpoint of the hard test (v > 127
+    <=> v >= 128 for integer bytes), so occupancy -> hard_threshold as
+    tau -> 0."""
+    logits = div(gray.to(torch.float32) - 127.5, tau)
+    return logits if test_above else -logits
+
+
+def soft_log_indicator_from_logits(
+    logits: torch.Tensor, temperature: float, seeds_are_on: bool, big: float
+) -> torch.Tensor:
+    """Soft parabola heights h = -T log(o) (seeds on) or -T log(1 - o),
+    computed stably from logits: -log(sigmoid(l)) = softplus(-l), exact
+    where a sigmoid -> log round trip would underflow. Clipped at ``big``,
+    the hard indicator's sentinel, recovering indicator() as tau -> 0."""
+    l = logits if seeds_are_on else -logits
+    h = softplus(-l) * temperature
+    return torch.clamp(h, max=big)

@@ -6,30 +6,55 @@ Phases, each of which raises on failure (the script then exits non-zero):
   1. the card's name and power limit; a CUDA device is required;
   2. build the kernels from chaq_sdfgen_tpu_torch/csrc with nvcc, and the
      native PNG codec (native/sdfio) with make;
-  3. each kernel against its plain PyTorch version on the card, byte for
-     byte (tolerance 0), at 4096x4096 on dense noise and on a sparse
+  3. each hard kernel against its plain PyTorch version on the card, byte
+     for byte (tolerance 0), at 4096x4096 on dense noise and on a sparse
      glyph-like image for spreads 1/64/300/1024, on odd shapes, uniform
      masks and a batch of 3;
   4. the pass-2 sqrt tail against numerics.refined_sqrt on all 2^24
      integer radicands;
-  5. the main path: the CLI (python -m chaq_sdfgen_tpu_torch -i in.png
+  5. the hard main path: the CLI (python -m chaq_sdfgen_tpu_torch -i in.png
      -o out.png -s 64) on a 4096x4096 gray+alpha PNG made from a seed,
      checked against the plain pipeline on the card; SDFGenerator at 256x256
      against the NumPy oracle of the reference binary; and the launch
      counters of both kernels over one SDFGenerator run of the main path;
-  6. times with CUDA events (one warm-up, median of 10): each pass and the
-     whole pipeline, kernels against plain versions, at 4096x4096 spread 64
-     on both inputs;
-  7. where the main path's device time goes: torch.profiler over 10 runs
-     on the glyph input, device time per kernel and the device's busy share
-     of the window (profiler on).
+  6. hard times with CUDA events (per call over 10 back-to-back calls, the
+     median of 5 such windows, after a warm-up): each pass and
+     the whole pipeline, kernels against plain versions, at 4096x4096
+     spread 64 on both inputs;
+  7. where the hard main path's device time goes: torch.profiler over 10
+     runs on the glyph input, device time per kernel and the device's busy
+     share of the window (profiler on);
+  8. each soft kernel against its plain version on the card: the forward's
+     field and both d2 memos within 1e-4 on live pixels with the same dead
+     windows, the backward's dgray within 1e-4 of the scale of torch
+     autograd through the plain forward (a seeded random cotangent); at
+     4096x4096 on uniform noise and on the glyph image's alpha, spread 64,
+     (tau, T) = (2, 1) and (1, 0.5), both threshold senses; and on 1x17,
+     17x1, 129x130, 384x260 and a batch of 3;
+  9. the soft main path: the CLI --soft -s 64 --soft-field f.npy on the
+     4096x4096 glyph PNG (bytes within 1 and field within 1e-4 of the plain
+     pipeline on the card, and its own launch log), then the training step
+     (value and gradient of the summed field at tau 2, T 1, spread 64, and
+     an SGD update of the pixels) for 3 steps, with both soft kernels'
+     launch counters read over those steps, and the first step's value and
+     gradient held against the plain version;
+ 10. soft times (CUDA events, as in phase 6) at 4096x4096
+     spread 64: soft_mm_fwd without memos (serving) and with them
+     (training), soft_mm_bwd, the training step and SDFGenerator(soft)
+     .generate, each against its plain version;
+ 11. where the training step's device time goes: torch.profiler over 10
+     steps, device time per kernel and the busy share.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
-and {"ok": true, ...}.
+and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
+must move at 3.35 TB/s and the float operations its function needs on
+these inputs at 67 TFLOP/s (the H100 SXM's HBM3 rate and float32 rate
+outside the tensor cores).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import struct
 import subprocess
@@ -41,9 +66,9 @@ import zlib
 import numpy as np
 import torch
 
-from chaq_sdfgen_tpu_torch.config import SdfConfig
+from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-from chaq_sdfgen_tpu_torch.ops import _build, cuda_edt, threshold
+from chaq_sdfgen_tpu_torch.ops import _build, cuda_edt, cuda_soft_mm, merge, soft_mxu, softsdf, threshold
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 from chaq_sdfgen_tpu_torch.utils import imageio, sdfio_native
 
@@ -52,6 +77,11 @@ SIZE = 4096
 SPREAD = 64
 SEED = 20261016
 TIMING_ITERS = 10
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+SOFT_PARAMS = ((2.0, 1.0), (1.0, 0.5))  # (tau, T): the bench's training step, the CLI's default
+TRAIN_TAU, TRAIN_T, TRAIN_LR = 2.0, 1.0, 1e-6
+U8 = (0.0, 255.0)
 
 KERNELS = {
     "edt_rows": {
@@ -63,6 +93,16 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:336",
+    },
+    "soft_mm_fwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_mm.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_mm.py:161",
+    },
+    "soft_mm_bwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_mm.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_mm.py:211",
     },
 }
 
@@ -127,20 +167,23 @@ def png_gray_alpha(img2ch: np.ndarray) -> bytes:
     )
 
 
-def cuda_ms(fn, iters: int = TIMING_ITERS) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` runs, CUDA events, after
-    one warm-up run."""
+def cuda_ms(fn, iters: int = TIMING_ITERS, windows: int = 5) -> float:
+    """Milliseconds per call of ``fn``: CUDA events around ``iters``
+    back-to-back calls, so that the card's queue, not the host's launch
+    overhead, sets the time; the median of ``windows`` such windows, after
+    one warm-up call."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / iters)
     return float(np.median(times))
 
 
@@ -153,31 +196,60 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
-    # phase 1: the card
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
-        return 1
-    smi = nvidia_smi()
-    log(f"card: {smi}")
-    dev = torch.device("cuda", 0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+def profile_device(label: str, fn, runs: int = 10) -> None:
+    """Device time by kernel over ``runs`` calls of ``fn`` (after a warm-up)
+    and the device's busy share of the window, profiler on."""
+    from torch.profiler import ProfilerActivity, profile
 
-    # phase 2: build
-    t0 = time.perf_counter()
-    _build.load()
-    log(f"build: kernels {_build.BUILD_INFO['seconds']:.2f} s -> {os.path.relpath(_build.BUILD_INFO['path'], ROOT)}")
-    for line in _build.BUILD_INFO["log"].splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
-    t1 = time.perf_counter()
-    require(sdfio_native.available(), "native/sdfio codec did not build")
-    log(f"build: native/sdfio {time.perf_counter() - t1:.2f} s; total {time.perf_counter() - t0:.2f} s")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0 and e.cpu_time_total == 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    require(busy_us > 0, f"profile {label}: no device time traced")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
+        log(f"profile {label}: {e.self_device_time_total / runs / 1e3:.4f} ms/run "
+            f"{100 * e.self_device_time_total / busy_us:.1f}% ({e.count} launches, "
+            f"{e.self_device_time_total / e.count / 1e3:.4f} ms each)  {e.key[:90]}")
+    log(f"profile {label}: device busy {busy_us / runs / 1e3:.4f} ms/run of a "
+        f"{window_us / runs / 1e3:.4f} ms/run window ({100 * busy_us / window_us:.1f}% busy, profiler on)")
 
-    # phase 3: each kernel against its plain version, byte for byte
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes at the HBM rate and
+    the float operations at the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def band_bytes_flops(npix: int) -> float:
+    """Float operations pass 2's function needs, whatever the algorithm:
+    per pixel and field, ~15 for a linear-time lower envelope of the
+    clipped column parabolas (an intersection and an evaluation), plus ~25
+    for the sqrt refinement, merge and remap of the pixel."""
+    return (2 * 15 + 25) * npix
+
+
+def soft_flops(npix: int, k1: int, k2: int, forward: bool) -> float:
+    """Float operations of a soft kernel: per pixel, both fields' rows and
+    cols convs (a multiply and an add per tap), plus the occupancy and the
+    tails (forward) or the tails' VJP and the occupancy VJP (backward),
+    each transcendental counted as one operation."""
+    convs = 2 * 2 * ((2 * k1 + 1) + (2 * k2 + 1))
+    return npix * (convs + (22 if forward else 35))
+
+
+# --------------------------------------------------------------- hard phases
+
+
+def hard_phases(dev, noise, glyph):
+    """Phases 3-7. Returns (errors, launches, glyph times, bounds)."""
     err = {"edt_rows": 0, "edt_band_bytes": 0}
-    noise = noise_image(SIZE, SEED)
-    glyph = glyph_image(SIZE, SEED + 1)
     inputs = {
         "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
         "glyph": threshold.hard_threshold(torch.from_numpy(glyph).to(dev)),
@@ -227,29 +299,11 @@ def main() -> int:
     del n
 
     # phase 5: the main path
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        in_png, out_png = os.path.join(tmp, "in.png"), os.path.join(tmp, "out.png")
-        with open(in_png, "wb") as f:
-            f.write(png_gray_alpha(glyph))
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", "import chaq_sdfgen_tpu_torch"], cwd=ROOT,
-                             capture_output=True, text=True, timeout=300)
-        require(res.returncode == 0, f"import failed: {res.stderr[-2000:]}")
-        log(f"main path: python start + import chaq_sdfgen_tpu_torch {time.perf_counter() - t0:.2f} s wall")
-        cmd = [sys.executable, "-m", "chaq_sdfgen_tpu_torch", "-i", in_png, "-o", out_png,
-               "-s", str(SPREAD), "--log-level", "info"]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        require(res.returncode == 0, f"CLI failed ({res.returncode}): {res.stderr[-2000:]}")
-        for line in res.stderr.splitlines():
-            log(f"  cli: {line}")
-        cli_out = imageio.load_gray_alpha(out_png)[..., 0]
+    cli_out, _, _ = run_cli(glyph, ["-s", str(SPREAD)], "hard")
     want = cuda_edt.fused_sdf_bytes_plain(inputs["glyph"], SPREAD).cpu().numpy()
     require(cli_out.shape == (SIZE, SIZE), f"CLI output shape {cli_out.shape}")
     cli_err = int(np.abs(cli_out.astype(np.int32) - want.astype(np.int32)).max())
-    log(f"main path: CLI {SIZE}x{SIZE} -s {SPREAD} in {cli_s:.2f} s wall (process, decode, "
-        f"build cache, encode); max abs err vs plain pipeline {cli_err}")
+    log(f"main path hard: CLI max abs err vs plain pipeline {cli_err}")
     require(cli_err == 0, "CLI output differs from the plain pipeline")
 
     from sdfref import oracle
@@ -257,7 +311,7 @@ def main() -> int:
     small = glyph[:256, :256]
     gen_small = SDFGenerator(SdfConfig(spread=SPREAD), device=dev).generate(small).cpu().numpy()
     ora_err = int(np.abs(gen_small.astype(np.int32) - oracle.sdf_pipeline_openmp(small, spread=SPREAD)).max())
-    log(f"main path: SDFGenerator 256x256 vs the reference oracle: max abs err {ora_err}")
+    log(f"main path hard: SDFGenerator 256x256 vs the reference oracle: max abs err {ora_err}")
     require(ora_err == 0, "SDFGenerator differs from the oracle of the reference binary")
 
     gen = SDFGenerator(SdfConfig(spread=SPREAD), device=dev)
@@ -268,13 +322,13 @@ def main() -> int:
     out = gen.generate(img_dev)
     torch.cuda.synchronize()
     launches = dict(cuda_edt.LAUNCHES)
-    log(f"main path: SDFGenerator {SIZE}x{SIZE} launches {launches}")
+    log(f"main path hard: SDFGenerator {SIZE}x{SIZE} launches {launches}")
     for k, v in launches.items():
         require(v > 0, f"kernel {k} was not launched on the main path")
     require(out.shape == (SIZE, SIZE) and out.dtype == torch.uint8, "main path output shape/dtype")
     require(bool((out.cpu().numpy() == cli_out).all()), "SDFGenerator and CLI outputs differ")
 
-    # phase 6: times at 4096x4096 spread 64 (CUDA events, median of 10)
+    # phase 6: times at 4096x4096 spread 64 (CUDA events, see cuda_ms)
     band = SPREAD + 2
     times = {}
     for name, b in inputs.items():
@@ -294,37 +348,261 @@ def main() -> int:
         for k, ms in t.items():
             log(f"time {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
 
-    # phase 7: device time by kernel over the main path, and the busy share
-    from torch.profiler import ProfilerActivity, profile
-
-    img = torch.from_numpy(glyph).to(dev)
-    gen.generate(img)
-    torch.cuda.synchronize()
-    runs = 10
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            gen.generate(img)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0 and e.cpu_time_total == 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
-        log(f"profile: {e.self_device_time_total / runs / 1e3:.4f} ms/run "
-            f"{100 * e.self_device_time_total / busy_us:.1f}%  {e.key[:90]}")
-    log(f"profile: device busy {busy_us / runs / 1e3:.4f} ms/run of a {window_us / runs / 1e3:.4f} ms/run "
-        f"window ({100 * busy_us / window_us:.1f}% busy, profiler on)")
-
-    print(smi, flush=True)
-    main_t = times["glyph"]
-    summary = {
-        "kernels": [
-            dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=err[k],
-                 ms=main_t[k], plain_ms=main_t[f"{k}_plain"])
-            for k in KERNELS
-        ]
+    # bounds on the main path's (glyph) input
+    npix = SIZE * SIZE
+    din, dout = cuda_edt.row_distances_u8(inputs["glyph"], band)
+    bounds = {
+        "edt_rows": bound(npix * (1 + 2 * din.element_size()), 6 * npix),
+        "edt_band_bytes": bound(npix * (2 * din.element_size() + 1), band_bytes_flops(npix)),
     }
-    print(json.dumps(summary))
+    # the u16 strips (spread 300), which the main path does not run
+    b, band16 = inputs["glyph"], 302
+    din, dout = cuda_edt.row_distances_u8(b, band16)
+    t16 = {
+        "edt_rows_u16": cuda_ms(lambda: cuda_edt.row_distances_u8(b, band16)),
+        "edt_rows_u16_plain": cuda_ms(lambda: cuda_edt.row_distances_u8_plain(b, band16), 2, 3),
+        "edt_band_bytes_u16": cuda_ms(lambda: cuda_edt.fused_pass2_bytes(din, dout, 300, False, band16)),
+        "edt_band_bytes_u16_plain": cuda_ms(
+            lambda: cuda_edt.fused_pass2_bytes_plain(din, dout, 300, False, band16), 2, 3),
+    }
+    b16 = {
+        "edt_rows_u16": bound(npix * (1 + 2 * din.element_size()), 6 * npix),
+        "edt_band_bytes_u16": bound(npix * (2 * din.element_size() + 1), band_bytes_flops(npix)),
+    }
+    for k, ms in t16.items():
+        log(f"time glyph spread 300 {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+    for k, (ms, by) in list(bounds.items()) + list(b16.items()):
+        log(f"bound hard {k}: {ms:.4f} ms ({by})")
+
+    # phase 7: device time by kernel over the main path, and the busy share
+    img = torch.from_numpy(glyph).to(dev)
+    profile_device("hard", lambda: gen.generate(img))
+    return err, launches, times["glyph"], bounds
+
+
+def run_cli(img2ch: np.ndarray, flags: list, label: str, soft_field: bool = False):
+    """The CLI on ``img2ch`` as a PNG, in its own process: (output bytes,
+    stderr lines, the --soft-field array or None). Raises if it fails."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        in_png, out_png = os.path.join(tmp, "in.png"), os.path.join(tmp, "out.png")
+        field_npy = os.path.join(tmp, "field.npy")
+        with open(in_png, "wb") as f:
+            f.write(png_gray_alpha(img2ch))
+        flags = flags + (["--soft-field", field_npy] if soft_field else [])
+        cmd = [sys.executable, "-m", "chaq_sdfgen_tpu_torch", "-i", in_png, "-o", out_png,
+               "--log-level", "info", *flags]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        require(res.returncode == 0, f"CLI {label} failed ({res.returncode}): {res.stderr[-2000:]}")
+        for line in res.stderr.splitlines():
+            log(f"  cli {label}: {line}")
+        log(f"main path {label}: CLI {SIZE}x{SIZE} {' '.join(flags)} in {cli_s:.2f} s wall "
+            f"(process, decode, kernels' build cache, encode)")
+        out = imageio.load_gray_alpha(out_png)[..., 0]
+        return out, res.stderr.splitlines(), np.load(field_npy) if soft_field else None
+
+
+# --------------------------------------------------------------- soft phases
+
+
+def soft_check(gray: torch.Tensor, tau: float, t: float, above: bool, ct: torch.Tensor):
+    """One soft case on the card: (fwd err, bwd abs err, bwd rel err)."""
+    k1, k2, c = soft_mxu.range_stats(SPREAD + 2, tau, t, U8)
+    field, d2i, d2o = cuda_soft_mm.mm_fused_fwd(gray, c, k1, k2, tau, t, 1e-6, above)
+    x = gray.clone().requires_grad_()
+    pf, pi, po = cuda_soft_mm.mm_fused_fwd_plain(x, c, k1, k2, tau, t, 1e-6, above)
+    e_fwd = 0.0
+    for got, want in ((d2i, pi.detach()), (d2o, po.detach())):
+        require(bool(torch.equal(got >= 1e29, want >= 1e29)), "soft_mm_fwd: dead windows differ")
+        live = want < 1e29
+        if bool(live.any()):
+            e_fwd = max(e_fwd, float((got - want).abs()[live].max()))
+    live = (pi < 1e29) & (po < 1e29)
+    if bool(live.any()):
+        e_fwd = max(e_fwd, float((field - pf.detach()).abs()[live].max()))
+    dk = cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, gray, c, k1, k2, tau, t, 1e-6, above)
+    dp, = torch.autograd.grad(pf, x, ct)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(dk).all()), "soft_mm_bwd: non-finite dgray")
+    e_bwd = float((dk - dp).abs().max())
+    rel = e_bwd / max(float(dp.abs().max()), 1e-30)
+    return e_fwd, e_bwd, rel
+
+
+def soft_phases(dev, glyph):
+    """Phases 8-11. Returns (errors, launches, times, bounds)."""
+    err = {"soft_mm_fwd": 0.0, "soft_mm_bwd": 0.0}
+    rng = np.random.default_rng(SEED + 3)
+    big = {
+        "noise": torch.from_numpy((rng.random((SIZE, SIZE)) * 255).astype(np.float32)).to(dev),
+        "glyph": torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev),
+    }
+    cases = [(f"{name} {SIZE}x{SIZE}", g) for name, g in big.items()]
+    for shape in ((1, 17), (17, 1), (129, 130), (384, 260), (3, 256, 256)):
+        cases.append((f"noise {shape}", torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(dev)))
+    for name, g in cases:
+        ct = torch.from_numpy(rng.standard_normal(tuple(g.shape)).astype(np.float32)).to(dev)
+        for tau, t in SOFT_PARAMS:
+            for above in (True, False):
+                e_fwd, e_bwd, rel = soft_check(g, tau, t, above, ct)
+                err["soft_mm_fwd"] = max(err["soft_mm_fwd"], e_fwd)
+                err["soft_mm_bwd"] = max(err["soft_mm_bwd"], e_bwd)
+                log(f"check soft {name} tau {tau} T {t}{'' if above else ' inverted'}: "
+                    f"soft_mm_fwd err {e_fwd:.3e}, soft_mm_bwd err {e_bwd:.3e} ({rel:.3e} of scale)")
+                require(e_fwd <= 1e-4, f"soft_mm_fwd disagrees with its plain version on {name}")
+                require(rel < 1e-4, f"soft_mm_bwd disagrees with autograd of the plain forward on {name}")
+
+    # phase 9: the soft main path. Serving: the CLI's --soft on the glyph PNG.
+    cli_out, cli_log, cli_field = run_cli(glyph, ["--soft", "-s", str(SPREAD)], "soft", soft_field=True)
+    soft_cfg = SoftConfig()
+    pk1, pk2, pc = soft_mxu.range_stats(SPREAD + 2, soft_cfg.tau, soft_cfg.temperature, U8)
+    plain_field = soft_mxu.soft_field_collapsed(
+        big["glyph"], pk1, pk2, pc, soft_cfg.tau, soft_cfg.temperature, soft_cfg.eps)[0]
+    plain_bytes = torch.clamp(merge.soft_remap(plain_field, SPREAD, False, "hard"), 0, 255)
+    plain_bytes = plain_bytes.to(torch.int32).cpu().numpy()
+    plain_field = plain_field.cpu().numpy()
+    require(cli_out.shape == (SIZE, SIZE) and cli_field.shape == (SIZE, SIZE), "soft CLI output shapes")
+    require(bool(np.isfinite(cli_field).all()), "soft CLI field is not finite")
+    e_bytes = int(np.abs(cli_out.astype(np.int32) - plain_bytes).max())
+    e_field = float(np.abs(cli_field - plain_field).max())
+    log(f"main path soft: CLI vs plain pipeline: bytes max abs err {e_bytes} "
+        f"({float((cli_out != plain_bytes).mean()):.2e} of bytes differ), field max abs err {e_field:.3e}")
+    require(e_bytes <= 1 and e_field <= 1e-4, "soft CLI differs from the plain pipeline")
+    cli_launches = json.loads(next(l for l in cli_log if "kernel launches" in l).split("launches ", 1)[1])
+    require(cli_launches["soft_mm_fwd"] > 0, "the soft CLI did not launch soft_mm_fwd")
+
+    # Training: the bench's value-and-gradient step with an SGD update.
+    g0 = big["noise"]
+    k1, k2, c = soft_mxu.range_stats(SPREAD + 2, TRAIN_TAU, TRAIN_T, U8)
+
+    def loss_fn(g):
+        return softsdf.soft_sdf_field(g, SPREAD, tau=TRAIN_TAU, temperature=TRAIN_T, gray_range=U8).sum()
+
+    def train_step(g):
+        x = g.detach().requires_grad_()
+        value = loss_fn(x)
+        value.backward()
+        with torch.no_grad():
+            return x - TRAIN_LR * x.grad, value.detach(), x.grad
+
+    def plain_train_step(g):
+        x = g.detach().requires_grad_()
+        value = soft_mxu.soft_field_collapsed(x, k1, k2, c, TRAIN_TAU, TRAIN_T, 1e-6)[0].sum()
+        value.backward()
+        with torch.no_grad():
+            return x - TRAIN_LR * x.grad, value.detach(), x.grad
+
+    torch.cuda.synchronize()
+    for k in cuda_soft_mm.LAUNCHES:
+        cuda_soft_mm.LAUNCHES[k] = 0
+    g, values, first = g0, [], None
+    for step in range(3):
+        g, value, grad = train_step(g)
+        values.append(float(value))
+        first = first if first is not None else grad
+    torch.cuda.synchronize()
+    launches = dict(cuda_soft_mm.LAUNCHES)
+    log(f"main path soft: training {SIZE}x{SIZE} 3 steps, losses {values}, launches {launches}")
+    for k, v in launches.items():
+        require(v > 0, f"kernel {k} was not launched on the soft main path")
+    require(all(math.isfinite(v) for v in values) and bool(torch.isfinite(g).all()),
+            "training step is not finite")
+    _, p_value, p_grad = plain_train_step(g0)
+    rel_v = abs(values[0] - float(p_value)) / abs(float(p_value))
+    rel_g = float((first - p_grad).abs().max()) / float(p_grad.abs().max())
+    log(f"main path soft: step 1 vs plain: loss rel err {rel_v:.3e}, gradient {rel_g:.3e} of scale")
+    require(rel_v < 1e-5 and rel_g < 1e-4, "training step differs from the plain version")
+
+    # phase 10: times at 4096x4096 spread 64
+    times = {}
+    gen = SDFGenerator(SdfConfig(spread=SPREAD), soft=soft_cfg, device=dev)
+    img = torch.from_numpy(glyph).to(dev)
+    args = (c, k1, k2, TRAIN_TAU, TRAIN_T, 1e-6, True)
+    _, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g0, *args)
+    ct = torch.ones_like(g0)  # the cotangent of a summed loss
+
+    def plain_generate():
+        gray = img[..., 1].to(torch.float32)
+        f = soft_mxu.soft_field_collapsed(gray, pk1, pk2, pc, soft_cfg.tau, soft_cfg.temperature, soft_cfg.eps)[0]
+        return torch.clamp(merge.soft_remap(f, SPREAD, False, "hard"), 0, 255).to(torch.int32).to(torch.uint8)
+
+    times["soft_mm_fwd_serving"] = cuda_ms(lambda: cuda_soft_mm.mm_fused_fwd(g0, *args, memos=False))
+    times["soft_mm_fwd_serving_plain"] = cuda_ms(
+        lambda: cuda_soft_mm.mm_fused_fwd_plain(g0, *args, memos=False))
+    times["soft_mm_fwd"] = cuda_ms(lambda: cuda_soft_mm.mm_fused_fwd(g0, *args))
+    times["soft_mm_fwd_plain"] = cuda_ms(lambda: cuda_soft_mm.mm_fused_fwd_plain(g0, *args))
+    times["soft_mm_bwd"] = cuda_ms(lambda: cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g0, *args))
+    times["soft_mm_bwd_plain"] = cuda_ms(lambda: cuda_soft_mm.mm_fused_bwd_plain(ct, d2i, d2o, g0, *args))
+    times["training_step"] = cuda_ms(lambda: train_step(g0))
+    times["training_step_plain"] = cuda_ms(lambda: plain_train_step(g0))
+    times["generate"] = cuda_ms(lambda: gen.generate(img))
+    times["generate_plain"] = cuda_ms(plain_generate)
+    for k, ms in times.items():
+        log(f"time soft {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+
+    npix = SIZE * SIZE
+    bounds = {
+        "soft_mm_fwd_serving": bound(8 * npix, soft_flops(npix, k1, k2, True)),
+        "soft_mm_fwd": bound(16 * npix, soft_flops(npix, k1, k2, True)),
+        "soft_mm_bwd": bound(20 * npix, soft_flops(npix, k1, k2, False)),
+    }
+    for k, (ms, by) in bounds.items():
+        log(f"bound soft {k}: {ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
+            f"roofline share {100 * ms / times[k]:.1f}%")
+
+    # phase 11: device time by kernel over the training step
+    profile_device("soft training step", lambda: train_step(g0))
+    return err, launches, times, bounds
+
+
+def summary(*paths) -> dict:
+    """The kernels' JSON line from each path's (errors, launches, times,
+    bounds). No PyTorch call computes any kernel's function, so
+    library_ms is null throughout."""
+    rows = []
+    for k, spec in KERNELS.items():
+        err, launches, times, bounds = next(p for p in paths if k in p[0])
+        rows.append(dict(
+            name=k, **spec, launches=launches[k], max_abs_err=err[k], ms=times[k],
+            plain_ms=times[f"{k}_plain"], bound_ms=bounds[k][0], bound_by=bounds[k][1],
+            library_ms=None,
+        ))
+    return {"kernels": rows}
+
+
+def main() -> int:
+    # phase 1: the card
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    smi = nvidia_smi()
+    log(f"card: {smi}")
+    dev = torch.device("cuda", 0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"build: kernels {_build.BUILD_INFO['seconds']:.2f} s -> {os.path.relpath(_build.BUILD_INFO['path'], ROOT)}")
+    for line in _build.BUILD_INFO["log"].splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+    t1 = time.perf_counter()
+    require(sdfio_native.available(), "native/sdfio codec did not build")
+    log(f"build: native/sdfio {time.perf_counter() - t1:.2f} s; total {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", "import chaq_sdfgen_tpu_torch"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    require(res.returncode == 0, f"import failed: {res.stderr[-2000:]}")
+    log(f"python start + import chaq_sdfgen_tpu_torch {time.perf_counter() - t0:.2f} s wall")
+
+    noise = noise_image(SIZE, SEED)
+    glyph = glyph_image(SIZE, SEED + 1)
+    kernels = summary(hard_phases(dev, noise, glyph), soft_phases(dev, glyph))
+    print(smi, flush=True)
+    print(json.dumps(kernels))
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

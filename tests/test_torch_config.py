@@ -1,6 +1,6 @@
 """The PyTorch port's configuration against the JAX package's: same fields,
-defaults and derived properties, and SdfConfig carried across by
-``from_dict(asdict(...))``."""
+defaults and derived properties, and SdfConfig and SoftConfig carried
+across by ``from_dict(asdict(...))``."""
 
 import dataclasses
 
@@ -59,6 +59,32 @@ def test_from_dict_round_trips(kw):
 def test_from_dict_rejects_unknown_fields():
     with pytest.raises(ValueError):
         tcfg.SdfConfig.from_dict({"spread": 3, "sharpness": 1})
+
+
+SOFT_CONFIGS = [
+    {},
+    {"tau": 2.0, "temperature": 1.0},
+    {"tau": 4.0, "temperature": 1.5, "eps": 1e-8, "clamp": "tanh", "gray_range": (-10.0, 300.0)},
+    {"clamp": "none", "gray_range": None},
+]
+
+
+@pytest.mark.parametrize("kw", SOFT_CONFIGS)
+def test_soft_from_dict_round_trips(kw):
+    j = jcfg.SoftConfig(**kw)
+    t = tcfg.SoftConfig.from_dict(dataclasses.asdict(j))
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert tcfg.SoftConfig.from_dict(dataclasses.asdict(t)) == t
+    # JSON hands a range back as a list; it comes back as a tuple
+    d = dataclasses.asdict(j)
+    if d["gray_range"] is not None:
+        d["gray_range"] = list(d["gray_range"])
+    assert tcfg.SoftConfig.from_dict(d) == t and tcfg.SoftConfig.from_dict(d).gray_range == t.gray_range
+
+
+def test_soft_from_dict_rejects_unknown_fields():
+    with pytest.raises(ValueError):
+        tcfg.SoftConfig.from_dict({"tau": 1.0, "precision": "high"})
 
 
 def test_spread_validation_matches():

@@ -1,7 +1,8 @@
-"""The hard path's CUDA kernels (csrc/edt.cu) against their plain PyTorch
-versions on the card, byte for byte. Marked ``gpu``: each test skips where
-no CUDA device is present. This file imports no JAX, so on a machine
-without it run it past the suite's conftest:
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+hard path's (csrc/edt.cu) byte for byte, the soft path's (csrc/soft_mm.cu)
+within 1e-4 (field, and dgray relative to its scale). Marked ``gpu``: each
+test skips where no CUDA device is present. This file imports no JAX, so on
+a machine without it run it past the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
@@ -10,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from chaq_sdfgen_tpu_torch.config import SdfConfig
+from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-from chaq_sdfgen_tpu_torch.ops import cuda_edt
+from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm, soft_mxu, softsdf
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 
 pytestmark = pytest.mark.gpu
@@ -111,3 +112,94 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
         cuda_edt.fused_pass2_bytes(din, dout[:4], 3, False, 5)
     with pytest.raises(TypeError):
         cuda_edt.fused_pass2_bytes(din.float(), dout.float(), 3, False, 5)
+
+
+# ------------------------------------------------------------- soft kernels
+
+SOFT_SHAPES = [(1, 17), (17, 1), (129, 130), (384, 260), (3, 256, 256), (70, 1000)]
+SOFT_PARAMS = [(2.0, 1.0), (1.0, 0.5)]  # (tau, T): the bench's and the CLI's
+
+
+def _soft_case(dev, shape, tau, temperature, seed=0):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy((rng.random(shape) * 255).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return g, ct, soft_mxu.range_stats(66, tau, temperature, (0.0, 255.0))
+
+
+@pytest.mark.parametrize("shape", SOFT_SHAPES)
+@pytest.mark.parametrize("tau,temperature", SOFT_PARAMS)
+@pytest.mark.parametrize("test_above", [True, False])
+def test_soft_mm_fwd_matches_plain(dev, shape, tau, temperature, test_above):
+    g, _, (k1, k2, c) = _soft_case(dev, shape, tau, temperature)
+    before = cuda_soft_mm.LAUNCHES["soft_mm_fwd"]
+    f, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g, c, k1, k2, tau, temperature, 1e-6, test_above)
+    assert cuda_soft_mm.LAUNCHES["soft_mm_fwd"] == before + 1
+    pf, pi, po = cuda_soft_mm.mm_fused_fwd_plain(g, c, k1, k2, tau, temperature, 1e-6, test_above)
+    torch.cuda.synchronize()
+    for got, want in ((d2i, pi), (d2o, po)):
+        assert torch.equal(got >= 1e29, want >= 1e29)  # the same dead windows
+        live = want < 1e29
+        assert float((got - want).abs()[live].max()) <= 1e-4
+    live = (pi < 1e29) & (po < 1e29)
+    assert float((f - pf).abs()[live].max()) <= 1e-4
+    no_memo = cuda_soft_mm.mm_fused_fwd(g, c, k1, k2, tau, temperature, 1e-6, test_above, memos=False)
+    assert torch.equal(no_memo, f)
+
+
+@pytest.mark.parametrize("shape", SOFT_SHAPES)
+@pytest.mark.parametrize("tau,temperature", SOFT_PARAMS)
+@pytest.mark.parametrize("test_above", [True, False])
+def test_soft_mm_bwd_matches_autograd_of_plain(dev, shape, tau, temperature, test_above):
+    g, ct, (k1, k2, c) = _soft_case(dev, shape, tau, temperature, seed=1)
+    _, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g, c, k1, k2, tau, temperature, 1e-6, test_above)
+    before = cuda_soft_mm.LAUNCHES["soft_mm_bwd"]
+    got = cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g, c, k1, k2, tau, temperature, 1e-6, test_above)
+    assert cuda_soft_mm.LAUNCHES["soft_mm_bwd"] == before + 1
+    x = g.clone().requires_grad_()
+    pf = cuda_soft_mm.mm_fused_fwd_plain(x, c, k1, k2, tau, temperature, 1e-6, test_above, memos=False)
+    want, = torch.autograd.grad(pf, x, ct)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) < 1e-4 * float(want.abs().max())
+
+
+def test_soft_training_step_runs_both_kernels(dev):
+    rng = np.random.default_rng(4)
+    g = torch.from_numpy((rng.random((300, 200)) * 255).astype(np.float32)).to(dev).requires_grad_()
+    before = dict(cuda_soft_mm.LAUNCHES)
+    loss = softsdf.soft_sdf_field(g, 64, tau=2.0, temperature=1.0, gray_range=(0.0, 255.0)).sum()
+    loss.backward()
+    assert cuda_soft_mm.LAUNCHES["soft_mm_fwd"] == before["soft_mm_fwd"] + 1
+    assert cuda_soft_mm.LAUNCHES["soft_mm_bwd"] == before["soft_mm_bwd"] + 1
+    x = g.detach().cpu().requires_grad_()
+    softsdf.soft_sdf_field(x, 64, tau=2.0, temperature=1.0, gray_range=(0.0, 255.0)).sum().backward()
+    # CPU and CUDA exp/log differ in the last ulp; the gradient stays close
+    assert float((g.grad.cpu() - x.grad).abs().max()) < 2e-3 * float(x.grad.abs().max())
+
+
+def test_soft_generator_runs_the_forward_kernel(dev):
+    img = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (96, 80, 2), dtype=np.uint8))
+    gen = SDFGenerator(SdfConfig(spread=12), soft=SoftConfig(), device=dev)
+    before = dict(cuda_soft_mm.LAUNCHES)
+    out = gen.generate(img)
+    assert cuda_soft_mm.LAUNCHES["soft_mm_fwd"] == before["soft_mm_fwd"] + 1
+    assert cuda_soft_mm.LAUNCHES["soft_mm_bwd"] == before["soft_mm_bwd"]
+    want = SDFGenerator(SdfConfig(spread=12), soft=SoftConfig(), device="cpu").generate(img)
+    assert int((out.cpu().int() - want.int()).abs().max()) <= 1
+    assert gen.kernel_time(img, iters=3) > 0
+
+
+def test_soft_wrappers_refuse_what_kernels_do_not_take(dev):
+    g = torch.zeros((8, 8), device=dev)
+    with pytest.raises(ValueError):
+        cuda_soft_mm.mm_fused_fwd(g.t().contiguous().t(), 0.0, 3, 3, 2.0, 1.0, 1e-6)  # strided
+    with pytest.raises(TypeError):
+        cuda_soft_mm.mm_fused_fwd(g.double(), 0.0, 3, 3, 2.0, 1.0, 1e-6)
+    with pytest.raises(ValueError):
+        cuda_soft_mm.mm_fused_fwd(g, 0.0, 17, 3, 2.0, 1.0, 1e-6)
+    _, a, b = cuda_soft_mm.mm_fused_fwd(g, 0.0, 3, 3, 2.0, 1.0, 1e-6)
+    with pytest.raises(ValueError):
+        cuda_soft_mm.mm_fused_bwd(g, a[:4], b, g, 0.0, 3, 3, 2.0, 1.0, 1e-6)
+    with pytest.raises(ValueError):
+        cuda_soft_mm.mm_fused_bwd(g, a.cpu(), b, g, 0.0, 3, 3, 2.0, 1.0, 1e-6)

@@ -1,7 +1,9 @@
-"""The hard EXACT slice of the PyTorch port as a whole, on the CPU: the
+"""The PyTorch port as a whole, on the CPU. The hard EXACT slice: the
 pipeline functions and SDFGenerator against the JAX package and the NumPy
 oracle of the reference binary, and the CLI end to end against the JAX
-package's CLI on the same PNG. Every comparison is byte-exact."""
+package's CLI on the same PNG, byte-exact. The soft slice: SDFGenerator's
+field and bytes and the CLI's --soft against the JAX package's, within the
+soft path's tolerances. And the refusal to run on the CPU unasked."""
 
 import dataclasses
 import io
@@ -18,6 +20,8 @@ import jax.numpy as jnp
 
 import chaq_sdfgen_tpu.cli as jcli
 import chaq_sdfgen_tpu.config as jcfg
+from chaq_sdfgen_tpu.ops import merge as jmerge
+from chaq_sdfgen_tpu.ops import pallas_soft_mm as jpm
 from chaq_sdfgen_tpu.models import sdf_model as jmodel
 from sdfref import oracle
 
@@ -95,8 +99,9 @@ def test_sdf_generator_refuses_unported_paths():
         tmodel.SDFGenerator(tcfg.SdfConfig(algorithm="brute"))
     with pytest.raises(NotImplementedError):
         tmodel.SDFGenerator(tcfg.SdfConfig(algorithm="jfa"))
-    with pytest.raises(NotImplementedError):
-        tmodel.SDFGenerator(soft=tcfg.SoftConfig())
+    for rng in (None, (-1e9, 1e9)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            tmodel.SDFGenerator(soft=tcfg.SoftConfig(gray_range=rng))
     with pytest.raises(NotImplementedError):
         tmodel.SDFGenerator(sharding=tcfg.ShardingConfig())
     with pytest.raises(ValueError):
@@ -129,7 +134,7 @@ def _decode(path_or_bytes):
 def test_cli_matches_jax_cli(tmp_path, input_png, flags):
     ext = "bmp" if "bmp" in flags else "png"
     t_out, j_out = tmp_path / f"t.{ext}", tmp_path / f"j.{ext}"
-    assert tcli.main(["-i", input_png, "-o", str(t_out), *flags]) == 0
+    assert tcli.main(["-i", input_png, "-o", str(t_out), "--platform", "cpu", *flags]) == 0
     assert jcli.main(["-i", input_png, "-o", str(j_out), *flags]) == 0
     t_mode, t_px = _decode(str(t_out))
     j_mode, j_px = _decode(str(j_out))
@@ -138,7 +143,7 @@ def test_cli_matches_jax_cli(tmp_path, input_png, flags):
 
 
 def test_cli_stdout_streaming_matches_jax(input_png, capsysbinary):
-    assert tcli.main(["-i", input_png, "-o", "-", "-s", "100", "-al"]) == 0
+    assert tcli.main(["-i", input_png, "-o", "-", "-s", "100", "-al", "--platform", "cpu"]) == 0
     t_data = capsysbinary.readouterr().out
     assert jcli.main(["-i", input_png, "-o", "-", "-s", "100", "-al"]) == 0
     j_data = capsysbinary.readouterr().out
@@ -147,13 +152,16 @@ def test_cli_stdout_streaming_matches_jax(input_png, capsysbinary):
 
 def test_cli_validation_errors(tmp_path, input_png):
     out = str(tmp_path / "x.png")
-    assert tcli.main(["-i", input_png, "-s", "10"]) == 1  # no output
-    assert tcli.main(["-o", out]) == 1  # no input
-    assert tcli.main(["-i", input_png, "-o", out, "-q", "0"]) == 1
-    assert tcli.main(["-i", input_png, "-o", out, "-q", "101"]) == 1
-    assert tcli.main(["-i", input_png, "-o", out, "-s", "0"]) == 1
-    assert tcli.main(["-i", "/nonexistent.png", "-o", out]) == 1
-    assert tcli.main(["-i", input_png, "-o", out, "-f", "webp"]) == 1
+    cpu = ["--platform", "cpu"]
+    assert tcli.main(["-i", input_png, "-s", "10", *cpu]) == 1  # no output
+    assert tcli.main(["-o", out, *cpu]) == 1  # no input
+    assert tcli.main(["-i", input_png, "-o", out, "-q", "0", *cpu]) == 1
+    assert tcli.main(["-i", input_png, "-o", out, "-q", "101", *cpu]) == 1
+    assert tcli.main(["-i", input_png, "-o", out, "-s", "0", *cpu]) == 1
+    assert tcli.main(["-i", "/nonexistent.png", "-o", out, *cpu]) == 1
+    assert tcli.main(["-i", input_png, "-o", out, "-f", "webp", *cpu]) == 1
+    assert tcli.main(["-i", input_png, "-o", out, "--soft-field", str(tmp_path / "f.npy"), *cpu]) == 1
+    assert not os.path.exists(out)
 
 
 def test_cli_platforms_and_devices(tmp_path, input_png, capsys):
@@ -178,7 +186,9 @@ def test_cli_time_flag(tmp_path, input_png, capsys):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, chaq_sdfgen_tpu_torch, chaq_sdfgen_tpu_torch.cli, "
-        "chaq_sdfgen_tpu_torch.ops.cuda_edt, chaq_sdfgen_tpu_torch.utils.imageio; "
+        "chaq_sdfgen_tpu_torch.ops.cuda_edt, chaq_sdfgen_tpu_torch.utils.imageio, "
+        "chaq_sdfgen_tpu_torch.ops.cuda_soft_mm, chaq_sdfgen_tpu_torch.ops.soft_mxu, "
+        "chaq_sdfgen_tpu_torch.ops.softsdf; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'chaq_sdfgen_tpu.'))"
         " or m == 'chaq_sdfgen_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -187,3 +197,123 @@ def test_import_pulls_in_no_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# ------------------------------------------------------------- soft slice
+
+
+def _soft_pair(kw, soft_kw):
+    jc, js = jcfg.SdfConfig(**kw), jcfg.SoftConfig(**soft_kw)
+    tc = tcfg.SdfConfig.from_dict(dataclasses.asdict(jc))
+    ts = tcfg.SoftConfig.from_dict(dataclasses.asdict(js))
+    return jmodel.SDFGenerator(jc, soft=js), tmodel.SDFGenerator(tc, soft=ts, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "kw,soft_kw",
+    [({"spread": 16}, {"tau": 2.0, "temperature": 1.0}),
+     ({"spread": 12, "asymmetric": True, "invert": True}, {"tau": 2.0, "temperature": 1.0}),
+     ({"spread": 10, "channel": "luminance"}, {"clamp": "tanh", "tau": 4.0, "temperature": 1.5})],
+)
+def test_soft_generator_matches_jax(kw, soft_kw):
+    """Field within 2e-3 of JAX's generate_field (which runs the composed
+    path on the CPU), bytes within 1 of JAX's generate (a truncating cast
+    of values within 2e-3 can land one byte apart), on an image and a
+    batch of 2."""
+    jgen, tgen = _soft_pair(kw, soft_kw)
+    img = _image(shape=(40, 52), seed=7)
+    field = tgen.generate_field(img)
+    assert field.dtype == torch.float32 and field.shape == (40, 52)
+    np.testing.assert_allclose(field.numpy(), np.asarray(jgen.generate_field(img)), atol=2e-3, rtol=0)
+    got = tgen.generate(img)
+    assert got.dtype == torch.uint8
+    diff = np.abs(got.numpy().astype(int) - np.asarray(jgen.generate(img)).astype(int))
+    assert diff.max() <= 1
+    batch = np.stack([img, _image(shape=(40, 52), seed=8)])
+    bf = tgen.generate_field(torch.from_numpy(batch))
+    assert bf.shape == (2, 40, 52)
+    np.testing.assert_array_equal(bf[0].numpy(), field.numpy())
+    np.testing.assert_array_equal(tgen.generate(batch)[0].numpy(), got.numpy())
+
+
+def _jax_kernel_bytes(field, spread, asymmetric, clamp):
+    v = jmerge.soft_remap(jnp.asarray(field), spread, asymmetric, clamp=clamp)
+    return np.asarray(jnp.clip(v, 0.0, 255.0).astype(jnp.uint8))
+
+
+@pytest.mark.parametrize("spread", [16, 64])
+def test_soft_generator_defaults_match_jax_kernel(spread):
+    """At the default tau 1 / T 0.5, against the JAX pair of kernels that
+    JAX's SDFGenerator runs on its accelerator (pallas_soft_mm in interpret
+    mode): field within 1e-4, bytes within 1. JAX's CPU composed path
+    differs from those kernels here (ROADMAP Queue 3: taps at d >= 7
+    underflow at T 0.5), so it is not the reference for these defaults."""
+    img = _image(shape=(40, 52), seed=7)
+    gen = tmodel.SDFGenerator(tcfg.SdfConfig(spread=spread), soft=tcfg.SoftConfig(), device="cpu")
+    want = np.asarray(jpm.soft_field_mm_fused(jnp.asarray(img[..., 1].astype(np.float32)),
+                                              spread + 2, 1.0, 0.5, 1e-6, interpret=True))
+    field = gen.generate_field(img).numpy()
+    np.testing.assert_allclose(field, want, atol=1e-4, rtol=0)
+    diff = np.abs(gen.generate(img).numpy().astype(int)
+                  - _jax_kernel_bytes(want, spread, False, "hard").astype(int))
+    assert diff.max() <= 1
+
+
+def test_soft_generator_field_needs_soft_and_times():
+    with pytest.raises(ValueError):
+        tmodel.SDFGenerator(device="cpu").generate_field(_image())
+    gen = tmodel.SDFGenerator(tcfg.SdfConfig(spread=8), soft=tcfg.SoftConfig(), device="cpu")
+    assert 0 < gen.kernel_time(_image(), iters=2) < 60
+
+
+def test_cli_soft_matches_jax_cli(tmp_path, input_png):
+    """--soft with --soft-field against the JAX CLI at tau 2 / T 1 (where
+    the JAX CLI's CPU composed path and the kernels agree): bytes within
+    1, field within 2e-3."""
+    t_out, j_out = tmp_path / "t.png", tmp_path / "j.png"
+    t_f, j_f = tmp_path / "t.npy", tmp_path / "j.npy"
+    flags = ["--soft", "-s", "12", "--soft-tau", "2", "--soft-temperature", "1"]
+    assert tcli.main(["-i", input_png, "-o", str(t_out), "--soft-field", str(t_f),
+                      "--platform", "cpu", *flags]) == 0
+    assert jcli.main(["-i", input_png, "-o", str(j_out), "--soft-field", str(j_f), *flags]) == 0
+    t_px, j_px = _decode(str(t_out))[1], _decode(str(j_out))[1]
+    assert np.abs(t_px.astype(int) - j_px.astype(int)).max() <= 1
+    np.testing.assert_allclose(np.load(t_f), np.load(j_f), atol=2e-3, rtol=0)
+
+
+def test_cli_soft_defaults_match_jax_kernel(tmp_path, input_png):
+    """--soft at its defaults (tau 1, T 0.5, spread 64) against the JAX
+    kernels the JAX CLI runs on its accelerator: field within 1e-4,
+    bytes within 1."""
+    out, f = tmp_path / "t.png", tmp_path / "t.npy"
+    assert tcli.main(["-i", input_png, "-o", str(out), "--soft", "--soft-field", str(f),
+                      "--platform", "cpu"]) == 0
+    gray = _decode(input_png)[1][..., 1].astype(np.float32)
+    want = np.asarray(jpm.soft_field_mm_fused(jnp.asarray(gray), 66, 1.0, 0.5, 1e-6, interpret=True))
+    np.testing.assert_allclose(np.load(f), want, atol=1e-4, rtol=0)
+    px = _decode(str(out))[1]
+    assert np.abs(px.astype(int) - _jax_kernel_bytes(want, 64, False, "hard").astype(int)).max() <= 1
+
+
+def test_cli_soft_refuses_undeclared_range(tmp_path, input_png, capsys):
+    out = str(tmp_path / "o.png")
+    assert tcli.main(["-i", input_png, "-o", out, "--soft", "--gray-range", "-1e9", "1e9",
+                      "--platform", "cpu"]) == 1
+    assert "Queue 1 item 6" in capsys.readouterr().err
+    assert not os.path.exists(out)
+
+
+def test_no_card_needs_an_explicit_cpu(tmp_path, input_png, monkeypatch, capsys):
+    """Without a card the port never carries on on the CPU by itself:
+    SDFGenerator() raises and the CLI exits 1 unless the CPU is asked
+    for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmodel.SDFGenerator()
+    with pytest.raises(RuntimeError):
+        tmodel.SDFGenerator(soft=tcfg.SoftConfig())
+    out = str(tmp_path / "o.png")
+    assert tcli.main(["-i", input_png, "-o", out]) == 1
+    assert "--platform cpu" in capsys.readouterr().err
+    assert not os.path.exists(out)
+    assert tcli.main(["-i", input_png, "-o", out, "--platform", "cpu"]) == 0

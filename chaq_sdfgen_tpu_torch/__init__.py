@@ -1,10 +1,12 @@
 """chaq_sdfgen_tpu_torch -- the PyTorch and CUDA port of chaq_sdfgen_tpu.
 
 The hard EXACT pipeline (OpenMP-binary parity) runs on an NVIDIA Hopper
-card through two hand-written CUDA kernels (csrc/edt.cu), and the
-differentiable soft field on a declared gray range, forward and backward,
-through two more (csrc/soft_mm.cu), with plain PyTorch versions beside them
-for CPU tensors. This package imports no JAX; the JAX package beside it is
+card through two hand-written CUDA kernels (csrc/edt.cu); the
+differentiable soft field, forward and backward, through two more on a
+declared gray range (csrc/soft_mm.cu) and, behind a runtime gate, four
+adaptive ones for any range (csrc/soft_fused.cu); and the trainable
+SoftSDFModel on top. Plain PyTorch versions beside the kernels serve CPU
+tensors. This package imports no JAX; the JAX package beside it is
 the reference it is tested against.
 """
 
@@ -13,6 +15,12 @@ from chaq_sdfgen_tpu_torch.models.sdf_model import (
     SDFGenerator,
     hard_sdf_exact,
     hard_sdf_exact_from_bool,
+)
+from chaq_sdfgen_tpu_torch.models.soft_model import (
+    SoftSDFModel,
+    create_train_state,
+    make_train_step,
+    params_from_jax,
 )
 from chaq_sdfgen_tpu_torch.ops.merge import soft_remap
 from chaq_sdfgen_tpu_torch.ops.softsdf import soft_sdf_bytes, soft_sdf_field
@@ -26,8 +34,12 @@ __all__ = [
     "ShardingConfig",
     "SoftConfig",
     "SDFGenerator",
+    "SoftSDFModel",
+    "create_train_state",
     "hard_sdf_exact",
     "hard_sdf_exact_from_bool",
+    "make_train_step",
+    "params_from_jax",
     "soft_remap",
     "soft_sdf_bytes",
     "soft_sdf_field",

@@ -8,9 +8,11 @@ chaq_sdfgen_opencl (opencl/main.cpp:362-444): --list-platforms,
 Platforms are ``cuda`` (when a card is present) and ``cpu``. The default is
 the first CUDA device; without a card the CLI runs only when asked for the
 CPU (--platform cpu). --algorithm offers only ``exact`` until BRUTE and
-JFA are ported. --soft runs the differentiable path on a declared gray
-range (--gray-range, default 0 255); an undeclared or out-of-gamut range is
-not ported yet (ROADMAP Queue 1 item 6), nor is --soft-prec.
+JFA are ported. --soft runs the differentiable path: on the declared gray
+range (--gray-range, default 0 255) where it lies inside the gamut of
+--soft-tau and --soft-temperature, else through the runtime gate (a range
+such as -1e9 1e9 forces it); spreads above 110 on that path (band > 112)
+are not ported yet (ROADMAP Queue 2 item 13), nor is --soft-prec.
 
 Usage:  python -m chaq_sdfgen_tpu_torch -i in.png -o out.png -s 100 -al
 """
@@ -89,7 +91,8 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar=("LO", "HI"),
                    help="declared input-value bound for the soft path (default: "
                         "0 255, always valid for u8 images); a range outside "
-                        "the kernels' gamut is not ported yet")
+                        "the declared-range kernels' gamut (e.g. -1e9 1e9) "
+                        "takes the runtime-gated adaptive path")
     return p
 
 
@@ -185,7 +188,7 @@ def main(argv: Optional[list] = None) -> int:
 
     from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, SoftConfig
     from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-    from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm
+    from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm, soft_fused
     from chaq_sdfgen_tpu_torch.utils import imageio as iio
 
     t0 = time.perf_counter()
@@ -227,7 +230,8 @@ def main(argv: Optional[list] = None) -> int:
         log.info("saved raw soft field to %s", args.soft_field)
     if args.time_kernel:
         print(f"Kernel timing: {gen.kernel_time(img2ch):.6f} sec", file=sys.stderr)
-    log.info("kernel launches %s", json.dumps({**cuda_edt.LAUNCHES, **cuda_soft_mm.LAUNCHES}))
+    log.info("kernel launches %s",
+             json.dumps({**cuda_edt.LAUNCHES, **cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES}))
 
     t0 = time.perf_counter()
     try:

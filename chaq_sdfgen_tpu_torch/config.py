@@ -87,9 +87,9 @@ class SoftConfig:
     logsumexp soft-min.
 
     gray_range: declared (lo, hi) bound on the tested pixel values. u8
-    inputs always satisfy (0, 255); only a declared range inside the
-    kernels' gamut is ported (None, the trained-image regime, is ROADMAP
-    Queue 1 item 6)."""
+    inputs always satisfy (0, 255). None (the trained-image regime), or a
+    range outside the declared-range kernels' gamut, takes the runtime-gated
+    path (ops/softsdf.runtime_gate)."""
 
     tau: float = 1.0          # threshold temperature (pixel units)
     temperature: float = 0.5  # soft-min temperature T (squared-pixel units)

@@ -1,0 +1,381 @@
+// Undeclared-range soft SDF kernels for Hopper (sm_90a): the adaptive banded
+// soft-min of ops/soft_fused.py, forward (F1, F2) and backward (B2, B1).
+//
+// Layouts (float32, contiguous): gray, field, ct and dgray are (n, h, w); S1,
+// the d2 memos and dS1 are (n, 2, h, w), field 0 "in" (seeds on) and field 1
+// "out". Pixels outside the image are no taps at all (the TPU kernels pad
+// them with height 1e30, which contributes nothing).
+//
+// soft_f1 replaces chaq_sdfgen_tpu/ops/pallas_soft_fused.py:_f1_kernel
+//   (f1_pass). Per pixel, l = (g - 127.5) * (+-1/tau), the heights
+//   h_in = min(T softplus(-l), 1e30) and h_out = h_in + T l; then along x,
+//   S1 = m - T log sum exp(((m - h[x+d]) - d^2) / T) over |d| <= band, m the
+//   hard band-min of h[x+d] + d^2.
+// soft_f2 replaces _f2_kernel (f2_pass): the same soft-min along y of each
+//   S1 gives d2; d = sqrt(max(d2, 0) + eps), field = d_out - max(d_in - 1, 0);
+//   the d2 memos are written for training.
+// soft_b2 replaces _b2_kernel (b2_pass): the tails' VJP g from ct and the
+//   memos (half = d2 > 0 ? 0.5/d : 0; in: -ct 1{d > 1} half; out: ct half),
+//   then along y dS1[p] = sum_q exp(((d2[q] - (q-p)^2) - S1[p]) / T) g[q].
+// soft_b1 replaces _b1_kernel (b1_pass): along x
+//   dh[p] = sum_q exp(((S1[q] - (q-p)^2) - h[p]) / T) dS1[q], then
+//   dgray = sum_f dh (-T) sigmoid(-l_f) (+-1/tau), zero where h >= 1e30.
+//
+// Skipped taps. A tap enters a sum only if its exponent z (times 1/T) is at
+// least -27 (pallas_soft_fused._UNDERFLOW: a relative weight below e^-27).
+// Each pixel walks its hard min centre-out and stops once min(window) + d^2
+// >= m, and sums only |d| <= reach, the last d whose exponent could still pass
+// the cut given the window's min (or max); float rounding is monotone, so
+// both stops are exact: no tap that the plain version adds is left out. The
+// plain version (ops/soft_fused.py) applies the same cut to every tap, and the
+// sums run in the same order, d = -reach .. reach.
+//
+// Bound: operations, on data-dependent tap counts (a few taps each way on
+// dense content, up to 2 band + 1 far from any seed); the bytes are 12 (F1),
+// 20 (F2), 28 (B2) and 24 (B1) per pixel. Design: F1 and B1 run along rows,
+// one block per 256-pixel row segment, which stages its two fields' values
+// over the segment and a band-wide halo in shared memory; F2 and B2 run
+// along columns, one block per 32-column x 64-row tile, which stages the
+// tile's column window (64 + 2 band rows) one field at a time. One thread per
+// output pixel (8 per thread in the column kernels). Float32 on CUDA cores.
+//
+// A halo-extended row range (the sharded tier's pass2_ext, not ported yet)
+// needs no other kernel: F2 and B2 take the S1 block with its halo rows
+// attached as the image, the caller crops the field and gives the halo rows
+// a zero cotangent, and B2 returns their dS1 with the interior's.
+//
+// Exact numbers: every multiply and add is an _rn intrinsic, so nvcc
+// contracts nothing into an FMA; expf, logf and IEEE sqrt and division, no
+// --use_fast_math. Each kernel's arithmetic is its plain version's, op for op.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxBand = 112;      // pallas_soft_fused.fused_geometry_ok: band <= 128 - 16
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowTile = 256;      // F1/B1: output pixels per block, one per thread
+constexpr int kRowSpan = kRowTile + 2 * kMaxBand;
+constexpr int kColTile = 32;       // F2/B2: columns per block
+constexpr int kColStep = kThreads / kColTile;  // 8 row lanes
+constexpr int kColRows = 64;       // F2/B2: output rows per block
+constexpr int kColPer = kColRows / kColStep;   // outputs per thread
+constexpr float kCut = 27.0f;      // pallas_soft_fused._UNDERFLOW
+constexpr float kPadH = 1e30f;     // height clip (pallas_soft_fused._PAD_H)
+constexpr float kInf = __builtin_huge_valf();
+
+struct Soft {
+  int n, h, w, band;
+  float scale;  // (+-1) x 1/tau rounded once: l = (g - 127.5) * scale
+  float t, inv_t, eps;
+};
+
+__device__ __forceinline__ float logit(float g, float scale) {
+  return __fmul_rn(__fsub_rn(g, 127.5f), scale);
+}
+
+// h_in = min(T softplus(-l), 1e30), h_out = h_in + T l (softplus(l) =
+// softplus(-l) + l), softplus open-coded as the TPU kernel has it.
+__device__ __forceinline__ void heights(float l, float t, float& h0, float& h1) {
+  const float x = -l;
+  const float sp = __fadd_rn(fmaxf(x, 0.0f), logf(__fadd_rn(1.0f, expf(-fabsf(x)))));
+  h0 = fminf(__fmul_rn(t, sp), kPadH);
+  h1 = __fadd_rn(h0, __fmul_rn(t, l));
+}
+
+// Min (or max) over the block; every thread must call it.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = kMax ? fmaxf(v, u) : fminf(v, u);
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[0];
+  for (int i = 1; i < kWarps; ++i) v = kMax ? fmaxf(v, red[i]) : fminf(v, red[i]);
+  __syncthreads();  // red is reused
+  return v;
+}
+
+// Banded soft-min at the tap v[0]: taps v[d * stride], |d| <= band, +inf
+// outside the image; vmin is a lower bound of every tap.
+__device__ float soft_min(const float* v, int stride, int band, float vmin, float t, float inv_t) {
+  float m = v[0];
+  for (int d = 1; d <= band; ++d) {
+    const float dd = (float)(d * d);
+    if (__fadd_rn(vmin, dd) >= m) break;
+    m = fminf(m, __fadd_rn(fminf(v[-d * stride], v[d * stride]), dd));
+  }
+  const float gap = __fsub_rn(m, vmin);
+  int reach = 0;
+  while (reach < band &&
+         __fmul_rn(__fsub_rn(gap, (float)((reach + 1) * (reach + 1))), inv_t) >= -kCut)
+    ++reach;
+  float s = 0.0f;
+  for (int d = -reach; d <= reach; ++d) {
+    const float z = __fmul_rn(__fsub_rn(__fsub_rn(m, v[d * stride]), (float)(d * d)), inv_t);
+    if (z >= -kCut) s = __fadd_rn(s, expf(z));
+  }
+  return __fsub_rn(m, __fmul_rn(t, logf(s)));
+}
+
+// Banded softmax-weight sum at the tap v[0] against ``target``: taps
+// v[d * stride] (-inf outside the image) weighting g[d * stride] (0 there);
+// vmax is an upper bound of every tap.
+__device__ float weight_sum(const float* v, const float* g, int stride, int band, float vmax,
+                            float target, float inv_t) {
+  int reach = 0;
+  while (reach < band &&
+         __fmul_rn(__fsub_rn(__fsub_rn(vmax, (float)((reach + 1) * (reach + 1))), target), inv_t) >=
+             -kCut)
+    ++reach;
+  float s = 0.0f;
+  for (int d = -reach; d <= reach; ++d) {
+    const float z = __fmul_rn(__fsub_rn(__fsub_rn(v[d * stride], (float)(d * d)), target), inv_t);
+    if (z >= -kCut) s = __fadd_rn(s, __fmul_rn(expf(z), g[d * stride]));
+  }
+  return s;
+}
+
+__device__ __forceinline__ float soft_dist(float d2, float eps) {
+  return __fsqrt_rn(__fadd_rn(d2 > 0.0f ? d2 : 0.0f, eps));
+}
+
+// The tails' VJP at one pixel of one field.
+__device__ __forceinline__ float tail_vjp(float ct, float d2, bool inside, float eps) {
+  const float d = soft_dist(d2, eps);
+  const float half = __fdiv_rn(d2 > 0.0f ? 0.5f : 0.0f, d);
+  return inside ? __fmul_rn(-ct, d > 1.0f ? half : 0.0f) : __fmul_rn(ct, half);
+}
+
+// The heights' and threshold's VJP of one field: dh (-T) sigmoid(-l_f)
+// (zero where the height is clipped) times dl_f/dgray = sgn scale.
+__device__ __forceinline__ float height_vjp(float dh, float h, float lf, float sgn_scale, float t) {
+  const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(lf)));
+  const float dl = h < kPadH ? __fmul_rn(__fmul_rn(dh, -t), sig) : 0.0f;
+  return __fmul_rn(dl, sgn_scale);
+}
+
+// Row kernels: block (segment, row) of image blockIdx.y.
+__device__ __forceinline__ void row_block(const Soft& p, int& y, int& x0) {
+  const int tiles = (p.w + kRowTile - 1) / kRowTile;
+  y = blockIdx.x / tiles;
+  x0 = (blockIdx.x % tiles) * kRowTile;
+}
+
+__global__ void __launch_bounds__(kThreads) soft_f1_kernel(const float* gray, float* s1, Soft p) {
+  __shared__ float hs[2][kRowSpan];
+  __shared__ float red[kWarps];
+  int y, x0;
+  row_block(p, y, x0);
+  const size_t plane = (size_t)p.h * p.w;
+  const float* g = gray + (size_t)blockIdx.y * plane + (size_t)y * p.w;
+  const int span = kRowTile + 2 * p.band;
+  float lo0 = kInf, lo1 = kInf;
+  for (int j = threadIdx.x; j < span; j += kThreads) {
+    const int x = x0 - p.band + j;
+    float h0 = kInf, h1 = kInf;
+    if (x >= 0 && x < p.w) heights(logit(g[x], p.scale), p.t, h0, h1);
+    hs[0][j] = h0;
+    hs[1][j] = h1;
+    lo0 = fminf(lo0, h0);
+    lo1 = fminf(lo1, h1);
+  }
+  lo0 = block_reduce<false>(lo0, red);
+  lo1 = block_reduce<false>(lo1, red);
+  const int x = x0 + threadIdx.x;
+  if (x >= p.w) return;
+  float* out = s1 + (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w + x;
+  const int c = p.band + threadIdx.x;
+  out[0] = soft_min(&hs[0][c], 1, p.band, lo0, p.t, p.inv_t);
+  out[plane] = soft_min(&hs[1][c], 1, p.band, lo1, p.t, p.inv_t);
+}
+
+__global__ void __launch_bounds__(kThreads) soft_b1_kernel(const float* gray, const float* s1,
+                                                           const float* ds1, float* dgray, Soft p) {
+  __shared__ float sv[2][kRowSpan];
+  __shared__ float sg[2][kRowSpan];
+  __shared__ float red[kWarps];
+  int y, x0;
+  row_block(p, y, x0);
+  const size_t plane = (size_t)p.h * p.w;
+  const size_t row = (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w;
+  const int span = kRowTile + 2 * p.band;
+  float hi0 = -kInf, hi1 = -kInf;
+  for (int j = threadIdx.x; j < span; j += kThreads) {
+    const int x = x0 - p.band + j;
+    const bool in = x >= 0 && x < p.w;
+    const float v0 = in ? s1[row + x] : -kInf, v1 = in ? s1[row + plane + x] : -kInf;
+    sv[0][j] = v0;
+    sv[1][j] = v1;
+    sg[0][j] = in ? ds1[row + x] : 0.0f;
+    sg[1][j] = in ? ds1[row + plane + x] : 0.0f;
+    hi0 = fmaxf(hi0, v0);
+    hi1 = fmaxf(hi1, v1);
+  }
+  hi0 = block_reduce<true>(hi0, red);
+  hi1 = block_reduce<true>(hi1, red);
+  const int x = x0 + threadIdx.x;
+  if (x >= p.w) return;
+  const size_t o = (size_t)blockIdx.y * plane + (size_t)y * p.w + x;
+  const float l = logit(gray[o], p.scale);
+  float h0, h1;
+  heights(l, p.t, h0, h1);
+  const int c = p.band + threadIdx.x;
+  const float dh0 = weight_sum(&sv[0][c], &sg[0][c], 1, p.band, hi0, h0, p.inv_t);
+  const float dh1 = weight_sum(&sv[1][c], &sg[1][c], 1, p.band, hi1, h1, p.inv_t);
+  dgray[o] = __fadd_rn(height_vjp(dh0, h0, l, p.scale, p.t), height_vjp(dh1, h1, -l, -p.scale, p.t));
+}
+
+// Column kernels: a 32-column x 64-row tile of image blockIdx.z; thread
+// (tx, ty) takes column tx and rows ty, ty + 8, ... of the tile. The window
+// buffer holds rows y0 - band .. y0 + 64 + band of the tile's columns.
+__global__ void __launch_bounds__(kThreads) soft_f2_kernel(const float* s1, float* field, float* d2,
+                                                           Soft p) {
+  extern __shared__ float win[];
+  __shared__ float red[kWarps];
+  const int tx = threadIdx.x % kColTile, ty = threadIdx.x / kColTile;
+  const int x = blockIdx.x * kColTile + tx, y0 = blockIdx.y * kColRows;
+  const int rows = kColRows + 2 * p.band;
+  const size_t plane = (size_t)p.h * p.w;
+  float d2_in[kColPer];
+  for (int f = 0; f < 2; ++f) {
+    const float* src = s1 + ((size_t)blockIdx.z * 2 + f) * plane;
+    float lo = kInf;
+    for (int r = ty; r < rows; r += kColStep) {
+      const int y = y0 - p.band + r;
+      const float v = (x < p.w && y >= 0 && y < p.h) ? src[(size_t)y * p.w + x] : kInf;
+      win[r * kColTile + tx] = v;
+      lo = fminf(lo, v);
+    }
+    lo = block_reduce<false>(lo, red);
+#pragma unroll
+    for (int i = 0; i < kColPer; ++i) {
+      const int r = ty + i * kColStep, y = y0 + r;
+      if (x >= p.w || y >= p.h) continue;
+      const float v = soft_min(&win[(r + p.band) * kColTile + tx], kColTile, p.band, lo, p.t, p.inv_t);
+      const size_t o = (size_t)y * p.w + x;
+      if (d2 != nullptr) d2[((size_t)blockIdx.z * 2 + f) * plane + o] = v;
+      if (f == 0) {
+        d2_in[i] = v;
+      } else {
+        const float d_in = soft_dist(d2_in[i], p.eps), d_out = soft_dist(v, p.eps);
+        field[(size_t)blockIdx.z * plane + o] =
+            __fsub_rn(d_out, d_in > 1.0f ? __fsub_rn(d_in, 1.0f) : 0.0f);
+      }
+    }
+    __syncthreads();  // the window is refilled for the next field
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) soft_b2_kernel(const float* ct, const float* d2,
+                                                           const float* s1, float* ds1, Soft p) {
+  extern __shared__ float win[];
+  __shared__ float red[kWarps];
+  const int tx = threadIdx.x % kColTile, ty = threadIdx.x / kColTile;
+  const int x = blockIdx.x * kColTile + tx, y0 = blockIdx.y * kColRows;
+  const int rows = kColRows + 2 * p.band;
+  float* vd = win;                     // d2 memo window, -inf outside the image
+  float* vg = win + rows * kColTile;   // tails' VJP window, 0 outside
+  const size_t plane = (size_t)p.h * p.w;
+  for (int f = 0; f < 2; ++f) {
+    const size_t fp = ((size_t)blockIdx.z * 2 + f) * plane;
+    float hi = -kInf;
+    for (int r = ty; r < rows; r += kColStep) {
+      const int y = y0 - p.band + r;
+      float v = -kInf, g = 0.0f;
+      if (x < p.w && y >= 0 && y < p.h) {
+        const size_t o = (size_t)y * p.w + x;
+        v = d2[fp + o];
+        g = tail_vjp(ct[(size_t)blockIdx.z * plane + o], v, f == 0, p.eps);
+      }
+      vd[r * kColTile + tx] = v;
+      vg[r * kColTile + tx] = g;
+      hi = fmaxf(hi, v);
+    }
+    hi = block_reduce<true>(hi, red);
+#pragma unroll
+    for (int i = 0; i < kColPer; ++i) {
+      const int r = ty + i * kColStep, y = y0 + r;
+      if (x >= p.w || y >= p.h) continue;
+      const size_t o = fp + (size_t)y * p.w + x;
+      const int k = (r + p.band) * kColTile + tx;
+      ds1[o] = weight_sum(&vd[k], &vg[k], kColTile, p.band, hi, s1[o], p.inv_t);
+    }
+    __syncthreads();  // the windows are refilled for the next field
+  }
+}
+
+int prepare(int n, int h, int w, int band, float scale, float t, float inv_t, float eps, Soft* p) {
+  if (n < 1 || n > 65535 || h < 1 || w < 1 || band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
+  if ((long long)((w + kRowTile - 1) / kRowTile) * h > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if ((h + kColRows - 1) / kColRows > 65535) return (int)cudaErrorInvalidValue;
+  *p = Soft{n, h, w, band, scale, t, inv_t, eps};
+  return 0;
+}
+
+dim3 row_grid(const Soft& p) {
+  return dim3((unsigned)(((p.w + kRowTile - 1) / kRowTile) * p.h), (unsigned)p.n);
+}
+
+dim3 col_grid(const Soft& p) {
+  return dim3((unsigned)((p.w + kColTile - 1) / kColTile), (unsigned)((p.h + kColRows - 1) / kColRows),
+              (unsigned)p.n);
+}
+
+size_t col_smem(int band, int windows) {
+  return sizeof(float) * (size_t)windows * (kColRows + 2 * band) * kColTile;
+}
+
+}  // namespace
+
+// Launchers: plain C entry points for ctypes. Each launches on the given
+// stream, does not synchronise, and returns cudaGetLastError(). scale is
+// (+-1) x float32(1/tau), inv_t float32(1/T); eps is read by F2 and B2 only.
+
+extern "C" int chaq_soft_f1(const void* gray, void* s1, int n, int h, int w, int band, float scale,
+                            float t, float inv_t, float eps, void* stream) {
+  Soft p;
+  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  if (rc != 0) return rc;
+  soft_f1_kernel<<<row_grid(p), kThreads, 0, (cudaStream_t)stream>>>((const float*)gray, (float*)s1, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chaq_soft_f2(const void* s1, void* field, void* d2, int n, int h, int w, int band,
+                            float scale, float t, float inv_t, float eps, void* stream) {
+  Soft p;
+  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  if (rc != 0) return rc;
+  soft_f2_kernel<<<col_grid(p), kThreads, col_smem(band, 1), (cudaStream_t)stream>>>(
+      (const float*)s1, (float*)field, (float*)d2, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chaq_soft_b2(const void* ct, const void* d2, const void* s1, void* ds1, int n, int h,
+                            int w, int band, float scale, float t, float inv_t, float eps,
+                            void* stream) {
+  Soft p;
+  int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  if (rc != 0) return rc;
+  // two windows exceed 48 KB from band 65 on: allow the dynamic size first
+  rc = (int)cudaFuncSetAttribute(soft_b2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)col_smem(kMaxBand, 2));
+  if (rc != 0) return rc;
+  soft_b2_kernel<<<col_grid(p), kThreads, col_smem(band, 2), (cudaStream_t)stream>>>(
+      (const float*)ct, (const float*)d2, (const float*)s1, (float*)ds1, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chaq_soft_b1(const void* gray, const void* s1, const void* ds1, void* dgray, int n,
+                            int h, int w, int band, float scale, float t, float inv_t, float eps,
+                            void* stream) {
+  Soft p;
+  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  if (rc != 0) return rc;
+  soft_b1_kernel<<<row_grid(p), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)gray, (const float*)s1, (const float*)ds1, (float*)dgray, p);
+  return (int)cudaGetLastError();
+}

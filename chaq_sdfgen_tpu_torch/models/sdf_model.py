@@ -2,11 +2,12 @@
 
   hard_sdf_exact  -- OpenMP-binary semantics, byte-identical (Algorithm.EXACT)
   soft path       -- SDFGenerator(soft=SoftConfig(...)): the differentiable
-                     field on a declared-range input (ops/softsdf.py)
+                     field (ops/softsdf.py), on a declared gray range or
+                     none (gray_range=None, the runtime-gated path)
 
-BRUTE, JFA, the undeclared-range soft path and sharding are not ported yet
-(ROADMAP Queue 1 items 6-8 and 11); asking for them raises
-NotImplementedError.
+BRUTE, JFA, the soft path above band 112 and sharding are not ported yet
+(ROADMAP Queue 1 items 7, 8 and 11, Queue 2 item 13); asking for them
+raises NotImplementedError.
 """
 
 from __future__ import annotations

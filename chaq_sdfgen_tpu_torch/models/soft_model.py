@@ -1,0 +1,111 @@
+"""Trainable soft-SDF model and its training step
+(chaq_sdfgen_tpu/models/soft_model.py): flax and optax become an
+``nn.Module`` and ``torch.optim.Adam``.
+
+A small set of learnable scalars controls the thresholding front end, and
+gradients flow through the soft EDT back to both the parameters and the
+input pixels. Parameters (all scalar, broadcast over pixels):
+  threshold_bias -- learnable shift of the 127.5 threshold midpoint
+  log_tau        -- learnable threshold temperature
+  channel_mix    -- logits mixing the gray and alpha channels into the
+                    tested value
+
+The model passes no gray_range, so its field takes the runtime-gated path
+of ops/softsdf.py: the declared-range kernels with a runtime shift while
+the mixed values stay in gamut, the adaptive kernels otherwise.
+``params_from_jax`` carries a flax parameter tree over. The sharded
+pipeline (``mesh``) waits for the multi-GPU tier (ROADMAP Queue 1 item 11).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Union
+
+import numpy as np
+import torch
+
+from chaq_sdfgen_tpu_torch.config import SoftConfig
+from chaq_sdfgen_tpu_torch.models.sdf_model import resolve_device
+from chaq_sdfgen_tpu_torch.ops import softsdf
+
+PARAM_NAMES = ("threshold_bias", "log_tau", "channel_mix")
+
+
+class SoftSDFModel(torch.nn.Module):
+    """Differentiable SDF generator with a learnable threshold front end.
+
+    forward(img2ch float32 (..., H, W, 2)) -> signed soft SDF (..., H, W).
+    The parameters live on ``device`` (default: the first CUDA device;
+    with no card, only an explicit ``device="cpu"`` runs)."""
+
+    def __init__(self, spread: int = 16, soft: SoftConfig = SoftConfig(), mesh=None,
+                 device: Union[str, torch.device, None] = None):
+        super().__init__()
+        if mesh is not None:
+            raise NotImplementedError(
+                "SoftSDFModel(mesh=...): the sharded pipeline is not ported yet "
+                "(ROADMAP Queue 1 item 11)")
+        self.spread = spread
+        self.soft = soft
+        dev = resolve_device(device)
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.threshold_bias = torch.nn.Parameter(torch.zeros((), **f32))
+        self.log_tau = torch.nn.Parameter(torch.log(torch.tensor(soft.tau, **f32)))
+        self.channel_mix = torch.nn.Parameter(torch.tensor([0.0, 4.0], **f32))
+
+    def forward(self, img2ch: torch.Tensor) -> torch.Tensor:
+        mix = torch.softmax(self.channel_mix, dim=0)
+        gray = (img2ch.to(torch.float32) * mix).sum(-1) - self.threshold_bias
+        tau = torch.exp(self.log_tau)
+        # fold the learnable tau into the pixel values, so that the kernels
+        # run at the configured tau: logits (v - 127.5) / tau_static
+        v = (gray - 127.5) / tau * self.soft.tau + 127.5
+        return softsdf.soft_sdf_field(
+            v, self.spread, tau=self.soft.tau, temperature=self.soft.temperature, eps=self.soft.eps)
+
+
+def create_train_state(model: SoftSDFModel, example: torch.Tensor = None,
+                       lr: float = 1e-2) -> torch.optim.Adam:
+    """Adam over the model's parameters with optax.adam's defaults (b1
+    0.9, b2 0.999, eps 1e-8 added outside the square root). The module
+    holds its parameters, so ``example`` (flax's init input) is not read;
+    it stays for the JAX signature."""
+    del example
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_train_step(model: SoftSDFModel, opt: torch.optim.Optimizer):
+    """train_step(img2ch, target) -> loss: the mean squared error between
+    the model's signed soft field and ``target``, its gradient, and one
+    optimizer step (in place on the model's parameters)."""
+
+    def train_step(img2ch: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((model(img2ch) - target) ** 2)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return train_step
+
+
+def params_from_jax(flax_params: Mapping[str, Any]) -> dict:
+    """A flax ``{'params': {...}}`` tree of SoftSDFModel parameters (arrays
+    or anything numpy reads) -> a state_dict for the port's SoftSDFModel,
+    float32 CPU tensors; ``load_state_dict`` moves them to the model's
+    device. Reads only numpy."""
+    if "params" not in flax_params:
+        raise ValueError("params_from_jax: expected a flax tree {'params': {...}}")
+    tree = flax_params["params"]
+    missing = [k for k in PARAM_NAMES if k not in tree]
+    extra = sorted(set(tree) - set(PARAM_NAMES))
+    if missing or extra:
+        raise ValueError(f"params_from_jax: missing {missing}, unexpected {extra}")
+    shapes = {"threshold_bias": (), "log_tau": (), "channel_mix": (2,)}
+    out = {}
+    for k in PARAM_NAMES:
+        a = np.asarray(tree[k], dtype=np.float32)
+        if a.shape != shapes[k]:
+            raise ValueError(f"params_from_jax: {k} has shape {a.shape}, expected {shapes[k]}")
+        out[k] = torch.from_numpy(a.copy())
+    return out

@@ -119,6 +119,12 @@ def load() -> ctypes.CDLL:
         lib.chaq_soft_mm_fwd.restype = i32
         lib.chaq_soft_mm_bwd.argtypes = [vp, vp, vp, vp, vp, *soft_tail]
         lib.chaq_soft_mm_bwd.restype = i32
+        # (n, h, w, band, scale, T, 1/T, eps, stream)
+        fused_tail = [i32, i32, i32, i32, f32, f32, f32, f32, vp]
+        for entry, n_ptrs in (("chaq_soft_f1", 2), ("chaq_soft_f2", 3), ("chaq_soft_b2", 4),
+                              ("chaq_soft_b1", 4)):
+            getattr(lib, entry).argtypes = [vp] * n_ptrs + fused_tail
+            getattr(lib, entry).restype = i32
         _lib = lib
         return _lib
 

@@ -188,6 +188,26 @@ class _MmFused(torch.autograd.Function):
         return (dgray,) + (None,) * 7
 
 
+def soft_field_mm_rt_ok(shape, band) -> bool:
+    """Gate of the runtime-shift form (pallas_soft_mm.soft_field_mm_rt_ok):
+    the port has no padding geometry, so only the tap radius min(MAX_TAPS,
+    band) has to fit, and it always does."""
+    kk = min(MAX_TAPS, int(band))
+    return len(shape) >= 2 and mm_fused_ok(kk, kk)
+
+
+def soft_field_mm_rt(gray, shift, band, tau, temperature, eps, test_above=True):
+    """The declared-range kernels for an UNDECLARED range whose heights a
+    runtime gate has found in gamut (pallas_soft_mm.soft_field_mm_rt): tap
+    radius min(MAX_TAPS, band) for both passes (taps beyond the needed
+    radius are exact terms of the banded sum) and the gate's shift, a
+    launch argument of the kernels."""
+    kk = min(MAX_TAPS, int(band))
+    g = gray.to(torch.float32).contiguous()
+    return _MmFused.apply(g, float(shift), kk, kk, float(tau), float(temperature), float(eps),
+                          bool(test_above))
+
+
 def soft_field_mm_fused(gray, band, tau, temperature, eps, test_above=True, gray_range=(0.0, 255.0)):
     """The bounded-range soft SDF field of (..., H, W) gray through the two
     kernels (their plain versions on the CPU), differentiable with respect

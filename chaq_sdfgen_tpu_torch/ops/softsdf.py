@@ -8,24 +8,29 @@ Construction (mirrors the hard pipeline structurally):
   distance    d = sqrt(relu(D) + eps)
   merge       s = d_out - relu(d_in - 1)            (the -1 bias, soft)
 
-soft_sdf_field runs the declared-range form (ops/cuda_soft_mm.py, its
-kernels on CUDA, their plain versions on the CPU). The composed scan form
-below (band_softmin, soft_edt_sq, soft_sdf_field_composed) is plain
-PyTorch on any device and serves the tests as the independent oracle; on
-the card the undeclared-range path it would stand in for is the place of
-TPU kernels not yet ported (ROADMAP Queue 1 item 6), so soft_sdf_field
-refuses such calls instead of running it there.
+soft_sdf_field dispatches as the JAX package does on its accelerator
+(chaq_sdfgen_tpu/ops/softsdf.py:218-344), on every device: a declared range
+inside the gamut runs ops/cuda_soft_mm.py; otherwise, for band <= 112, a
+runtime gate on the input's largest height picks the same two kernels with
+a runtime shift or the four adaptive kernels of ops/soft_fused.py. Each
+runs its kernels on CUDA and their plain versions on the CPU. The composed
+scan form below (band_softmin, soft_edt_sq, soft_sdf_field_composed) is
+plain PyTorch on any device and serves the tests as the independent
+oracle; the band > 112 path it stands for on the card is the place of TPU
+kernels not yet ported (ROADMAP Queue 2 item 13), so soft_sdf_field refuses
+such calls instead of running it there.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
-from chaq_sdfgen_tpu_torch.ops import cuda_soft_mm, merge, soft_mxu, threshold
+from chaq_sdfgen_tpu_torch.ops import cuda_soft_mm, merge, soft_fused, soft_mxu, threshold
 from chaq_sdfgen_tpu_torch.ops.edt import big_sentinel
-from chaq_sdfgen_tpu_torch.ops.numerics import div
+from chaq_sdfgen_tpu_torch.ops.numerics import div, softplus
 
 _PAD_HEIGHT = 1e30  # sentinel height: exp(-(d^2+1e30)/T) underflows to 0
 _NEG_HUGE = -3e38
@@ -126,23 +131,49 @@ def soft_sdf_field_composed(
     return d_out - torch.clamp(d_in - 1.0, min=0)
 
 
-def unported_reason(band: int, tau: float, temperature: float, gray_range) -> Optional[str]:
-    """Why soft_sdf_field refuses these parameters, or None when the
-    declared-range kernels take them."""
-    if gray_range is None:
-        return ("the soft path without a declared gray_range (the runtime-gated "
-                "undeclared-range path) is not ported yet (ROADMAP Queue 1 item 6)")
+def unported_reason(band: int, tau: float, temperature: float, gray_range, shape=None) -> Optional[str]:
+    """Why soft_sdf_field refuses these parameters (and, when given, this
+    input shape), or None when the ported kernels take them."""
     stats = soft_mxu.range_stats(band, tau, temperature, gray_range)
-    if stats is None:
-        return (f"gray_range {tuple(gray_range)} is outside the declared-range gamut for "
-                f"tau={tau}, T={temperature}; the adaptive undeclared-range path is not "
-                "ported yet (ROADMAP Queue 1 item 6)")
-    k1, k2, _ = stats
-    if not cuda_soft_mm.mm_fused_ok(k1, k2):
-        return (f"tap radii ({k1}, {k2}) exceed the kernels' {cuda_soft_mm.MAX_TAPS} "
-                f"(tau={tau}, T={temperature}); the wide-tap paths are not ported yet "
-                "(ROADMAP Queue 1 item 6, Queue 2 item 14)")
+    if stats is not None:
+        k1, k2, _ = stats
+        if not cuda_soft_mm.mm_fused_ok(k1, k2):
+            return (f"tap radii ({k1}, {k2}) exceed the kernels' {cuda_soft_mm.MAX_TAPS} "
+                    f"(tau={tau}, T={temperature}); the wide-tap paths are not ported yet "
+                    "(ROADMAP Queue 2 item 14)")
+        return None
+    if band > soft_fused.MAX_BAND:
+        return (f"band {band} exceeds the adaptive kernels' {soft_fused.MAX_BAND}; the composed "
+                "path that takes it (TPU kernels 12-13) is not ported yet (ROADMAP Queue 2 item 13)")
+    if shape is not None and (len(shape) < 2 or shape[-2] < 2):
+        return (f"an input of shape {tuple(shape)} has fewer than 2 rows; the composed path that "
+                "takes it (TPU kernels 12-13) is not ported yet (ROADMAP Queue 2 item 13)")
     return None
+
+
+_RT_SHIFT_T = 60.0  # the gate's shift: max(h_max - 60 T, 0)
+
+
+def runtime_gate(gray: torch.Tensor, band: int, tau: float, temperature: float) -> Optional[float]:
+    """The runtime range gate of the undeclared path (JAX softsdf.py:265-
+    324): the shift for the declared-range kernels at tap radius kk =
+    min(16, band) when the input's largest height h_max = T softplus(
+    max |g - 127.5| / tau), over the whole batch, satisfies h_max <=
+    min(140 T, kk^2 - 36 T); else None (the adaptive kernels). h_max is
+    computed in float32 as JAX computes it and read to the host once: one
+    synchronisation per call. Like the JAX gate it admits T = 0.5, where
+    taps at d >= 7 underflow (ROADMAP Queue 3)."""
+    t = float(temperature)
+    kk = min(cuda_soft_mm.MAX_TAPS, int(band))
+    limit = min(140.0 * t, kk * kk - 36.0 * t)
+    if not (limit > 0 and cuda_soft_mm.soft_field_mm_rt_ok(gray.shape, band)) or gray.numel() == 0:
+        return None
+    with torch.no_grad():
+        labs = div((gray.detach().to(torch.float32) - 127.5).abs().max(), tau)
+        h_max = np.float32((t * softplus(labs)).item())
+    if not h_max <= np.float32(limit):
+        return None
+    return float(max(h_max - np.float32(_RT_SHIFT_T * t), np.float32(0.0)))
 
 
 def soft_sdf_field(
@@ -158,18 +189,24 @@ def soft_sdf_field(
     """Signed soft distance field (float32) from raw gray values (..., H, W),
     differentiable with respect to gray.
 
-    ``gray_range``: DECLARED (lo, hi) bound on the input values (the
-    CLI/atlas u8 path passes (0, 255)); the caller guarantees it, and mild
-    overshoot (e.g. SGD pixel updates) degrades gracefully. A range inside
-    the gamut runs ops/cuda_soft_mm.py on any device; None or an
-    out-of-gamut range raises NotImplementedError (ROADMAP Queue 1 item 6).
+    ``gray_range``: optional DECLARED (lo, hi) bound on the input values
+    (the CLI/atlas u8 path passes (0, 255)); the caller guarantees it, and
+    mild overshoot (e.g. SGD pixel updates) degrades gracefully. A range
+    inside the gamut runs ops/cuda_soft_mm.py; None (trained images) or a
+    range outside it goes through runtime_gate to the same kernels or to
+    ops/soft_fused.py. Band > 112 and inputs of fewer than 2 rows on that
+    path raise NotImplementedError (ROADMAP Queue 2 item 13).
     """
     band = band if band is not None else spread + 2
-    reason = unported_reason(band, tau, temperature, gray_range)
+    reason = unported_reason(band, tau, temperature, gray_range, tuple(gray.shape))
     if reason is not None:
         raise NotImplementedError(f"soft_sdf_field: {reason}")
-    return cuda_soft_mm.soft_field_mm_fused(
-        gray, band, tau, temperature, eps, test_above, gray_range)
+    if soft_mxu.range_stats(band, tau, temperature, gray_range) is not None:
+        return cuda_soft_mm.soft_field_mm_fused(gray, band, tau, temperature, eps, test_above, gray_range)
+    shift = runtime_gate(gray, band, tau, temperature)
+    if shift is not None:
+        return cuda_soft_mm.soft_field_mm_rt(gray, shift, band, tau, temperature, eps, test_above)
+    return soft_fused.soft_sdf_field_fused(gray, band, tau, temperature, eps, test_above)
 
 
 def soft_sdf_bytes(

@@ -4,13 +4,19 @@ import without importing JAX.
 
 Builds the shared library on first use if a compiler is present; every
 entry returns None on unsupported input so callers can fall back to PIL.
+Unlike that copy, the build is safe between processes (pytest workers, for
+one): it holds an flock on a lock file beside the library, builds into a
+temporary directory and moves the result into place, so no process loads a
+half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import tempfile
 import threading
 from typing import Optional
 
@@ -25,6 +31,23 @@ _SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "build", "libsdfio.so"))
 _SRC_DIR = os.path.abspath(os.path.join(_NATIVE_DIR, "sdfio"))
 
 
+def _build() -> None:
+    """Build the library at _SO_PATH unless another process has: under an
+    exclusive flock on a lock file in its directory, into a temporary
+    directory there, then os.replace into place (atomic on one file
+    system)."""
+    build_dir = os.path.dirname(_SO_PATH)
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, "libsdfio.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(_SO_PATH):
+            return
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            subprocess.run(["make", "-s", f"BUILD={tmp}"], cwd=_SRC_DIR, check=True,
+                           capture_output=True, timeout=120)
+            os.replace(os.path.join(tmp, "libsdfio.so"), _SO_PATH)
+
+
 def _load():
     global _lib, _tried
     with _lock:
@@ -33,9 +56,7 @@ def _load():
         _tried = True
         if not os.path.exists(_SO_PATH):
             try:
-                subprocess.run(
-                    ["make", "-s"], cwd=_SRC_DIR, check=True, capture_output=True, timeout=120
-                )
+                _build()
             except (OSError, subprocess.SubprocessError):
                 return None
         try:

@@ -43,12 +43,43 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (training), soft_mm_bwd, the training step and SDFGenerator(soft)
      .generate, each against its plain version;
  11. where the training step's device time goes: torch.profiler over 10
-     steps, device time per kernel and the busy share.
+     steps, device time per kernel and the busy share;
+ 12. each adaptive soft kernel (csrc/soft_fused.cu) against its plain
+     version on the card, bit for bit (tolerance 0), and the four under
+     autograd against torch autograd through the plain forward (dgray
+     within 1e-4 of the scale plus 1e-7: autograd forms h_out's derivative
+     as T - T sigmoid(-l), which cancels to about 2^-24 T where the kernels
+     keep T sigmoid(l), and tiny images have tiny gradients): at 4096x4096 on the bench's noise in [0, 255), noise in
+     +-2000 and the glyph image's alpha mapped to +-2040, band 66 and 112,
+     (tau, T) = (2, 1) and (1, 0.5), both threshold senses; and on 1x17,
+     17x1, 129x130, 384x260 and a batch of 3. On the glyph input autograd
+     runs on the 1024x1024 corner (through the plain forward it keeps one
+     tensor per tap, and far from the strokes every tap of the band is
+     live), and dgray is held within 1e-3 of the scale: there the in-field's
+     S1 and d2 reach ~T 1083, and the backward, which forms its weights from
+     those memos as the TPU kernels do, inherits their rounding, ulp(S)/T
+     relative (1.6e-4 of the scale at T 0.5 on a 512x512 glyph image, on
+     the CPU);
+ 13. the undeclared-range path through its entry points at 4096x4096:
+     3 training steps of soft_sdf_field without gray_range on the bench's
+     noise (the gate must launch soft_mm_*) and on noise in +-2000 (it must
+     launch soft_f1/f2/b2/b1), the first step's value and gradient held
+     against the plain version; 3 Adam steps of SoftSDFModel on a
+     (4096, 4096, 2) image in +-2000, the first held against a plain twin;
+     and the CLI --soft --soft-tau 0.25 -s 64 --soft-field f.npy on the
+     glyph PNG against the plain pipeline, its launch log showing F1 and F2;
+ 14. adaptive times (CUDA events, as in phase 6): each of the four kernels
+     and its plain version, the gated training step on the bench's noise,
+     the adaptive step forced on it, the out-of-gamut step and the
+     SoftSDFModel step;
+ 15. where the adaptive steps' device time goes: torch.profiler over the
+     forced adaptive step and the gated out-of-gamut step.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the float operations its function needs on
 these inputs at 67 TFLOP/s (the H100 SXM's HBM3 rate and float32 rate
-outside the tensor cores).
+outside the tensor cores); for the adaptive kernels the operations count
+the taps that this run's data puts inside the cut.
 """
 
 from __future__ import annotations
@@ -68,8 +99,11 @@ import torch
 
 from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-from chaq_sdfgen_tpu_torch.ops import _build, cuda_edt, cuda_soft_mm, merge, soft_mxu, softsdf, threshold
-from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
+from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
+from chaq_sdfgen_tpu_torch.ops import (
+    _build, cuda_edt, cuda_soft_mm, edt, merge, soft_fused, soft_mxu, softsdf, threshold,
+)
+from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, softplus
 from chaq_sdfgen_tpu_torch.utils import imageio, sdfio_native
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -103,6 +137,26 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/soft_mm.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_mm.py:211",
+    },
+    "soft_f1": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_fused.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_fused.py:467",
+    },
+    "soft_f2": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_fused.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_fused.py:565",
+    },
+    "soft_b2": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_fused.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_fused.py:661",
+    },
+    "soft_b1": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_fused.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_fused.py:784",
     },
 }
 
@@ -556,6 +610,297 @@ def soft_phases(dev, glyph):
     return err, launches, times, bounds
 
 
+# ------------------------------------------------------ adaptive soft phases
+
+FUSED_SPREADS = (64, 110)  # band 66, the bench's, and 112, the kernels' limit
+EPS = 1e-6
+ADAM_LR = 5e-2
+
+
+def pm_noise(shape, seed, amp=2000.0) -> np.ndarray:
+    """Noise in +-amp: every height of it lies far outside the gamut."""
+    return (np.random.default_rng(seed).random(shape) * 2 * amp - amp).astype(np.float32)
+
+
+def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    require(a.shape == b.shape, f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def fused_check(g, band, tau, t, above, ct, crop=None):
+    """One adaptive case on the card: each kernel against its plain version
+    on the same inputs ({kernel: max abs err}), and the four under autograd
+    against autograd through the plain forward ((err, scale), on ``crop``
+    of the image when given)."""
+    args = (band, tau, t, above)
+    s1p = soft_fused.f1_plain(g, *args)
+    fp, d2p = soft_fused.f2_plain(s1p, band, t, EPS)
+    ds1p = soft_fused.b2_plain(ct, d2p, s1p, band, t, EPS)
+    field, d2 = soft_fused.f2_pass(s1p, band, t, EPS)
+    errs = {
+        "soft_f1": abs_err(soft_fused.f1_pass(g, *args), s1p),
+        "soft_f2": max(abs_err(field, fp), abs_err(d2, d2p),
+                       abs_err(soft_fused.f2_pass(s1p, band, t, EPS, memos=False), fp)),
+        "soft_b2": abs_err(soft_fused.b2_pass(ct, d2p, s1p, band, t, EPS), ds1p),
+        "soft_b1": abs_err(soft_fused.b1_pass(g, s1p, ds1p, *args),
+                           soft_fused.b1_plain(g, s1p, ds1p, *args)),
+    }
+    del s1p, fp, d2p, ds1p, field, d2
+    if crop is not None:
+        g, ct = g[crop].contiguous(), ct[crop].contiguous()
+    x = g.clone().requires_grad_()
+    (soft_fused.soft_sdf_field_fused(x, band, tau, t, EPS, above) * ct).sum().backward()
+    y = g.clone().requires_grad_()
+    pf = soft_fused.f2_plain(soft_fused.f1_plain(y, *args), band, t, EPS, memos=False)
+    want, = torch.autograd.grad(pf, y, ct)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(x.grad).all()), "adaptive backward: non-finite dgray")
+    return errs, abs_err(x.grad, want), float(want.abs().max())
+
+
+def softmin_taps(v: torch.Tensor, band: int, t: float, dim: int) -> int:
+    """Taps inside the cut (exponent >= -27) of the soft-min of v along
+    ``dim``, over all pixels: the exponentials that the function needs."""
+    inv_t, n = float(np.float32(1.0 / t)), v.shape[dim]
+    pad = [0, 0] * (-dim)
+    pad[-1] = pad[-2] = band
+    vp = torch.nn.functional.pad(v, pad, value=float("inf"))
+    m = v
+    for d in range(1, band + 1):
+        m = torch.minimum(m, torch.minimum(vp.narrow(dim, band - d, n), vp.narrow(dim, band + d, n)) + float(d * d))
+    cnt = torch.zeros((), dtype=torch.int64, device=v.device)
+    for d in range(-band, band + 1):
+        cnt += ((((m - vp.narrow(dim, band + d, n)) - float(d * d)) * inv_t) >= -27.0).sum()
+    return int(cnt)
+
+
+def weight_taps(v: torch.Tensor, target: torch.Tensor, band: int, t: float, dim: int) -> int:
+    """Taps inside the cut of the weight sum of v against ``target``."""
+    inv_t, n = float(np.float32(1.0 / t)), v.shape[dim]
+    pad = [0, 0] * (-dim)
+    pad[-1] = pad[-2] = band
+    vp = torch.nn.functional.pad(v, pad, value=float("-inf"))
+    cnt = torch.zeros((), dtype=torch.int64, device=v.device)
+    for d in range(-band, band + 1):
+        cnt += ((((vp.narrow(dim, band + d, n) - float(d * d)) - target) * inv_t) >= -27.0).sum()
+    return int(cnt)
+
+
+def fused_bounds(g, band, tau, t, npix):
+    """The four kernels' bounds on these inputs: bytes (each input read once,
+    each output written once: 12, 20, 28, 24 per pixel) and float
+    operations, transcendentals counted as one: per pixel and field ~15
+    for a lower envelope's hard min and ~5 per live tap of a soft-min (or
+    ~6 of a weight sum), plus the heights (~10 per pixel), the tails (~8)
+    and their VJPs (~8 and ~6 per pixel and field)."""
+    l = threshold.soft_logits(g, tau)
+    h = torch.stack([t * softplus(-l), t * softplus(l)])
+    s1 = soft_fused.f1_pass(g, band, tau, t)
+    _, d2 = soft_fused.f2_pass(s1, band, t, EPS)
+    taps = {
+        "soft_f1": softmin_taps(h, band, t, -1),
+        "soft_f2": softmin_taps(s1, band, t, -2),
+        "soft_b2": weight_taps(d2, s1, band, t, -2),
+        "soft_b1": weight_taps(s1, h, band, t, -1),
+    }
+    flops = {
+        "soft_f1": npix * (10 + 2 * 18) + 5 * taps["soft_f1"],
+        "soft_f2": npix * (8 + 2 * 18) + 5 * taps["soft_f2"],
+        "soft_b2": npix * 2 * 8 + 6 * taps["soft_b2"],
+        "soft_b1": npix * (10 + 2 * 6) + 6 * taps["soft_b1"],
+    }
+    nbytes = {"soft_f1": 12, "soft_f2": 20, "soft_b2": 28, "soft_b1": 24}
+    for k, n in taps.items():
+        log(f"bound inputs {k}: {n} live taps ({n / (2 * npix):.2f} per pixel and field)")
+    return {k: bound(nbytes[k] * npix, flops[k]) for k in nbytes}
+
+
+def fused_phases(dev, glyph):
+    """Phases 12-15. Returns (errors, launches, times, bounds)."""
+    err = {k: 0.0 for k in soft_fused.LAUNCHES}
+    rng = np.random.default_rng(SEED + 5)
+    big = {
+        "noise": torch.from_numpy((rng.random((SIZE, SIZE)) * 255).astype(np.float32)).to(dev),
+        "pm2000": torch.from_numpy(pm_noise((SIZE, SIZE), SEED + 6)).to(dev),
+        "glyph+-2040": torch.from_numpy(glyph[..., 1].astype(np.float32) / 255 * 4080 - 2040).to(dev),
+    }
+    corner = (slice(0, 1024), slice(0, 1024))
+    cases = []
+    for name, g in big.items():
+        for spread in FUSED_SPREADS:
+            for tau, t in SOFT_PARAMS:
+                for above in (True, False):
+                    sparse = name.startswith("glyph")
+                    cases.append((f"{name} {SIZE}x{SIZE}", g, spread + 2, tau, t, above,
+                                  corner if sparse else None, 1e-3 if sparse else 1e-4))
+    for shape in ((1, 17), (17, 1), (129, 130), (384, 260), (3, 256, 256)):
+        for kind, band, tau, t, above in (("noise", 66, 2.0, 1.0, True), ("pm2000", 112, 1.0, 0.5, False)):
+            g = rng.random(shape) * 255 if kind == "noise" else pm_noise(shape, int(rng.integers(1 << 30)))
+            cases.append((f"{kind} {shape}", torch.from_numpy(g.astype(np.float32)).to(dev), band, tau, t, above,
+                          None, 1e-4))
+    for name, g, band, tau, t, above, crop, tol in cases:
+        ct = torch.from_numpy(rng.standard_normal(tuple(g.shape)).astype(np.float32)).to(dev)
+        errs, chain, scale = fused_check(g, band, tau, t, above, ct, crop)
+        for k, e in errs.items():
+            err[k] = max(err[k], e)
+        log(f"check adaptive {name} band {band} tau {tau} T {t}{'' if above else ' inverted'}: "
+            + ", ".join(f"{k} err {e:.3e}" for k, e in errs.items())
+            + f"; chain vs autograd{' (1024x1024 corner)' if crop else ''} {chain:.3e} ({chain / max(scale, 1e-30):.3e} of scale {scale:.3e})")
+        require(all(e == 0 for e in errs.values()), f"an adaptive kernel differs from its plain version on {name}")
+        require(chain <= tol * scale + 1e-7, f"the adaptive chain disagrees with autograd of the plain forward on {name}")
+
+    # phase 13: the undeclared path through its entry points
+    band, tau, t = SPREAD + 2, TRAIN_TAU, TRAIN_T
+
+    def step_with(field_fn):
+        def step(g):
+            x = g.detach().requires_grad_()
+            value = field_fn(x).sum()
+            value.backward()
+            with torch.no_grad():
+                return x - TRAIN_LR * x.grad, value.detach(), x.grad
+        return step
+
+    gated_step = step_with(lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=tau, temperature=t))
+    forced_step = step_with(lambda x: soft_fused.soft_sdf_field_fused(x, band, tau, t, EPS))
+    plain_forced_step = step_with(
+        lambda x: soft_fused.f2_plain(soft_fused.f1_plain(x, band, tau, t), band, t, EPS, memos=False))
+
+    def plain_gated_step(g):
+        shift = softsdf.runtime_gate(g, band, tau, t)
+        if shift is None:
+            return plain_forced_step(g)
+        return step_with(lambda x: soft_mxu.soft_field_collapsed(x, 16, 16, shift, tau, t, EPS)[0])(g)
+
+    def reset_counts():
+        torch.cuda.synchronize()
+        for counts in (cuda_soft_mm.LAUNCHES, soft_fused.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    launches = None
+    for name, branch in (("noise", "mm"), ("pm2000", "fused")):
+        g0 = big[name]
+        reset_counts()
+        g, values, first = g0, [], None
+        for _ in range(3):
+            g, value, grad = gated_step(g)
+            values.append(float(value))
+            first = first if first is not None else grad
+        torch.cuda.synchronize()
+        mm, fused = dict(cuda_soft_mm.LAUNCHES), dict(soft_fused.LAUNCHES)
+        log(f"main path adaptive: gated training {name} {SIZE}x{SIZE} 3 steps, losses {values}, "
+            f"launches {mm} {fused}")
+        require(all(v == (3 if branch == "mm" else 0) for v in mm.values())
+                and all(v == (3 if branch == "fused" else 0) for v in fused.values()),
+                f"the gate did not take the {branch} kernels on {name}")
+        require(all(math.isfinite(v) for v in values) and bool(torch.isfinite(g).all()),
+                "gated training step is not finite")
+        if branch == "fused":
+            launches = fused
+        _, p_value, p_grad = plain_gated_step(g0)
+        rel_v = abs(values[0] - float(p_value)) / abs(float(p_value))
+        rel_g = float((first - p_grad).abs().max()) / float(p_grad.abs().max())
+        log(f"main path adaptive: {name} step 1 vs plain: loss rel err {rel_v:.3e}, gradient {rel_g:.3e} of scale")
+        require(rel_v < 1e-5 and rel_g < 1e-4, f"gated training step differs from the plain version on {name}")
+        del g, first, grad, p_grad
+
+    # the trainer: SoftSDFModel on a (4096, 4096, 2) image out of gamut
+    img = torch.from_numpy(np.stack([pm_noise((SIZE, SIZE), SEED + 7), pm_noise((SIZE, SIZE), SEED + 8)], -1)).to(dev)
+    d_in, d_out = edt.dual_edt_banded(img[..., 1] > 127, band)
+    target = merge.signed_merge(d_out, d_in)
+    model = SoftSDFModel(SPREAD, SoftConfig(tau=tau, temperature=t))
+    require(model.log_tau.device.type == "cuda", "SoftSDFModel did not default to the card")
+
+    def plain_model_loss():
+        mix = torch.softmax(model.channel_mix, 0)
+        v = (img * mix).sum(-1) - model.threshold_bias
+        v = (v - 127.5) / torch.exp(model.log_tau) * tau + 127.5
+        require(softsdf.runtime_gate(v, band, tau, t) is None, "the trainer's input is in gamut")
+        f = soft_fused.f2_plain(soft_fused.f1_plain(v, band, tau, t), band, t, EPS, memos=False)
+        return torch.mean((f - target) ** 2)
+
+    k_loss = torch.mean((model(img) - target) ** 2)
+    k_grads = torch.autograd.grad(k_loss, list(model.parameters()))
+    p_loss = plain_model_loss()
+    p_grads = torch.autograd.grad(p_loss, list(model.parameters()))
+    rel_v = abs(float(k_loss.detach()) - float(p_loss.detach())) / abs(float(p_loss.detach()))
+    rel_g = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(k_grads, p_grads))
+    log(f"main path adaptive: SoftSDFModel step 1 vs plain twin: loss rel err {rel_v:.3e}, "
+        f"parameter gradients {rel_g:.3e} of their size")
+    require(rel_v < 1e-5 and rel_g < 1e-3, "SoftSDFModel differs from its plain twin")
+    train = make_train_step(model, create_train_state(model, img, lr=ADAM_LR))
+    reset_counts()
+    losses = [float(train(img, target)) for _ in range(3)]
+    torch.cuda.synchronize()
+    log(f"main path adaptive: SoftSDFModel {tuple(img.shape)} 3 Adam steps, losses {losses}, "
+        f"launches {dict(cuda_soft_mm.LAUNCHES)} {dict(soft_fused.LAUNCHES)}")
+    require(all(math.isfinite(v) for v in losses), "SoftSDFModel loss is not finite")
+    require(all(v == 3 for v in soft_fused.LAUNCHES.values()) and not any(cuda_soft_mm.LAUNCHES.values()),
+            "SoftSDFModel did not run the adaptive kernels")
+
+    # the CLI: out-of-gamut tau on the glyph PNG
+    cli_out, cli_log, cli_field = run_cli(glyph, ["--soft", "--soft-tau", "0.25", "-s", str(SPREAD)],
+                                          "soft adaptive", soft_field=True)
+    gray = torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev)
+    require(softsdf.runtime_gate(gray, band, 0.25, 0.5) is None, "the CLI's input is in gamut")
+    plain_field = soft_fused.f2_plain(soft_fused.f1_plain(gray, band, 0.25, 0.5), band, 0.5, EPS, memos=False)
+    plain_bytes = torch.clamp(merge.soft_remap(plain_field, SPREAD, False, "hard"), 0, 255)
+    plain_bytes = plain_bytes.to(torch.int32).cpu().numpy()
+    plain_field = plain_field.cpu().numpy()
+    require(cli_out.shape == (SIZE, SIZE) and cli_field.shape == (SIZE, SIZE), "adaptive CLI output shapes")
+    require(bool(np.isfinite(cli_field).all()), "adaptive CLI field is not finite")
+    e_bytes = int(np.abs(cli_out.astype(np.int32) - plain_bytes).max())
+    e_field = float(np.abs(cli_field - plain_field).max())
+    log(f"main path adaptive: CLI vs plain pipeline: bytes max abs err {e_bytes}, field max abs err {e_field:.3e}")
+    require(e_bytes <= 1 and e_field <= 1e-4, "adaptive CLI differs from the plain pipeline")
+    cli_launches = json.loads(next(l for l in cli_log if "kernel launches" in l).split("launches ", 1)[1])
+    require(cli_launches["soft_f1"] > 0 and cli_launches["soft_f2"] > 0 and cli_launches["soft_mm_fwd"] == 0,
+            "the adaptive CLI did not launch soft_f1 and soft_f2")
+    del gray, plain_field
+
+    # phase 14: times at 4096x4096 spread 64, tau 2, T 1
+    times = {}
+    for name in ("pm2000", "noise"):
+        g = big[name]
+        ones = torch.ones_like(g)  # the cotangent of a summed loss
+        args = (band, tau, t, True)
+        s1 = soft_fused.f1_pass(g, *args)
+        _, d2 = soft_fused.f2_pass(s1, band, t, EPS)
+        ds1 = soft_fused.b2_pass(ones, d2, s1, band, t, EPS)
+        tk = {
+            "soft_f1": cuda_ms(lambda: soft_fused.f1_pass(g, *args)),
+            "soft_f1_plain": cuda_ms(lambda: soft_fused.f1_plain(g, *args), 2, 3),
+            "soft_f2": cuda_ms(lambda: soft_fused.f2_pass(s1, band, t, EPS)),
+            "soft_f2_plain": cuda_ms(lambda: soft_fused.f2_plain(s1, band, t, EPS), 2, 3),
+            "soft_b2": cuda_ms(lambda: soft_fused.b2_pass(ones, d2, s1, band, t, EPS)),
+            "soft_b2_plain": cuda_ms(lambda: soft_fused.b2_plain(ones, d2, s1, band, t, EPS), 2, 3),
+            "soft_b1": cuda_ms(lambda: soft_fused.b1_pass(g, s1, ds1, *args)),
+            "soft_b1_plain": cuda_ms(lambda: soft_fused.b1_plain(g, s1, ds1, *args), 2, 3),
+            "gated_step": cuda_ms(lambda: gated_step(g)),
+            "forced_step": cuda_ms(lambda: forced_step(g)),
+            "forced_step_plain": cuda_ms(lambda: plain_forced_step(g), 2, 3),
+        }
+        for k, ms in tk.items():
+            log(f"time adaptive {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+        if name == "pm2000":
+            times = tk
+        del s1, d2, ds1, ones
+    ms = cuda_ms(lambda: train(img, target), 5, 3)
+    log(f"time adaptive SoftSDFModel step {tuple(img.shape)}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+
+    npix = SIZE * SIZE
+    bounds = fused_bounds(big["pm2000"], band, tau, t, npix)
+    for k, (b_ms, by) in bounds.items():
+        log(f"bound adaptive {k}: {b_ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
+            f"roofline share {100 * b_ms / times[k]:.1f}%")
+
+    # phase 15: device time by kernel over the adaptive steps
+    profile_device("adaptive step forced, noise", lambda: forced_step(big["noise"]))
+    profile_device("gated out-of-gamut step", lambda: gated_step(big["pm2000"]))
+    return err, launches, times, bounds
+
+
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
     bounds). No PyTorch call computes any kernel's function, so
@@ -600,7 +945,7 @@ def main() -> int:
 
     noise = noise_image(SIZE, SEED)
     glyph = glyph_image(SIZE, SEED + 1)
-    kernels = summary(hard_phases(dev, noise, glyph), soft_phases(dev, glyph))
+    kernels = summary(hard_phases(dev, noise, glyph), soft_phases(dev, glyph), fused_phases(dev, glyph))
     print(smi, flush=True)
     print(json.dumps(kernels))
     print(json.dumps({

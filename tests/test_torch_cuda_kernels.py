@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-hard path's (csrc/edt.cu) byte for byte, the soft path's (csrc/soft_mm.cu)
-within 1e-4 (field, and dgray relative to its scale). Marked ``gpu``: each
+hard path's (csrc/edt.cu) byte for byte, the declared-range soft path's
+(csrc/soft_mm.cu) within 1e-4 (field, and dgray relative to its scale), and
+the adaptive soft kernels (csrc/soft_fused.cu) bit for bit, with the
+gradient of the whole chain within 1e-4 of the scale of autograd. Marked ``gpu``: each
 test skips where no CUDA device is present. This file imports no JAX, so on
 a machine without it run it past the suite's conftest:
 
@@ -13,7 +15,8 @@ import torch
 
 from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm, soft_mxu, softsdf
+from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
+from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm, soft_fused, soft_mxu, softsdf
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 
 pytestmark = pytest.mark.gpu
@@ -203,3 +206,108 @@ def test_soft_wrappers_refuse_what_kernels_do_not_take(dev):
         cuda_soft_mm.mm_fused_bwd(g, a[:4], b, g, 0.0, 3, 3, 2.0, 1.0, 1e-6)
     with pytest.raises(ValueError):
         cuda_soft_mm.mm_fused_bwd(g, a.cpu(), b, g, 0.0, 3, 3, 2.0, 1.0, 1e-6)
+
+
+# ------------------------------------------------- adaptive soft kernels
+
+FUSED_SHAPES = [(1, 17), (17, 1), (129, 130), (384, 260), (3, 100, 90)]
+FUSED_PARAMS = [(66, 2.0, 1.0, True, "u8"), (112, 1.0, 0.5, False, "pm2000"), (20, 0.25, 0.5, True, "u8")]
+
+
+def _fused_case(dev, shape, kind, seed):
+    rng = np.random.default_rng(seed)
+    lo, hi = (0.0, 255.0) if kind == "u8" else (-2000.0, 2000.0)
+    g = torch.from_numpy((rng.random(shape) * (hi - lo) + lo).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return g, ct
+
+
+def _counted(name, fn):
+    before = soft_fused.LAUNCHES[name]
+    out = fn()
+    assert soft_fused.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("band,tau,temperature,test_above,kind", FUSED_PARAMS)
+def test_soft_fused_kernels_match_plain(dev, shape, band, tau, temperature, test_above, kind):
+    """Each of the four kernels against its plain version on the same
+    inputs, bit for bit."""
+    g, ct = _fused_case(dev, shape, kind, band)
+    args = (band, tau, temperature, test_above)
+    s1 = _counted("soft_f1", lambda: soft_fused.f1_pass(g, *args))
+    s1p = soft_fused.f1_plain(g, *args)
+    field, d2 = _counted("soft_f2", lambda: soft_fused.f2_pass(s1p, band, temperature, 1e-6))
+    fp, d2p = soft_fused.f2_plain(s1p, band, temperature, 1e-6)
+    ds1 = _counted("soft_b2", lambda: soft_fused.b2_pass(ct, d2p, s1p, band, temperature, 1e-6))
+    ds1p = soft_fused.b2_plain(ct, d2p, s1p, band, temperature, 1e-6)
+    dg = _counted("soft_b1", lambda: soft_fused.b1_pass(g, s1p, ds1p, *args))
+    dgp = soft_fused.b1_plain(g, s1p, ds1p, *args)
+    torch.cuda.synchronize()
+    for got, want in ((s1, s1p), (field, fp), (d2, d2p), (ds1, ds1p), (dg, dgp)):
+        assert torch.equal(got, want)
+    assert torch.equal(soft_fused.f2_pass(s1p, band, temperature, 1e-6, memos=False), field)
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("band,tau,temperature,test_above,kind", FUSED_PARAMS)
+def test_soft_fused_chain_matches_autograd_of_plain(dev, shape, band, tau, temperature, test_above, kind):
+    """The four kernels under autograd against torch autograd through the
+    plain forward: dgray within 1e-4 of the scale plus 1e-7 (autograd's
+    T - T sigmoid(-l) cancels to about 2^-24 T where the kernels keep
+    T sigmoid(l), and tiny images have tiny gradients)."""
+    g, ct = _fused_case(dev, shape, kind, band + 1)
+    x = g.clone().requires_grad_()
+    (soft_fused.soft_sdf_field_fused(x, band, tau, temperature, 1e-6, test_above) * ct).sum().backward()
+    y = g.clone().requires_grad_()
+    pf = soft_fused.f2_plain(soft_fused.f1_plain(y, band, tau, temperature, test_above), band,
+                             temperature, 1e-6, memos=False)
+    want, = torch.autograd.grad(pf, y, ct)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x.grad).all())
+    assert float((x.grad - want).abs().max()) <= 1e-4 * float(want.abs().max()) + 1e-7
+
+
+@pytest.mark.parametrize("kind,branch", [("u8", "mm"), ("pm2000", "fused")])
+def test_soft_gate_launches_its_branch(dev, kind, branch):
+    g, ct = _fused_case(dev, (300, 200), kind, 3)
+    x = g.clone().requires_grad_()
+    mm_before, fused_before = dict(cuda_soft_mm.LAUNCHES), dict(soft_fused.LAUNCHES)
+    softsdf.soft_sdf_field(x, 64, tau=2.0, temperature=1.0).sum().backward()
+    mm = {k: cuda_soft_mm.LAUNCHES[k] - mm_before[k] for k in mm_before}
+    fused = {k: soft_fused.LAUNCHES[k] - fused_before[k] for k in fused_before}
+    assert mm == {k: int(branch == "mm") for k in mm}
+    assert fused == {k: int(branch == "fused") for k in fused}
+    y = g.detach().cpu().requires_grad_()
+    softsdf.soft_sdf_field(y, 64, tau=2.0, temperature=1.0).sum().backward()
+    # CPU and CUDA exp/log differ in the last ulp; the gradient stays close
+    assert float((x.grad.cpu() - y.grad).abs().max()) < 2e-3 * float(y.grad.abs().max())
+
+
+def test_soft_model_trains_on_the_card(dev):
+    rng = np.random.default_rng(6)
+    img = torch.from_numpy((rng.random((2, 64, 48, 2)) * 4000 - 2000).astype(np.float32)).to(dev)
+    target = torch.from_numpy(rng.standard_normal((2, 64, 48)).astype(np.float32)).to(dev)
+    model = SoftSDFModel(8, SoftConfig(tau=2.0, temperature=1.0))
+    assert model.log_tau.device.type == "cuda"
+    step = make_train_step(model, create_train_state(model, img, lr=5e-2))
+    before = dict(soft_fused.LAUNCHES)
+    losses = [float(step(img, target)) for _ in range(3)]
+    assert all(soft_fused.LAUNCHES[k] == before[k] + 3 for k in before)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_soft_fused_wrappers_refuse_what_kernels_do_not_take(dev):
+    g = torch.zeros((8, 8), device=dev)
+    s1 = torch.zeros((2, 8, 8), device=dev)
+    with pytest.raises(ValueError):
+        soft_fused.f1_pass(g.t().contiguous().t(), 5, 2.0, 1.0)  # strided
+    with pytest.raises(TypeError):
+        soft_fused.f1_pass(g.double(), 5, 2.0, 1.0)
+    with pytest.raises(ValueError):
+        soft_fused.f1_pass(g, 113, 2.0, 1.0)
+    with pytest.raises(ValueError):
+        soft_fused.b2_pass(g, s1[:, :4], s1, 5, 1.0, 1e-6)
+    with pytest.raises(ValueError):
+        soft_fused.b1_pass(g, s1.cpu(), s1, 5, 2.0, 1.0)

@@ -100,8 +100,9 @@ def test_sdf_generator_refuses_unported_paths():
     with pytest.raises(NotImplementedError):
         tmodel.SDFGenerator(tcfg.SdfConfig(algorithm="jfa"))
     for rng in (None, (-1e9, 1e9)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tmodel.SDFGenerator(soft=tcfg.SoftConfig(gray_range=rng))
+        tmodel.SDFGenerator(soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
+        with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
+            tmodel.SDFGenerator(tcfg.SdfConfig(spread=111), soft=tcfg.SoftConfig(gray_range=rng))
     with pytest.raises(NotImplementedError):
         tmodel.SDFGenerator(sharding=tcfg.ShardingConfig())
     with pytest.raises(ValueError):
@@ -197,6 +198,29 @@ def test_import_pulls_in_no_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root
     )
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_every_module_imports_with_jax_blocked():
+    """Every module of the port, and chip_smoke.py, imports with jax and
+    chaq_sdfgen_tpu blocked in sys.modules (an import of either raises)."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'chaq_sdfgen_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import chaq_sdfgen_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "sys.argv = ['chaq_sdfgen_tpu_torch', '--list-platforms']  # __main__ runs the CLI\n"
+        "for n in names + ['chip_smoke']:\n"
+        "    try:\n"
+        "        importlib.import_module(n)\n"
+        "    except SystemExit as e:\n"
+        "        assert n.endswith('__main__') and e.code == 0, (n, e.code)\n"
+        "print(len(names))\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=root)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[-1]) >= 20
 
 
 # ------------------------------------------------------------- soft slice
@@ -296,11 +320,16 @@ def test_cli_soft_defaults_match_jax_kernel(tmp_path, input_png):
 
 
 def test_cli_soft_refuses_undeclared_range(tmp_path, input_png, capsys):
+    """An undeclared range runs (the runtime-gated path) up to band 112;
+    above it the CLI refuses, naming ROADMAP Queue 2 item 13."""
     out = str(tmp_path / "o.png")
     assert tcli.main(["-i", input_png, "-o", out, "--soft", "--gray-range", "-1e9", "1e9",
-                      "--platform", "cpu"]) == 1
-    assert "Queue 1 item 6" in capsys.readouterr().err
+                      "--platform", "cpu", "-s", "111"]) == 1
+    assert "Queue 2 item 13" in capsys.readouterr().err
     assert not os.path.exists(out)
+    assert tcli.main(["-i", input_png, "-o", out, "--soft", "--gray-range", "-1e9", "1e9",
+                      "--platform", "cpu", "-s", "12"]) == 0
+    assert os.path.exists(out)
 
 
 def test_no_card_needs_an_explicit_cpu(tmp_path, input_png, monkeypatch, capsys):

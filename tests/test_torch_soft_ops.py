@@ -189,10 +189,17 @@ def test_soft_gradient_vs_finite_difference():
 
 
 def test_soft_sdf_field_refuses_undeclared_range():
+    """An undeclared or out-of-gamut range runs (the runtime-gated path),
+    except where the adaptive kernels' geometry ends (band > 112, one row):
+    JAX takes its composed path there, Queue 2 item 13. Wide taps on a
+    declared range wait for Queue 2 item 14."""
     g = torch.zeros((8, 8))
     for rng in (None, (-1e9, 1e9)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tsoft.soft_sdf_field(g, 8, gray_range=rng)
+        assert tsoft.soft_sdf_field(g, 8, gray_range=rng).shape == (8, 8)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
+            tsoft.soft_sdf_field(g, 111, gray_range=rng)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
+            tsoft.soft_sdf_field(torch.zeros((1, 8)), 8, gray_range=rng)
     with pytest.raises(NotImplementedError, match="Queue 2 item 14"):
         tsoft.soft_sdf_field(g, 300, tau=2.0, temperature=8.0, gray_range=(0.0, 255.0))
 

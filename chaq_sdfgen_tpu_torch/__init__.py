@@ -1,7 +1,10 @@
 """chaq_sdfgen_tpu_torch -- the PyTorch and CUDA port of chaq_sdfgen_tpu.
 
 The hard EXACT pipeline (OpenMP-binary parity) runs on an NVIDIA Hopper
-card through two hand-written CUDA kernels (csrc/edt.cu); the
+card through two hand-written CUDA kernels (csrc/edt.cu), the exact
+full-range distance field through a third; the BRUTE pipeline
+(OpenCL-binary parity) through two more (csrc/brute.cu); the jump flood
+(JFA) as torch ops, as in the JAX package; the
 differentiable soft field, forward and backward, through two more on a
 declared gray range (csrc/soft_mm.cu) and, behind a runtime gate, four
 adaptive ones for any range (csrc/soft_fused.cu); and the trainable
@@ -13,8 +16,11 @@ the reference it is tested against.
 from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, ShardingConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import (
     SDFGenerator,
+    hard_sdf_brute,
     hard_sdf_exact,
     hard_sdf_exact_from_bool,
+    hard_sdf_jfa,
+    signed_distance_field_exact,
 )
 from chaq_sdfgen_tpu_torch.models.soft_model import (
     SoftSDFModel,
@@ -36,10 +42,13 @@ __all__ = [
     "SDFGenerator",
     "SoftSDFModel",
     "create_train_state",
+    "hard_sdf_brute",
     "hard_sdf_exact",
     "hard_sdf_exact_from_bool",
+    "hard_sdf_jfa",
     "make_train_step",
     "params_from_jax",
+    "signed_distance_field_exact",
     "soft_remap",
     "soft_sdf_bytes",
     "soft_sdf_field",

@@ -7,8 +7,9 @@ chaq_sdfgen_opencl (opencl/main.cpp:362-444): --list-platforms,
 --platform, --list-devices, --device, --log-level, --time, --two-channel.
 Platforms are ``cuda`` (when a card is present) and ``cpu``. The default is
 the first CUDA device; without a card the CLI runs only when asked for the
-CPU (--platform cpu). --algorithm offers only ``exact`` until BRUTE and
-JFA are ported. --soft runs the differentiable path: on the declared gray
+CPU (--platform cpu). --algorithm picks the distance core: exact (the
+OpenMP binary's bytes), brute (the OpenCL binary's) or jfa (jump flood).
+--soft runs the differentiable path: on the declared gray
 range (--gray-range, default 0 255) where it lies inside the gamut of
 --soft-tau and --soft-temperature, else through the runtime gate (a range
 such as -1e9 1e9 forces it); spreads above 110 on that path (band > 112)
@@ -52,8 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="test pixels by luminance instead of alpha")
     p.add_argument("-n", "--invert", action="store_true",
                    help="invert the threshold test")
-    p.add_argument("--algorithm", choices=["exact"], default="exact",
-                   help="distance core: exact (OpenMP-binary parity)")
+    p.add_argument("--algorithm", choices=["exact", "brute", "jfa"], default="exact",
+                   help="distance core: exact (OpenMP-binary parity), brute "
+                        "(OpenCL-kernel parity), jfa (jump flood)")
     p.add_argument("--list-platforms", action="store_true",
                    help="list available platforms (cuda, cpu)")
     p.add_argument("--platform", default=None,
@@ -188,7 +190,7 @@ def main(argv: Optional[list] = None) -> int:
 
     from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, SoftConfig
     from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-    from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm, soft_fused
+    from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused
     from chaq_sdfgen_tpu_torch.utils import imageio as iio
 
     t0 = time.perf_counter()
@@ -231,7 +233,8 @@ def main(argv: Optional[list] = None) -> int:
     if args.time_kernel:
         print(f"Kernel timing: {gen.kernel_time(img2ch):.6f} sec", file=sys.stderr)
     log.info("kernel launches %s",
-             json.dumps({**cuda_edt.LAUNCHES, **cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES}))
+             json.dumps({**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_soft_mm.LAUNCHES,
+                         **soft_fused.LAUNCHES}))
 
     t0 = time.perf_counter()
     try:

@@ -1,9 +1,8 @@
 """Frozen configuration, field for field the JAX package's
 (chaq_sdfgen_tpu/config.py), as plain dataclasses that import no JAX.
 
-Neither the hard EXACT pipeline nor the soft path has learned weights:
-the configuration is the only state carried from the JAX package to this
-one (``SdfConfig.from_dict(dataclasses.asdict(jax_cfg))``, and
+Neither the hard pipelines nor the soft path has learned weights: the
+configuration is the only state carried from the JAX package to this one (``SdfConfig.from_dict(dataclasses.asdict(jax_cfg))``, and
 ``SoftConfig.from_dict`` likewise).
 """
 
@@ -15,9 +14,10 @@ from typing import Any, Mapping, Optional, Tuple
 
 
 class Algorithm(str, enum.Enum):
-    """Which distance-transform core to run. Only EXACT (the banded
-    separable exact EDT, byte-identical to the OpenMP reference binary) is
-    ported so far; BRUTE and JFA are ROADMAP Queue 1 items 7 and 8."""
+    """Which distance-transform core to run: EXACT (the banded separable
+    exact EDT, byte-identical to the OpenMP reference binary), BRUTE (the
+    truncated per-pixel search, byte-identical to the OpenCL binary) or
+    JFA (jump flood, unclamped and approximate)."""
 
     EXACT = "exact"
     BRUTE = "brute"

@@ -28,6 +28,22 @@
 //   The strips are read through L1/L2 (both 4K u8 fields fit in the 50 MB
 //   L2); neighbouring threads read neighbouring columns.
 //
+// edt_dist replaces chaq_sdfgen_tpu/ops/pallas_edt.py:_dist_kernel
+//   (exact_distance_field): the exact full-range distance to the nearest
+//   seed. Per pixel, D = min over all dy of dy^2 + min(d(y+dy), sat)^2 on
+//   the u16 row-distance strip of edt_rows (clipped at the saturation tier
+//   sat), in int32 (D reaches ~8e8, beyond float32's exact integers); rows
+//   outside the image read sat, so they can only matter where D >= sat^2,
+//   which reads 32768.0 (no seed); elsewhere the correctly rounded sqrt of
+//   D rounded to float32 (__int2float_rn, as JAX's astype). Bound: bytes,
+//   6 B/px (u16 in, float32 out); a linear-time lower envelope needs ~40
+//   operations per pixel, well under them. The walk below spends more taps
+//   than that wherever the nearest seed is far.
+//   Design: edt_band_bytes' walk with the band equal to the image height:
+//   one thread per pixel walks dy = 1, 2, ... and stops once dy^2 >= its
+//   running minimum. The worst case, one far seed, walks O(H) taps per
+//   pixel, as the TPU kernel does.
+//
 // Exact numbers: every float op that matters is an explicit _rn intrinsic,
 // so nvcc cannot contract a multiply and an add into an FMA (which would
 // break the Veltkamp split of the sqrt refinement), and the remap divides
@@ -35,6 +51,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "refined_sqrt.cuh"
 
 namespace {
 
@@ -144,20 +162,6 @@ edt_rows_kernel(const uint8_t* __restrict__ codes, T* din, T* dout, int h, int w
   }
 }
 
-// numerics.refined_sqrt, with every op rounded on its own.
-__device__ __forceinline__ float refined_sqrt_f32(float n) {
-  const float s0 = __fsqrt_rn(n);
-  const float c = __fmul_rn(s0, 4097.0f);
-  const float hi = __fsub_rn(c, __fsub_rn(c, s0));
-  const float lo = __fsub_rn(s0, hi);
-  const float e = __fsub_rn(
-      __fsub_rn(__fsub_rn(n, __fmul_rn(hi, hi)), __fmul_rn(__fmul_rn(2.0f, hi), lo)),
-      __fmul_rn(lo, lo));
-  const float denom = __fmul_rn(2.0f, s0);
-  const float corr = __fdiv_rn(e, denom > 0.0f ? denom : 1.0f);
-  return n > 0.0f ? __fadd_rn(s0, corr) : 0.0f;
-}
-
 // D = min over |dy| <= band of dy^2 + g(y+dy) for the column that `col`
 // points into (row stride w).
 template <typename T>
@@ -209,6 +213,30 @@ edt_band_bytes_kernel(const T* __restrict__ din, const T* __restrict__ dout,
   out[plane + (size_t)y * w + x] = (uint8_t)(int)remap;
 }
 
+// grid (ceil(W/64), ceil(H/4), N); block (64, 4): one thread per pixel.
+__global__ void __launch_bounds__(kBandTx * kBandTy)
+edt_dist_kernel(const uint16_t* __restrict__ d, float* __restrict__ out, int h, int w, int sat) {
+  const int x = blockIdx.x * kBandTx + threadIdx.x;
+  const int y = blockIdx.y * kBandTy + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  const uint16_t* col = d + plane + x;
+  auto g = [&](int yy) -> int {
+    const int v = min((int)col[(size_t)yy * w], sat);
+    return v * v;
+  };
+  int best = g(y);
+  const int reach = max(y, h - 1 - y);  // beyond it both taps lie outside the image
+  for (int dy = 1; dy <= reach; ++dy) {
+    const int dy2 = dy * dy;
+    if (dy2 >= best) break;
+    if (y - dy >= 0) best = min(best, g(y - dy) + dy2);
+    if (y + dy < h) best = min(best, g(y + dy) + dy2);
+  }
+  out[plane + (size_t)y * w + x] =
+      best >= sat * sat ? 32768.0f : refined_sqrt_f32(__int2float_rn(best));
+}
+
 __global__ void refined_sqrt_kernel(const float* __restrict__ in, float* __restrict__ out,
                                     long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -257,6 +285,23 @@ extern "C" int chaq_edt_band_bytes(const void* din, const void* dout, void* out,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chaq_edt_dist(const void* d, void* out, int n, int h, int w, int sat,
+                             void* stream) {
+  // sat^2 + (h-1)^2 must fit int32 (the tiers of cuda_edt.dist_sat)
+  const long long reach = h - 1;
+  if (n < 1 || h < 1 || w < 1 || n > 65535 || sat < 1 ||
+      (long long)sat * sat + reach * reach >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kBandTx, kBandTy);
+  const dim3 grid((unsigned)((w + kBandTx - 1) / kBandTx),
+                  (unsigned)((h + kBandTy - 1) / kBandTy), (unsigned)n);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  edt_dist_kernel<<<grid, block, 0, (cudaStream_t)stream>>>((const uint16_t*)d, (float*)out, h,
+                                                            w, sat);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,16 @@
 """SDF generator pipelines (chaq_sdfgen_tpu/models/sdf_model.py).
 
   hard_sdf_exact  -- OpenMP-binary semantics, byte-identical (Algorithm.EXACT)
+  hard_sdf_brute  -- OpenCL-kernel semantics, byte-identical (Algorithm.BRUTE)
+  hard_sdf_jfa    -- jump-flood variant (Algorithm.JFA)
+  signed_distance_field_exact -- the signed exact full-range float field
   soft path       -- SDFGenerator(soft=SoftConfig(...)): the differentiable
                      field (ops/softsdf.py), on a declared gray range or
                      none (gray_range=None, the runtime-gated path)
 
-BRUTE, JFA, the soft path above band 112 and sharding are not ported yet
-(ROADMAP Queue 1 items 7, 8 and 11, Queue 2 item 13); asking for them
-raises NotImplementedError.
+The soft path above band 112 and sharding are not ported yet (ROADMAP
+Queue 2 item 13, Queue 1 item 11); asking for them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from chaq_sdfgen_tpu_torch.config import Algorithm, SdfConfig, SoftConfig
-from chaq_sdfgen_tpu_torch.ops import cuda_edt, merge, softsdf, threshold
+from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, jfa, merge, softsdf, threshold
 
 
 def hard_sdf_exact(
@@ -46,6 +49,49 @@ def hard_sdf_exact_from_bool(
     """EXACT pipeline from a thresholded bool grid (..., H, W) -> uint8: the
     CUDA kernels for a CUDA tensor, their plain versions on the CPU."""
     return cuda_edt.fused_sdf_bytes(b, spread, asymmetric, band)
+
+
+def hard_sdf_brute(
+    img2ch: torch.Tensor,
+    spread: int,
+    asymmetric: bool = False,
+    use_luminance: bool = False,
+    invert: bool = False,
+) -> torch.Tensor:
+    """Full OpenCL-kernel pipeline (opencl/sdf.cl:193-224), byte-identical:
+    threshold always > 127, the triangle candidate set (diagonal-exclusion
+    quirk included); ``invert`` flips the sign decider, not the threshold.
+    (..., H, W, 2) uint8 -> (..., H, W) uint8 on the input's device."""
+    channel = 0 if use_luminance else 1
+    b = threshold.hard_threshold(img2ch, channel=channel, test_above=True)
+    return cuda_brute.brute_sdf_bytes(b, spread, asymmetric=asymmetric, invert=invert)
+
+
+def hard_sdf_jfa(
+    img2ch: torch.Tensor,
+    spread: int,
+    asymmetric: bool = False,
+    channel: int = 1,
+    test_above: bool = True,
+    plus_one: bool = True,
+) -> torch.Tensor:
+    """Jump-flood pipeline: unclamped full-range nearest-seed distances (no
+    band), merged and remapped like the OpenMP binary. Torch ops on the
+    input's device (the JAX package has no kernel here either)."""
+    b = threshold.hard_threshold(img2ch, channel=channel, test_above=test_above)
+    d_in = jfa.jfa_distance(b, plus_one=plus_one)
+    d_out = jfa.jfa_distance(torch.logical_not(b), plus_one=plus_one)
+    return merge.remap_to_byte(merge.signed_merge(d_out, d_in), spread, asymmetric)
+
+
+def signed_distance_field_exact(b: torch.Tensor) -> torch.Tensor:
+    """Signed exact full-range distance field (float32, no spread clamp, no
+    byte remap) of a (..., H, W) mask: positive outside the shape, -(d-1)
+    inside (the OpenMP merge bias, openmp/sdfgen.c:98-106). Kernel
+    ``edt_dist`` on both polarities of one pass 1 for a CUDA tensor, the
+    plain versions on the CPU."""
+    d_in, d_out = cuda_edt.exact_distance_fields(b)
+    return merge.signed_merge(d_out, d_in)
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -93,11 +139,6 @@ class SDFGenerator:
             )
             if reason is not None:
                 raise NotImplementedError(f"SDFGenerator(soft=...): {reason}")
-        elif config.algorithm != Algorithm.EXACT:
-            item = {Algorithm.BRUTE: 7, Algorithm.JFA: 8}[config.algorithm]
-            raise NotImplementedError(
-                f"Algorithm.{config.algorithm.name} is not ported yet (ROADMAP Queue 1 item {item})"
-            )
         self.config = config
         self.soft = soft
         self.device = resolve_device(device)
@@ -120,6 +161,23 @@ class SDFGenerator:
             v = merge.soft_remap(self._field(x), cfg.spread, cfg.asymmetric, clamp=self.soft.clamp)
             # truncating u8 cast, matching the hard remap (sdfgen.c:94)
             return torch.clamp(v, 0.0, 255.0).to(torch.int32).to(torch.uint8)
+        if cfg.algorithm == Algorithm.BRUTE:
+            return hard_sdf_brute(
+                x,
+                spread=cfg.spread,
+                asymmetric=cfg.asymmetric,
+                use_luminance=cfg.channel_offset == 0,
+                invert=cfg.invert,
+            )
+        if cfg.algorithm == Algorithm.JFA:
+            return hard_sdf_jfa(
+                x,
+                spread=cfg.spread,
+                asymmetric=cfg.asymmetric,
+                channel=cfg.channel_offset,
+                test_above=not cfg.invert,
+                plus_one=cfg.jfa_plus_one,
+            )
         return hard_sdf_exact(
             x,
             spread=cfg.spread,

@@ -112,6 +112,15 @@ def load() -> ctypes.CDLL:
         lib.chaq_refined_sqrt_f32.argtypes = [vp, vp, ctypes.c_longlong, vp]
         lib.chaq_refined_sqrt_f32.restype = i32
         f32 = ctypes.c_float
+        # (d, out, n, h, w, sat, stream)
+        lib.chaq_edt_dist.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+        lib.chaq_edt_dist.restype = i32
+        # (codes, out, n, h, w, sent, elem_bytes, stream)
+        lib.chaq_brute_rows.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
+        lib.chaq_brute_rows.restype = i32
+        # (codes, strips, out, n, h, w, spread, s_min, s_max, invert, elem_bytes, stream)
+        lib.chaq_brute_scan_bytes.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32, f32, i32, i32, vp]
+        lib.chaq_brute_scan_bytes.restype = i32
         taps = ctypes.POINTER(f32)
         # (n, h, w, k1, k2, taps, tau, T, eps, shift, test_above, stream)
         soft_tail = [i32, i32, i32, i32, i32, taps, f32, f32, f32, f32, i32, vp]

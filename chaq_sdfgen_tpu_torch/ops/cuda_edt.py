@@ -1,11 +1,16 @@
-"""The hard EXACT pipeline's two kernels (csrc/edt.cu), each beside its
-plain PyTorch version (chaq_sdfgen_tpu/ops/pallas_edt.py counterparts).
+"""The hard EXACT pipeline's two kernels and the exact distance field's
+(csrc/edt.cu), each beside its plain PyTorch version
+(chaq_sdfgen_tpu/ops/pallas_edt.py counterparts).
 
   row_distances_u8   pass 1: per-row distances to the nearest TRUE and the
                      nearest FALSE pixel (kernel ``edt_rows``);
   fused_pass2_bytes  pass 2: banded column min-plus, sqrt, signed merge and
                      byte remap in one kernel (kernel ``edt_band_bytes``);
-  fused_sdf_bytes    both passes: (..., H, W) bool -> (..., H, W) uint8.
+  fused_sdf_bytes    both passes: (..., H, W) bool -> (..., H, W) uint8;
+  exact_dist         the full-range column min-plus and sqrt of one
+                     uint16 pass-1 strip (kernel ``edt_dist``);
+  exact_distance_field(s)  pass 1 at the saturation tier, then exact_dist:
+                     (..., H, W) bool -> float32 distance field(s).
 
 The strips between the passes are uint8 when band + 1 <= 255 and uint16
 above, so one pair of kernels serves every band up to 65534. Unlike the
@@ -24,10 +29,10 @@ from typing import Tuple
 
 import torch
 
-from chaq_sdfgen_tpu_torch.ops import _build, edt, merge
-from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
+from chaq_sdfgen_tpu_torch.ops import _build, edt, jfa, merge, threshold
+from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, walk_done
 
-LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0}
+LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0, "edt_dist": 0}
 
 MAX_BAND = 65534  # band + 1 must fit the uint16 strips
 
@@ -149,18 +154,12 @@ def fused_pass2_bytes(
 # ------------------------------------------------------------------ pipeline
 
 
-def _as_mask(b: torch.Tensor) -> torch.Tensor:
-    """Any mask -> bool (nonzero is TRUE), so that a 0/255 mask never
-    reaches pass 1 as tri-state codes."""
-    return b if b.dtype == torch.bool else b != 0
-
-
 def fused_sdf_bytes_plain(
     b: torch.Tensor, spread: int, asymmetric: bool = False, band: int | None = None
 ) -> torch.Tensor:
     """fused_sdf_bytes through the plain versions, on any device."""
     band = band if band is not None else spread + 2
-    din, dout = row_distances_u8_plain(_as_mask(b), band)
+    din, dout = row_distances_u8_plain(threshold.as_mask(b), band)
     return fused_pass2_bytes_plain(din, dout, spread, asymmetric, band, b.shape[-2] > 1)
 
 
@@ -173,9 +172,105 @@ def fused_sdf_bytes(
     spread + 2 and may be at most 65534."""
     band = band if band is not None else spread + 2
     _check_band(band)
-    din, dout = row_distances_u8(_as_mask(b), band)
+    din, dout = row_distances_u8(threshold.as_mask(b), band)
     # single-row images: the reference never applies the pass-2 sqrt
     return fused_pass2_bytes(din, dout, spread, asymmetric, band, apply_sqrt=b.shape[-2] > 1)
+
+
+# ------------------------------------------------- exact full-range distance
+
+NO_SEED = 32768.0  # jfa_distance's value where no seed exists
+
+
+def dist_sat(n: int) -> int | None:
+    """The smallest saturation tier for an image whose longest side is n
+    (pallas_edt._dist_sat): sat > sqrt(2) (n - 1), so that a row with no
+    seed can never beat a real candidate; sat^2 + (n - 1)^2 < 2^31, so that
+    d^2 stays exact in int32; sat <= 65535 (uint16 strips). None beyond
+    16384 px per side, where int32 would overflow."""
+    if n <= 4096:
+        return 8191
+    if n <= 8192:
+        return 16383
+    if n <= 16384:
+        return 23170
+    return None
+
+
+def exact_dist_plain(d: torch.Tensor, sat: int) -> torch.Tensor:
+    """Plain version of kernel ``edt_dist`` on any device: (..., H, W) row
+    distances (uint16, clipped at ``sat``) -> (..., H, W) float32. D = min
+    over all dy of dy^2 + min(d(y+dy), sat)^2 in int32; NO_SEED where D >=
+    sat^2, else the correctly rounded sqrt of D as float32. The walk over
+    dy stops once dy^2 reaches the largest D so far (no later tap can lower
+    any pixel), read to the host every few steps."""
+    h = d.shape[-2]
+    g = torch.clamp(d.to(torch.int32), max=sat)
+    g = g * g
+    acc = g.clone()
+    for dy in range(1, h):
+        if walk_done(dy, acc):
+            break
+        tap = g[..., dy:, :] + dy * dy
+        torch.minimum(acc[..., :-dy, :], tap, out=acc[..., :-dy, :])
+        tap = g[..., :-dy, :] + dy * dy
+        torch.minimum(acc[..., dy:, :], tap, out=acc[..., dy:, :])
+    dist = refined_sqrt(acc.to(torch.float32))
+    return torch.where(acc >= sat * sat, torch.full_like(dist, NO_SEED), dist)
+
+
+def exact_dist(d: torch.Tensor, sat: int) -> torch.Tensor:
+    """Pass 2 of the exact distance field: uint16 row distances clipped at
+    ``sat`` -> float32 distances (see exact_dist_plain). Kernel ``edt_dist``
+    on CUDA, the plain version on the CPU."""
+    if d.device.type == "cpu":
+        return exact_dist_plain(d, sat)
+    if d.device.type != "cuda":
+        raise ValueError(f"exact_dist: unsupported device {d.device}")
+    _build.check_cuda("exact_dist", d)
+    if d.dtype != torch.uint16:
+        raise TypeError(f"exact_dist: the strip must be uint16, got {d.dtype}")
+    out = torch.empty(d.shape, dtype=torch.float32, device=d.device)
+    n, h, w = _build.flat_shape(d)
+    if d.numel() == 0:
+        return out
+    _build.launch("chaq_edt_dist", d.device, d.data_ptr(), out.data_ptr(), n, h, w, sat)
+    LAUNCHES["edt_dist"] += 1
+    return out
+
+
+def _exact_fields(b: torch.Tensor, row_pass, dist):
+    """(distance to the nearest TRUE pixel, distance to the nearest FALSE
+    pixel) of a (..., H, W) mask, through ``row_pass`` and ``dist`` (the
+    kernels or their plain versions). Pass 1 at band sat - 1 clips at sat
+    in uint16 and gives both polarities in one sweep. Beyond 16384 px per
+    side the fields are jfa_distance's, by the function's definition."""
+    b = threshold.as_mask(b)
+    sat = dist_sat(max(b.shape[-2:]))
+    if sat is None:
+        return jfa.jfa_distance(b), jfa.jfa_distance(torch.logical_not(b))
+    din, dout = row_pass(b, sat - 1)
+    return dist(din, sat), dist(dout, sat)
+
+
+def exact_distance_fields_plain(b: torch.Tensor):
+    """exact_distance_fields through the plain versions, on any device."""
+    return _exact_fields(b, row_distances_u8_plain, exact_dist_plain)
+
+
+def exact_distance_fields(b: torch.Tensor):
+    """(distance to the nearest TRUE pixel, distance to the nearest FALSE
+    pixel) of a (..., H, W) mask, each float32, exact full-range, NO_SEED
+    (32768.0) where there is none (pallas_edt.exact_distance_field on b and
+    on not b). Exact up to 16384 px per side; beyond, jfa_distance. The
+    kernels for a CUDA tensor, the plain versions on the CPU."""
+    return _exact_fields(b, row_distances_u8, exact_dist)
+
+
+def exact_distance_field(b: torch.Tensor) -> torch.Tensor:
+    """The first of exact_distance_fields: the distance to the nearest
+    TRUE pixel."""
+    return exact_distance_fields(b)[0]
 
 
 def refined_sqrt_cuda(n: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 Float32 operation order mirrors the C code exactly so the output bytes are
 bit-identical: signed_merge <- transform_float_sub (openmp/sdfgen.c:98-106),
-remap_to_byte <- transform_float_to_byte (openmp/sdfgen.c:75-96).
-soft_remap is the soft path's differentiable remap. The OpenCL sign rule
-waits for BRUTE.
+remap_to_byte <- transform_float_to_byte (openmp/sdfgen.c:75-96), and the
+OpenCL variant opencl_sign_and_remap <- linear_remap + the sign rule
+(opencl/sdf.cl:17-23, 206-219). soft_remap is the soft path's
+differentiable remap.
 """
 
 from __future__ import annotations
@@ -31,6 +32,30 @@ def remap_to_byte(vals: torch.Tensor, spread: int, asymmetric: bool) -> torch.Te
     v = torch.minimum(vals, s_max)
     v = torch.maximum(v, s_min)
     remap = ((v - s_min) * 255.0) / sn + 0.0
+    # values are in [0, 255]: the int32 step truncates toward zero like C
+    return remap.to(torch.int32).to(torch.uint8)
+
+
+def opencl_sign_and_remap(
+    d: torch.Tensor,
+    found: torch.Tensor,
+    this_val: torch.Tensor,
+    spread: int,
+    asymmetric: bool,
+    invert: bool,
+    big: float,
+) -> torch.Tensor:
+    """OpenCL kernel tail (opencl/sdf.cl:206-223): decider = invert ^ val;
+    dist = found ? (decider ? +d : -(d-1)) : +-INF; clamped remap with an
+    IEEE division and a truncating u8 cast. ``big`` substitutes INFINITY
+    (it clamps identically)."""
+    decider = torch.logical_xor(this_val, torch.tensor(bool(invert), device=this_val.device))
+    signed = torch.where(decider, d, -(d + (-1.0)))
+    bigv = torch.full((), big, dtype=torch.float32, device=d.device)
+    dist = torch.where(found, signed, torch.where(decider, bigv, -bigv))
+    src_min = 0.0 if asymmetric else -float(spread)
+    v = torch.clamp(torch.clamp(dist, max=float(spread)), min=src_min)
+    remap = div((v - src_min) * 255.0, float(spread) - src_min) + 0.0
     # values are in [0, 255]: the int32 step truncates toward zero like C
     return remap.to(torch.int32).to(torch.uint8)
 

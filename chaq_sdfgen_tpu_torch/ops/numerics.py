@@ -1,5 +1,6 @@
 """Numerics helpers for bit-exact parity (chaq_sdfgen_tpu/ops/numerics.py),
-plus the IEEE division and stable softplus that the soft path shares.
+plus the IEEE division and stable softplus that the soft path shares, and
+the early stop of the plain versions' outward walks.
 
 ``torch.sqrt`` on the CPU is not correctly rounded: it differs by one ulp
 from the IEEE float32 result on about 105 thousand of the 2^24 integer
@@ -26,6 +27,16 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     """Stable softplus, max(x, 0) + log1p(exp(-|x|)), with no threshold
     (torch's F.softplus returns x itself above 20)."""
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+WALK_STOP_EVERY = 8  # walk steps between the early-stop checks (one host read each)
+
+
+def walk_done(step: int, acc: torch.Tensor) -> bool:
+    """True once an outward walk over |dy| reaching ``step`` can lower no
+    value of ``acc`` (a running min of squared distances): step^2 >= its
+    max. Checked every WALK_STOP_EVERY steps, each check a host read."""
+    return step > 0 and step % WALK_STOP_EVERY == 0 and step * step >= int(acc.max())
 
 
 def refined_sqrt(n: torch.Tensor) -> torch.Tensor:

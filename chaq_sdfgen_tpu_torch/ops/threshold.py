@@ -21,6 +21,12 @@ def hard_threshold(img2ch: torch.Tensor, channel: int = 1, test_above: bool = Tr
     return (chan > THRESHOLD) if test_above else (chan < THRESHOLD)
 
 
+def as_mask(b: torch.Tensor) -> torch.Tensor:
+    """Any mask -> bool (nonzero is TRUE), so that a 0/255 mask never
+    reaches a row pass as codes (which seed TRUE at code 1 only)."""
+    return b if b.dtype == torch.bool else b != 0
+
+
 def indicator(b: torch.Tensor, true_is_zero: bool, big: float) -> torch.Tensor:
     """bool -> {0, big} float32 parabola heights (transform_bool_to_float,
     openmp/sdfgen.c:65-72); ``big`` is the finite stand-in for +inf."""

@@ -73,13 +73,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
      the adaptive step forced on it, the out-of-gamut step and the
      SoftSDFModel step;
  15. where the adaptive steps' device time goes: torch.profiler over the
-     forced adaptive step and the gated out-of-gamut step.
+     forced adaptive step and the gated out-of-gamut step;
+ 16. the BRUTE kernels (csrc/brute.cu: brute_rows, brute_scan_bytes) and the
+     exact-distance kernel (edt_dist) against their plain versions on the
+     card, tolerance 0 (bytes; float32 bits): 4096x4096 noise and glyph at
+     spreads 1 and 64, spreads 254 and 300 (uint16 strips) at 1024x1024,
+     odd shapes, uniform and 0/255 masks and a batch of 3; for edt_dist
+     also one far seed at 2048x2048 (the O(H) walk) and the 4104x128
+     two-seed image (saturation tier 16383) against NumPy brute force;
+ 17. the BRUTE and JFA paths through their entry points: the CLI with
+     --algorithm brute and --algorithm jfa at 4096x4096 spread 64 on the
+     glyph PNG against the plain pipeline on the card; SDFGenerator BRUTE
+     at 256x256 against the NumPy oracle of the OpenCL binary, JFA at
+     256x256 against the port on the CPU (bitwise) and the oracle of the
+     OpenMP binary (JFA's rare misses allowed, as its JAX tests do); the
+     launch counters over one SDFGenerator BRUTE run and one
+     signed_distance_field_exact run at 4096x4096, and that field against
+     its plain version;
+ 18. BRUTE, JFA and exact-distance times (CUDA events, as in phase 6) at
+     4096x4096 spread 64 on both inputs: each kernel against its plain
+     version and the three pipelines;
+ 19. where the BRUTE pipeline's and signed_distance_field_exact's device
+     time goes: torch.profiler, as in phase 7.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
-must move at 3.35 TB/s and the float operations its function needs on
-these inputs at 67 TFLOP/s (the H100 SXM's HBM3 rate and float32 rate
-outside the tensor cores); for the adaptive kernels the operations count
-the taps that this run's data puts inside the cut.
+must move at 3.35 TB/s and the operations its function needs on these
+inputs at 67 T/s (the H100 SXM's HBM3 rate and float32 rate outside the
+tensor cores; the hard kernels' integer operations are counted at the
+same rate); for the adaptive kernels the operations count the taps that
+this run's data puts inside the cut; for the column searches
+(edt_band_bytes, brute_scan_bytes, edt_dist) the count is what a
+linear-time lower envelope needs, whatever the kernel's own walk does.
 """
 
 from __future__ import annotations
@@ -98,10 +122,11 @@ import numpy as np
 import torch
 
 from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
-from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
+from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
 from chaq_sdfgen_tpu_torch.ops import (
-    _build, cuda_edt, cuda_soft_mm, edt, merge, soft_fused, soft_mxu, softsdf, threshold,
+    _build, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, merge, soft_fused, soft_mxu, softsdf,
+    threshold,
 )
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, softplus
 from chaq_sdfgen_tpu_torch.utils import imageio, sdfio_native
@@ -157,6 +182,21 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/soft_fused.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_soft_fused.py:784",
+    },
+    "brute_rows": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/brute.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_brute.py:144",
+    },
+    "brute_scan_bytes": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/brute.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_brute.py:330",
+    },
+    "edt_dist": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:1092",
     },
 }
 
@@ -289,6 +329,25 @@ def band_bytes_flops(npix: int) -> float:
     return (2 * 15 + 25) * npix
 
 
+def dist_flops(npix: int) -> float:
+    """Float operations edt_dist's function needs, whatever the algorithm:
+    per pixel, ~15 for a linear-time lower envelope of the column's
+    parabolas dy^2 + d^2 (an intersection and an evaluation), plus ~25 for
+    the sqrt refinement and the NO_SEED select."""
+    return (15 + 25) * npix
+
+
+def brute_scan_flops(npix: int) -> float:
+    """Operations brute_scan_bytes's function needs, whatever the algorithm:
+    per pixel and side, ~15 for a lower envelope of the column's parabolas
+    dy^2 + dx1^2 and ~5 for the diagonal candidates (row y' swaps in its
+    second-nearest seed for only the two pixels y' +- dx1, a scatter-min);
+    plus ~35 for the tail (sqrt refinement, OpenCL sign, fallback, remap).
+    At 10 B/px the bytes stay the bound unless the search needs more than
+    ~80 operations per pixel and side."""
+    return (2 * (15 + 5) + 35) * npix
+
+
 def soft_flops(npix: int, k1: int, k2: int, forward: bool) -> float:
     """Float operations of a soft kernel: per pixel, both fields' rows and
     cols convs (a multiply and an add per tap), plus the occupancy and the
@@ -375,8 +434,8 @@ def hard_phases(dev, noise, glyph):
         cuda_edt.LAUNCHES[k] = 0
     out = gen.generate(img_dev)
     torch.cuda.synchronize()
-    launches = dict(cuda_edt.LAUNCHES)
-    log(f"main path hard: SDFGenerator {SIZE}x{SIZE} launches {launches}")
+    launches = {k: cuda_edt.LAUNCHES[k] for k in err}
+    log(f"main path hard: SDFGenerator {SIZE}x{SIZE} launches {dict(cuda_edt.LAUNCHES)}")
     for k, v in launches.items():
         require(v > 0, f"kernel {k} was not launched on the main path")
     require(out.shape == (SIZE, SIZE) and out.dtype == torch.uint8, "main path output shape/dtype")
@@ -901,6 +960,205 @@ def fused_phases(dev, glyph):
     return err, launches, times, bounds
 
 
+# ------------------------------------------------- BRUTE, JFA, exact distance
+
+
+def bits_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Number of float32 values whose bits differ."""
+    require(a.shape == b.shape and a.dtype == b.dtype == torch.float32, "float32 fields of one shape")
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def walk_taps(dist: torch.Tensor, reach: int) -> int:
+    """Taps of the outward walks over all pixels: a pixel whose nearest
+    candidate lies at distance d stops at the first |dy| >= d, reading its
+    own row and two rows per step before that (at most ``reach`` steps)."""
+    steps = torch.clamp(torch.ceil(dist.to(torch.float64)) - 1, 0, reach)
+    return int((1 + 2 * steps).sum())
+
+
+def brute_dist_phases(dev, noise, glyph):
+    """Phases 16-19. Returns (errors, launches, glyph times, bounds)."""
+    err = {"brute_rows": 0, "brute_scan_bytes": 0, "edt_dist": 0}
+    masks = {
+        "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
+        "glyph": threshold.hard_threshold(torch.from_numpy(glyph).to(dev)),
+    }
+
+    def check_brute(name, b, spread, asymmetric=False, invert=False):
+        strips = cuda_brute.seed_strips(b, spread)
+        plain = cuda_brute.seed_strips_plain(b, spread)
+        e1 = max_abs_err(strips, plain)
+        got = cuda_brute.brute_scan_bytes(b, plain, spread, asymmetric, invert)
+        want = cuda_brute.brute_scan_bytes_plain(b, plain, spread, asymmetric, invert)
+        e2 = max_abs_err(got, want)
+        torch.cuda.synchronize()
+        err["brute_rows"] = max(err["brute_rows"], e1)
+        err["brute_scan_bytes"] = max(err["brute_scan_bytes"], e2)
+        log(f"check brute {name} {tuple(b.shape)} spread {spread}{' asym' if asymmetric else ''}"
+            f"{' invert' if invert else ''}: brute_rows err {e1}, brute_scan_bytes err {e2}")
+        require(e1 == 0 and e2 == 0, f"a BRUTE kernel disagrees with its plain version on {name}")
+
+    def check_dist(name, b, want=None):
+        sat = cuda_edt.dist_sat(max(b.shape[-2:]))
+        din, dout = cuda_edt.row_distances_u8(b, sat - 1)
+        e = 0
+        for d in (din, dout):
+            got = cuda_edt.exact_dist(d, sat)
+            e = max(e, bits_err(got, cuda_edt.exact_dist_plain(d, sat)))
+        if want is not None:
+            e = max(e, bits_err(cuda_edt.exact_dist(din, sat).cpu(), torch.from_numpy(want)))
+        torch.cuda.synchronize()
+        err["edt_dist"] = max(err["edt_dist"], e)
+        log(f"check edt_dist {name} {tuple(b.shape)} sat {sat}: {e} values differ"
+            f"{' (and from NumPy brute force)' if want is not None else ''}")
+        require(e == 0, f"edt_dist disagrees with its plain version on {name}")
+
+    for name, b in masks.items():
+        for spread in (1, SPREAD):
+            check_brute(name, b, spread)
+        check_dist(name, b)
+    check_brute("glyph", masks["glyph"], SPREAD, asymmetric=True, invert=True)
+    for name, b in masks.items():
+        for spread in (254, 300):
+            check_brute(f"{name} 1024 corner", b[:1024, :1024].contiguous(), spread)
+    rng = np.random.default_rng(SEED + 9)
+    for shape in ((1, 17), (17, 1), (139, 131), (3, 256, 256)):
+        b = torch.from_numpy(rng.random(shape) < 0.3).to(dev)
+        for spread in (1, SPREAD):
+            check_brute("random", b, spread)
+        check_dist("random", torch.from_numpy(rng.random(shape) < 0.01).to(dev))
+    for fill in (False, True):
+        check_brute(f"uniform-{fill}", torch.full((512, 384), fill, device=dev), SPREAD)
+        check_dist(f"uniform-{fill}", torch.full((512, 384), fill, device=dev))
+    b255 = (masks["glyph"][:512, :512].to(torch.uint8) * 255).contiguous()
+    e = max_abs_err(cuda_brute.brute_sdf_bytes(b255, SPREAD), cuda_brute.brute_sdf_bytes_plain(b255 != 0, SPREAD))
+    log(f"check brute 0/255 mask (512, 512): pipeline err {e}")
+    require(e == 0, "BRUTE disagrees on a 0/255 mask")
+    for shape, seeds in (((2048, 2048), [(0, 0)]), ((4104, 128), [(2, 5), (4100, 100)])):
+        b = np.zeros(shape, bool)
+        for y, x in seeds:
+            b[y, x] = True
+        ys, xs = np.nonzero(b)
+        yy, xx = np.mgrid[0 : shape[0], 0 : shape[1]]
+        d2 = np.min([(yy - y) ** 2 + (xx - x) ** 2 for y, x in zip(ys, xs)], axis=0)
+        check_dist(f"{len(seeds)} far seed(s)", torch.from_numpy(b).to(dev), np.sqrt(d2.astype(np.float32)))
+
+    # phase 17: the BRUTE and JFA paths through their entry points
+    for algorithm in ("brute", "jfa"):
+        cli_out, cli_log, _ = run_cli(glyph, ["--algorithm", algorithm, "-s", str(SPREAD)], algorithm)
+        require(cli_out.shape == (SIZE, SIZE), f"CLI {algorithm} output shape {cli_out.shape}")
+        if algorithm == "brute":
+            want = cuda_brute.brute_sdf_bytes_plain(masks["glyph"], SPREAD)
+            cli_launches = json.loads(next(l for l in cli_log if "kernel launches" in l).split("launches ", 1)[1])
+            require(cli_launches["brute_rows"] == 1 and cli_launches["brute_scan_bytes"] == 1,
+                    "the BRUTE CLI did not launch its kernels")
+        else:  # JFA has no kernel: its plain pipeline is the torch ops themselves
+            want = SDFGenerator(SdfConfig(spread=SPREAD, algorithm="jfa"), device=dev).generate(
+                torch.from_numpy(glyph).to(dev))
+        e = int(np.abs(cli_out.astype(np.int32) - want.cpu().numpy().astype(np.int32)).max())
+        log(f"main path {algorithm}: CLI max abs err vs plain pipeline {e}")
+        require(e == 0, f"the {algorithm} CLI differs from the plain pipeline")
+
+    from sdfref import oracle
+
+    small = glyph[:256, :256]
+    got = SDFGenerator(SdfConfig(spread=SPREAD, algorithm="brute"), device=dev).generate(small).cpu().numpy()
+    e = int(np.abs(got.astype(np.int32) - oracle.sdf_pipeline_opencl(small, spread=SPREAD)).max())
+    log(f"main path brute: SDFGenerator 256x256 vs the OpenCL oracle: max abs err {e}")
+    require(e == 0, "SDFGenerator BRUTE differs from the oracle of the OpenCL binary")
+    got = SDFGenerator(SdfConfig(spread=SPREAD, algorithm="jfa"), device=dev).generate(small).cpu().numpy()
+    cpu = SDFGenerator(SdfConfig(spread=SPREAD, algorithm="jfa"), device="cpu").generate(small).numpy()
+    exact = oracle.sdf_pipeline_openmp(small, spread=SPREAD).astype(np.int32)
+    diff = np.abs(got.astype(np.int32) - exact)
+    log(f"main path jfa: SDFGenerator 256x256 card vs CPU equal {bool((got == cpu).all())}; vs the OpenMP "
+        f"oracle {float((diff == 0).mean()):.5f} of bytes equal, max abs err {int(diff.max())}")
+    require(bool((got == cpu).all()) and (diff == 0).mean() >= 0.999 and diff.max() <= 11,
+            "SDFGenerator JFA differs from the port on the CPU or strays from the exact oracle")
+
+    img = torch.from_numpy(glyph).to(dev)
+    gen = SDFGenerator(SdfConfig(spread=SPREAD, algorithm="brute"), device=dev)
+    torch.cuda.synchronize()
+    for k in cuda_brute.LAUNCHES:
+        cuda_brute.LAUNCHES[k] = 0
+    out = gen.generate(img)
+    torch.cuda.synchronize()
+    launches = dict(cuda_brute.LAUNCHES)
+    log(f"main path brute: SDFGenerator {SIZE}x{SIZE} launches {launches}")
+    require(out.shape == (SIZE, SIZE) and out.dtype == torch.uint8, "BRUTE output shape/dtype")
+    b = masks["glyph"]
+    for k in cuda_edt.LAUNCHES:
+        cuda_edt.LAUNCHES[k] = 0
+    field = signed_distance_field_exact(b)
+    torch.cuda.synchronize()
+    launches["edt_dist"] = cuda_edt.LAUNCHES["edt_dist"]
+    log(f"main path exact distance: signed_distance_field_exact {SIZE}x{SIZE} launches {dict(cuda_edt.LAUNCHES)}")
+    for k in ("brute_rows", "brute_scan_bytes", "edt_dist"):
+        require(launches[k] > 0, f"kernel {k} was not launched on its path")
+    want = merge.signed_merge(*reversed(cuda_edt.exact_distance_fields_plain(b)))
+    e = bits_err(field, want)
+    log(f"main path exact distance: field vs plain {e} values differ; finite {bool(torch.isfinite(field).all())}, "
+        f"range [{float(field.min()):.1f}, {float(field.max()):.1f}]")
+    require(e == 0 and bool(torch.isfinite(field).all()), "signed_distance_field_exact differs from its plain version")
+
+    # phase 18: times at 4096x4096 spread 64
+    jfa_gen = SDFGenerator(SdfConfig(spread=SPREAD, algorithm="jfa"), device=dev)
+    times = {}
+    for name, b in masks.items():
+        img = torch.from_numpy(noise if name == "noise" else glyph).to(dev)
+        strips = cuda_brute.seed_strips(b, SPREAD)
+        sat = cuda_edt.dist_sat(SIZE)
+        din, _ = cuda_edt.row_distances_u8(b, sat - 1)
+        t = {
+            "brute_rows": cuda_ms(lambda: cuda_brute.seed_strips(b, SPREAD)),
+            "brute_rows_plain": cuda_ms(lambda: cuda_brute.seed_strips_plain(b, SPREAD), 2, 3),
+            "brute_scan_bytes": cuda_ms(lambda: cuda_brute.brute_scan_bytes(b, strips, SPREAD)),
+            "brute_scan_bytes_plain": cuda_ms(lambda: cuda_brute.brute_scan_bytes_plain(b, strips, SPREAD), 2, 3),
+            "edt_dist": cuda_ms(lambda: cuda_edt.exact_dist(din, sat)),
+            "edt_dist_plain": cuda_ms(lambda: cuda_edt.exact_dist_plain(din, sat), 2, 3),
+            "brute_pipeline": cuda_ms(lambda: gen.generate(img)),
+            "brute_pipeline_plain": cuda_ms(
+                lambda: cuda_brute.brute_sdf_bytes_plain(threshold.hard_threshold(img), SPREAD), 2, 3),
+            "jfa_pipeline": cuda_ms(lambda: jfa_gen.generate(img), 2, 3),
+            "exact_field": cuda_ms(lambda: signed_distance_field_exact(b)),
+            "exact_field_plain": cuda_ms(
+                lambda: merge.signed_merge(*reversed(cuda_edt.exact_distance_fields_plain(b))), 2, 3),
+        }
+        times[name] = t
+        for k, ms in t.items():
+            log(f"time {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+
+    # bounds on the glyph input; the walks' taps are logged, not counted in the bounds
+    npix = SIZE * SIZE
+    b = masks["glyph"]
+    strips = cuda_brute.seed_strips(b, SPREAD)
+    sat = cuda_edt.dist_sat(SIZE)
+    din, _ = cuda_edt.row_distances_u8(b, sat - 1)
+    taps = {
+        "brute_scan_bytes": walk_taps(brute.triangle_d2(b, strips, SPREAD).double().sqrt(), SPREAD),
+        "edt_dist": walk_taps(cuda_edt.exact_dist(din, sat), SIZE - 1),  # NO_SEED walks the whole reach
+    }
+    for k, n in taps.items():
+        log(f"walk of {k}: {n} taps ({n / npix:.2f} per pixel)")
+    bounds = {
+        # 1 B/px in, 8 strips out; ~4 operations per pixel and scan direction and polarity
+        "brute_rows": bound(npix * (1 + 8 * strips.element_size()), 16 * npix),
+        # mask and 8 strips in, bytes out
+        "brute_scan_bytes": bound(npix * (1 + 8 * strips.element_size() + 1), brute_scan_flops(npix)),
+        # uint16 strip in, float32 out
+        "edt_dist": bound(npix * (2 + 4), dist_flops(npix)),
+    }
+    for k, (ms, by) in bounds.items():
+        log(f"bound {k}: {ms:.4f} ms ({by}); measured {times['glyph'][k]:.4f} ms, "
+            f"roofline share {100 * ms / times['glyph'][k]:.1f}%")
+
+    # phase 19: device time by kernel over the BRUTE pipeline and the exact field
+    img = torch.from_numpy(glyph).to(dev)
+    profile_device("brute", lambda: gen.generate(img))
+    profile_device("signed_distance_field_exact", lambda: signed_distance_field_exact(b))
+    return err, launches, times["glyph"], bounds
+
+
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
     bounds). No PyTorch call computes any kernel's function, so
@@ -945,7 +1203,8 @@ def main() -> int:
 
     noise = noise_image(SIZE, SEED)
     glyph = glyph_image(SIZE, SEED + 1)
-    kernels = summary(hard_phases(dev, noise, glyph), soft_phases(dev, glyph), fused_phases(dev, glyph))
+    kernels = summary(hard_phases(dev, noise, glyph), soft_phases(dev, glyph), fused_phases(dev, glyph),
+                      brute_dist_phases(dev, noise, glyph))
     print(smi, flush=True)
     print(json.dumps(kernels))
     print(json.dumps({

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card: the
-hard path's (csrc/edt.cu) byte for byte, the declared-range soft path's
+hard path's (csrc/edt.cu) byte for byte, BRUTE's (csrc/brute.cu) byte for
+byte, the exact distance field's (edt_dist) bit for bit, the declared-range soft path's
 (csrc/soft_mm.cu) within 1e-4 (field, and dgray relative to its scale), and
 the adaptive soft kernels (csrc/soft_fused.cu) bit for bit, with the
 gradient of the whole chain within 1e-4 of the scale of autograd. Marked ``gpu``: each
@@ -14,9 +15,9 @@ import pytest
 import torch
 
 from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
-from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
+from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
-from chaq_sdfgen_tpu_torch.ops import cuda_edt, cuda_soft_mm, soft_fused, soft_mxu, softsdf
+from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, soft_mxu, softsdf
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 
 pytestmark = pytest.mark.gpu
@@ -115,6 +116,103 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
         cuda_edt.fused_pass2_bytes(din, dout[:4], 3, False, 5)
     with pytest.raises(TypeError):
         cuda_edt.fused_pass2_bytes(din.float(), dout.float(), 3, False, 5)
+
+
+# ------------------------------------------------------- BRUTE and exact distance
+
+BRUTE_SHAPES = [(1, 17), (17, 1), (139, 131), (3, 64, 80), (300, 1100)]
+
+
+@pytest.mark.parametrize("shape", BRUTE_SHAPES)
+@pytest.mark.parametrize("spread", [1, 12, 254, 300])
+def test_brute_rows_matches_plain(dev, shape, spread):
+    b = _codes(shape, spread, density=0.05).to(dev)
+    before = cuda_brute.LAUNCHES["brute_rows"]
+    got = cuda_brute.seed_strips(b, spread)
+    assert cuda_brute.LAUNCHES["brute_rows"] == before + 1
+    want = cuda_brute.seed_strips_plain(b, spread)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == cuda_brute.strip_dtype(spread)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", BRUTE_SHAPES)
+@pytest.mark.parametrize("spread,asymmetric,invert", [(1, False, False), (12, True, True), (64, False, True),
+                                                      (300, False, False)])
+def test_brute_scan_bytes_matches_plain(dev, shape, spread, asymmetric, invert):
+    b = _codes(shape, spread + 1, density=0.05).to(dev)
+    strips = cuda_brute.seed_strips_plain(b, spread)
+    before = cuda_brute.LAUNCHES["brute_scan_bytes"]
+    got = cuda_brute.brute_scan_bytes(b, strips, spread, asymmetric, invert)
+    assert cuda_brute.LAUNCHES["brute_scan_bytes"] == before + 1
+    want = cuda_brute.brute_scan_bytes_plain(b, strips, spread, asymmetric, invert)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fill", [False, True])
+def test_brute_uniform_and_0_255_masks(dev, fill):
+    b = torch.full((40, 70), fill, device=dev)
+    assert torch.equal(cuda_brute.brute_sdf_bytes(b, 8), cuda_brute.brute_sdf_bytes_plain(b, 8))
+    m = (_codes((40, 70), 2).to(dev).to(torch.uint8) * 255)
+    assert torch.equal(cuda_brute.brute_sdf_bytes(m, 8), cuda_brute.brute_sdf_bytes_plain(m != 0, 8))
+
+
+@pytest.mark.parametrize("shape,density", [((1, 17), 0.1), ((17, 1), 0.1), ((139, 131), 0.02),
+                                           ((3, 64, 80), 0.01), ((300, 1100), 0.001), ((64, 64), 0.0)])
+def test_edt_dist_matches_plain(dev, shape, density):
+    b = _codes(shape, 9, density=density).to(dev)
+    sat = cuda_edt.dist_sat(max(shape[-2:]))
+    din, dout = cuda_edt.row_distances_u8(b, sat - 1)
+    assert din.dtype == torch.uint16
+    before = cuda_edt.LAUNCHES["edt_dist"]
+    got = cuda_edt.exact_dist(din, sat)
+    assert cuda_edt.LAUNCHES["edt_dist"] == before + 1
+    want = cuda_edt.exact_dist_plain(din, sat)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_edt_dist_one_far_seed_and_tall_image(dev):
+    for shape, seeds in (((512, 384), [(0, 0)]), ((4104, 128), [(2, 5), (4100, 100)])):
+        b = torch.zeros(shape, dtype=torch.bool)
+        for y, x in seeds:
+            b[y, x] = True
+        got = cuda_edt.exact_distance_fields(b.to(dev))
+        want = cuda_edt.exact_distance_fields_plain(b.to(dev))
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(got[0].cpu(), cuda_edt.exact_distance_field(b))
+
+
+def test_brute_and_exact_entry_points_run_their_kernels(dev):
+    img = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (96, 80, 2), dtype=np.uint8))
+    gen = SDFGenerator(SdfConfig(spread=12, algorithm="brute"), device=dev)
+    before = dict(cuda_brute.LAUNCHES)
+    out = gen.generate(img)
+    assert all(cuda_brute.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert torch.equal(out.cpu(), SDFGenerator(SdfConfig(spread=12, algorithm="brute"), device="cpu").generate(img))
+    jfa_out = SDFGenerator(SdfConfig(spread=12, algorithm="jfa"), device=dev).generate(img)
+    assert torch.equal(jfa_out.cpu(), SDFGenerator(SdfConfig(spread=12, algorithm="jfa"), device="cpu").generate(img))
+    b = img[..., 1] > 127
+    before = dict(cuda_edt.LAUNCHES)
+    field = signed_distance_field_exact(b.to(dev))
+    assert cuda_edt.LAUNCHES["edt_rows"] == before["edt_rows"] + 1
+    assert cuda_edt.LAUNCHES["edt_dist"] == before["edt_dist"] + 2
+    assert torch.equal(field.cpu(), signed_distance_field_exact(b))
+
+
+def test_brute_and_dist_wrappers_refuse_what_kernels_do_not_take(dev):
+    b = torch.zeros((8, 8), dtype=torch.bool, device=dev)
+    strips = cuda_brute.seed_strips(b, 5)
+    with pytest.raises(ValueError):
+        cuda_brute.brute_scan_bytes(b, strips.to(torch.uint16), 5)  # wrong strip dtype
+    with pytest.raises(ValueError):
+        cuda_brute.brute_scan_bytes(b, strips.cpu(), 5)
+    with pytest.raises(ValueError):
+        cuda_brute.seed_strips(b.t().contiguous().t()[:, :4], 5)  # strided
+    with pytest.raises(TypeError):
+        cuda_edt.exact_dist(torch.zeros((8, 8), dtype=torch.uint8, device=dev), 8191)
 
 
 # ------------------------------------------------------------- soft kernels

@@ -3,7 +3,9 @@ pipeline functions and SDFGenerator against the JAX package and the NumPy
 oracle of the reference binary, and the CLI end to end against the JAX
 package's CLI on the same PNG, byte-exact. The soft slice: SDFGenerator's
 field and bytes and the CLI's --soft against the JAX package's, within the
-soft path's tolerances. And the refusal to run on the CPU unasked."""
+soft path's tolerances. The BRUTE and JFA pipelines through SDFGenerator
+and the CLI, byte-exact against the JAX package's. And the refusal to run
+on the CPU unasked."""
 
 import dataclasses
 import io
@@ -94,11 +96,40 @@ def test_sdf_generator_matches_jax(kw):
     np.testing.assert_array_equal(gen.generate(torch.from_numpy(batch))[0].numpy(), want)
 
 
+@pytest.mark.parametrize(
+    "kw",
+    [
+        {"algorithm": "brute"},
+        {"algorithm": "brute", "spread": 9, "asymmetric": True, "channel": "luminance"},
+        {"algorithm": "brute", "spread": 7, "invert": True},
+        {"algorithm": "brute", "spread": 300},
+        {"algorithm": "jfa"},
+        {"algorithm": "jfa", "spread": 12, "asymmetric": True, "channel": "luminance"},
+        {"algorithm": "jfa", "spread": 9, "invert": True, "jfa_plus_one": False},
+    ],
+)
+def test_sdf_generator_brute_and_jfa_match_jax(kw):
+    """SDFGenerator's BRUTE and JFA pipelines (-l, -n, -a) against the JAX
+    SDFGenerator's bytes, on an image and a batch of 2; BRUTE also against
+    the NumPy oracle of the OpenCL binary."""
+    jc = jcfg.SdfConfig(**kw)
+    tc = tcfg.SdfConfig.from_dict(dataclasses.asdict(jc))
+    img = _image(seed=len(kw))
+    gen = tmodel.SDFGenerator(tc, device="cpu")
+    want = np.asarray(jmodel.SDFGenerator(jc).generate(img))
+    got = gen.generate(img)
+    assert got.device.type == "cpu" and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    if tc.algorithm == tcfg.Algorithm.BRUTE:
+        np.testing.assert_array_equal(
+            got.numpy(),
+            oracle.sdf_pipeline_opencl(img, tc.spread, tc.asymmetric, tc.channel_offset == 0, tc.invert),
+        )
+    batch = np.stack([img, _image(seed=5)])
+    np.testing.assert_array_equal(gen.generate(torch.from_numpy(batch))[0].numpy(), want)
+
+
 def test_sdf_generator_refuses_unported_paths():
-    with pytest.raises(NotImplementedError):
-        tmodel.SDFGenerator(tcfg.SdfConfig(algorithm="brute"))
-    with pytest.raises(NotImplementedError):
-        tmodel.SDFGenerator(tcfg.SdfConfig(algorithm="jfa"))
     for rng in (None, (-1e9, 1e9)):
         tmodel.SDFGenerator(soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
         with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
@@ -130,7 +161,9 @@ def _decode(path_or_bytes):
 @pytest.mark.parametrize(
     "flags",
     [[], ["-al"], ["-s", "100"], ["-n", "-s", "7"], ["-l", "-s", "3", "--two-channel"],
-     ["-s", "20", "-f", "bmp"]],
+     ["-s", "20", "-f", "bmp"], ["--algorithm", "brute", "-al"],
+     ["--algorithm", "brute", "-n", "-s", "7", "--two-channel"], ["--algorithm", "jfa", "-s", "20"],
+     ["--algorithm", "jfa", "-aln"]],
 )
 def test_cli_matches_jax_cli(tmp_path, input_png, flags):
     ext = "bmp" if "bmp" in flags else "png"
@@ -148,6 +181,16 @@ def test_cli_stdout_streaming_matches_jax(input_png, capsysbinary):
     t_data = capsysbinary.readouterr().out
     assert jcli.main(["-i", input_png, "-o", "-", "-s", "100", "-al"]) == 0
     j_data = capsysbinary.readouterr().out
+    np.testing.assert_array_equal(_decode(t_data)[1], _decode(j_data)[1])
+
+
+def test_cli_brute_stdout_streaming_matches_jax(input_png, capsysbinary):
+    flags = ["-o", "-", "-s", "100", "-al", "--algorithm", "brute", "--two-channel"]
+    assert tcli.main(["-i", input_png, *flags, "--platform", "cpu"]) == 0
+    t_data = capsysbinary.readouterr().out
+    assert jcli.main(["-i", input_png, *flags]) == 0
+    j_data = capsysbinary.readouterr().out
+    assert _decode(t_data)[0] == _decode(j_data)[0] == "LA"
     np.testing.assert_array_equal(_decode(t_data)[1], _decode(j_data)[1])
 
 
@@ -189,7 +232,8 @@ def test_import_pulls_in_no_jax():
         "import sys, chaq_sdfgen_tpu_torch, chaq_sdfgen_tpu_torch.cli, "
         "chaq_sdfgen_tpu_torch.ops.cuda_edt, chaq_sdfgen_tpu_torch.utils.imageio, "
         "chaq_sdfgen_tpu_torch.ops.cuda_soft_mm, chaq_sdfgen_tpu_torch.ops.soft_mxu, "
-        "chaq_sdfgen_tpu_torch.ops.softsdf; "
+        "chaq_sdfgen_tpu_torch.ops.softsdf, chaq_sdfgen_tpu_torch.ops.cuda_brute, "
+        "chaq_sdfgen_tpu_torch.ops.brute, chaq_sdfgen_tpu_torch.ops.jfa; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'chaq_sdfgen_tpu.'))"
         " or m == 'chaq_sdfgen_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -341,6 +385,9 @@ def test_no_card_needs_an_explicit_cpu(tmp_path, input_png, monkeypatch, capsys)
         tmodel.SDFGenerator()
     with pytest.raises(RuntimeError):
         tmodel.SDFGenerator(soft=tcfg.SoftConfig())
+    for algorithm in ("brute", "jfa"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tmodel.SDFGenerator(tcfg.SdfConfig(algorithm=algorithm))
     out = str(tmp_path / "o.png")
     assert tcli.main(["-i", input_png, "-o", out]) == 1
     assert "--platform cpu" in capsys.readouterr().err

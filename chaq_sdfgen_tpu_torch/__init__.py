@@ -6,9 +6,11 @@ full-range distance field through a third; the BRUTE pipeline
 (OpenCL-binary parity) through two more (csrc/brute.cu); the jump flood
 (JFA) as torch ops, as in the JAX package; the
 differentiable soft field, forward and backward, through two more on a
-declared gray range (csrc/soft_mm.cu) and, behind a runtime gate, four
-adaptive ones for any range (csrc/soft_fused.cu); and the trainable
-SoftSDFModel on top. Plain PyTorch versions beside the kernels serve CPU
+declared gray range (csrc/soft_mm.cu; wider taps as float32 matrix
+products), behind a runtime gate four adaptive ones for any range
+(csrc/soft_fused.cu), and above band 112 or on one row the composed path's
+column soft-min pair (csrc/softmin.cu); and the trainable SoftSDFModel on
+top. Plain PyTorch versions beside the kernels serve CPU
 tensors. This package imports no JAX; the JAX package beside it is
 the reference it is tested against.
 """

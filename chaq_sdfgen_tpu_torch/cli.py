@@ -11,9 +11,11 @@ CPU (--platform cpu). --algorithm picks the distance core: exact (the
 OpenMP binary's bytes), brute (the OpenCL binary's) or jfa (jump flood).
 --soft runs the differentiable path: on the declared gray
 range (--gray-range, default 0 255) where it lies inside the gamut of
---soft-tau and --soft-temperature, else through the runtime gate (a range
-such as -1e9 1e9 forces it); spreads above 110 on that path (band > 112)
-are not ported yet (ROADMAP Queue 2 item 13), nor is --soft-prec.
+--soft-tau and --soft-temperature, else as an undeclared range (a range
+such as -1000000000 1000000000 forces it): the runtime gate up to spread 110 (band 112),
+the composed path above. --soft-prec is not ported yet. A spread that the
+kernels refuse (EXACT above 65532, BRUTE above 32766) ends the run with one
+line on stderr and exit code 1.
 
 Usage:  python -m chaq_sdfgen_tpu_torch -i in.png -o out.png -s 100 -al
 """
@@ -93,8 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar=("LO", "HI"),
                    help="declared input-value bound for the soft path (default: "
                         "0 255, always valid for u8 images); a range outside "
-                        "the declared-range kernels' gamut (e.g. -1e9 1e9) "
-                        "takes the runtime-gated adaptive path")
+                        "the declared-range kernels' gamut (e.g. -1000000000 "
+                        "1000000000; older Pythons read -1e9 as an option) takes "
+                        "the undeclared-range paths")
     return p
 
 
@@ -190,7 +193,7 @@ def main(argv: Optional[list] = None) -> int:
 
     from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, SoftConfig
     from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-    from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused
+    from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, softmin
     from chaq_sdfgen_tpu_torch.utils import imageio as iio
 
     t0 = time.perf_counter()
@@ -218,11 +221,14 @@ def main(argv: Optional[list] = None) -> int:
             clamp=args.soft_clamp,
             gray_range=tuple(args.gray_range),
         )
-    try:
-        gen = SDFGenerator(cfg, soft=soft_cfg, device=device)
-    except NotImplementedError as e:
-        print(e, file=sys.stderr)
+    # the hard kernels' range of spreads (the soft path and JFA take any)
+    top = {Algorithm.EXACT: cuda_edt.MAX_BAND - (cfg.effective_band - cfg.spread),
+           Algorithm.BRUTE: cuda_brute.MAX_SPREAD}.get(cfg.algorithm)
+    if soft_cfg is None and top is not None and cfg.spread > top:
+        print(f"Invalid value given for spread. Must be at most {top} for --algorithm {args.algorithm}.",
+              file=sys.stderr)
         return 1
+    gen = SDFGenerator(cfg, soft=soft_cfg, device=device)
     t0 = time.perf_counter()
     out = gen.generate(img2ch).cpu().numpy()
     log.info("sdf computed in %.3fs on %s (first call: includes device and kernel start-up)",
@@ -234,7 +240,7 @@ def main(argv: Optional[list] = None) -> int:
         print(f"Kernel timing: {gen.kernel_time(img2ch):.6f} sec", file=sys.stderr)
     log.info("kernel launches %s",
              json.dumps({**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_soft_mm.LAUNCHES,
-                         **soft_fused.LAUNCHES}))
+                         **soft_fused.LAUNCHES, **softmin.LAUNCHES}))
 
     t0 = time.perf_counter()
     try:

@@ -6,10 +6,9 @@
   signed_distance_field_exact -- the signed exact full-range float field
   soft path       -- SDFGenerator(soft=SoftConfig(...)): the differentiable
                      field (ops/softsdf.py), on a declared gray range or
-                     none (gray_range=None, the runtime-gated path)
+                     none (gray_range=None), at any spread
 
-The soft path above band 112 and sharding are not ported yet (ROADMAP
-Queue 2 item 13, Queue 1 item 11); asking for them raises
+Sharding is not ported yet (ROADMAP Queue 1 item 11); asking for it raises
 NotImplementedError.
 """
 
@@ -133,12 +132,6 @@ class SDFGenerator:
             raise NotImplementedError(
                 "multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 11)"
             )
-        if soft is not None:
-            reason = softsdf.unported_reason(
-                config.effective_band, soft.tau, soft.temperature, soft.gray_range
-            )
-            if reason is not None:
-                raise NotImplementedError(f"SDFGenerator(soft=...): {reason}")
         self.config = config
         self.soft = soft
         self.device = resolve_device(device)

@@ -10,9 +10,10 @@ input pixels. Parameters (all scalar, broadcast over pixels):
   channel_mix    -- logits mixing the gray and alpha channels into the
                     tested value
 
-The model passes no gray_range, so its field takes the runtime-gated path
-of ops/softsdf.py: the declared-range kernels with a runtime shift while
-the mixed values stay in gamut, the adaptive kernels otherwise.
+The model passes no gray_range, so its field takes the undeclared-range
+paths of ops/softsdf.py: up to band 112 the runtime gate (the
+declared-range kernels with a runtime shift while the mixed values stay in
+gamut, the adaptive kernels otherwise), above it the composed path.
 ``params_from_jax`` carries a flax parameter tree over. The sharded
 pipeline (``mesh``) waits for the multi-GPU tier (ROADMAP Queue 1 item 11).
 """

@@ -134,6 +134,11 @@ def load() -> ctypes.CDLL:
                               ("chaq_soft_b1", 4)):
             getattr(lib, entry).argtypes = [vp] * n_ptrs + fused_tail
             getattr(lib, entry).restype = i32
+        # (n, h, w, band, T, 1/T, stream)
+        col_tail = [i32, i32, i32, i32, f32, f32, vp]
+        for entry, n_ptrs in (("chaq_softmin_fwd", 2), ("chaq_softmin_bwd", 4)):
+            getattr(lib, entry).argtypes = [vp] * n_ptrs + col_tail
+            getattr(lib, entry).restype = i32
         _lib = lib
         return _lib
 
@@ -162,6 +167,20 @@ def check_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.dim() < 2:
             raise ValueError(f"{name}: expected (..., H, W), got shape {tuple(t.shape)}")
+
+
+def float32_on_cuda(name: str, *tensors) -> bool:
+    """False for tensors on the CPU (the plain version's); for CUDA ones,
+    check_cuda and float32, then True; any other device raises."""
+    if tensors[0].device.type == "cpu":
+        return False
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+    check_cuda(name, *tensors)
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32 tensors, got {t.dtype}")
+    return True
 
 
 def flat_shape(t) -> tuple:

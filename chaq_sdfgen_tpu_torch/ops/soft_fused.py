@@ -190,15 +190,7 @@ def b1_plain(gray, s1, ds1, band, tau, temperature, test_above=True):
 def _check(name, band, *tensors):
     if not 0 <= band <= MAX_BAND:
         raise ValueError(f"{name}: band {band} outside [0, {MAX_BAND}]")
-    if tensors[0].device.type == "cpu":
-        return False
-    if tensors[0].device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
-    _build.check_cuda(name, *tensors)
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32 tensors, got {t.dtype}")
-    return True
+    return _build.float32_on_cuda(name, *tensors)
 
 
 def _check_shapes(name, image, *fields):

@@ -11,15 +11,21 @@ the end:
 
     d2 = c - T log( Wcols (*) Wrows (*) exp(c/T) sigmoid(l) )
 
-Each conv here is a sum of 2k+1 shifted, weighted slices in float32 with
-zero fill at the border, in the order d = -k .. k, one rounding per
-multiply and per add: no F.conv* and no matmul, which cuDNN and cuBLAS may
-run in TF32 on the card. The kernels in csrc/soft_mm.cu do the same
-arithmetic in the same order. torch autograd through this form is the
-independent check of the backward kernel.
+In soft_field_collapsed each conv is a sum of 2k+1 shifted, weighted
+slices in float32 with zero fill at the border, in the order d = -k .. k,
+one rounding per multiply and per add: no F.conv* and no matmul, which
+cuDNN and cuBLAS may run in TF32 on the card. The kernels in
+csrc/soft_mm.cu do the same arithmetic in the same order. torch autograd
+through this form is the independent check of the backward kernel.
 
-The JAX module's window and corner-matrix variants and its pass2='kernel'
-branch are TPU layout tricks and are not ported.
+Tap radii above the kernels' 16 (up to 128) take soft_field_wide: the JAX
+module's own einsum tail (its window matrix products against the band
+matrix, self-adjoint VJPs), as torch.matmul in full float32; it refuses to
+run when TF32 products are allowed. No Pallas kernel is on that path in
+the JAX package either.
+
+The JAX module's corner-matrix variant and its pass2='kernel' branch are
+TPU layout tricks and are not ported.
 """
 
 from __future__ import annotations
@@ -163,4 +169,93 @@ def soft_field_collapsed(gray, k1, k2, shift, tau, temperature, eps, test_above=
     d_out = torch.sqrt(torch.where(d2_out > 0, d2_out, zero) + eps)
     field = d_out - torch.where(d_in > 1, d_in - 1.0, zero)
     return field, d2_in, d2_out
+
+
+# ------------------------------------------------ wide taps: matrix products
+
+
+def require_fp32_matmul() -> None:
+    """Raise unless float32 matrix products run in full float32: TF32 (or
+    bf16) products shift the soft path's gradients at sigmoid-knee pixels
+    far past its tolerance (the JAX package measured 16% of the scale with
+    a 3-pass bf16 product, soft_mxu.py:54-58)."""
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "soft_field_wide needs full float32 matrix products: "
+            "torch.set_float32_matmul_precision('highest') and "
+            "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+@functools.lru_cache(maxsize=64)
+def _band_matrix(k: int, temperature: float, device: torch.device) -> torch.Tensor:
+    """(blk + 2k, blk) float32 on ``device``, blk = 128 (the JAX package's
+    block for k > 16): W[j, q] = w(j - q - k) for |j - q - k| <= k, 0 beyond
+    (JAX soft_mxu._band_matrix), from the tap weights. Cached per device: a
+    copy from the host at each product would stall the host until the card
+    drains its queue."""
+    blk = _BLK
+    w = torch.tensor(tap_weights(k, temperature), dtype=torch.float32)
+    m = torch.zeros((blk + 2 * k, blk), dtype=torch.float32)
+    for q in range(blk):
+        m[q : q + 2 * k + 1, q] = w
+    return m.to(device)
+
+
+def _conv(e: torch.Tensor, k: int, temperature: float, cols: bool) -> torch.Tensor:
+    """sum_d w(d) e(. + d) along the last axis (rows) or the one before it
+    (cols), zero outside, as window matrix products (JAX soft_mxu._conv_rows
+    and _conv_cols): each blk-wide block with k columns of each neighbour
+    block times the band matrix. The axis length is a multiple of blk."""
+    wmat = _band_matrix(k, float(temperature), e.device)
+    blk = wmat.shape[1]
+    if cols:
+        e = e.transpose(-1, -2)
+    *lead, n = e.shape
+    eb = e.reshape(*lead, n // blk, blk)
+    left = F.pad(eb[..., :-1, blk - k :], (0, 0, 1, 0))   # block b-1's last k, zeros at b = 0
+    right = F.pad(eb[..., 1:, :k], (0, 0, 0, 1))          # block b+1's first k
+    out = torch.matmul(torch.cat([left, eb, right], dim=-1), wmat).reshape(*lead, n)
+    return out.transpose(-1, -2) if cols else out
+
+
+class _ConvSym(torch.autograd.Function):
+    """conv_rows_sym / conv_cols_sym (JAX soft_mxu.py:244-298): the taps are
+    symmetric and the boundary is zero, so the conv is its own adjoint and
+    the backward runs the same products on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, e, k, temperature, cols):
+        ctx.params = (k, temperature, cols)
+        return _conv(e, k, temperature, cols)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _conv(ct, *ctx.params), None, None, None
+
+
+def soft_field_wide(gray, band, tau, temperature, eps, test_above=True, gray_range=(0.0, 255.0)):
+    """The declared-range field with tap radii above the kernels' 16 (up to
+    128): the non-fused tail of JAX soft_mxu.soft_sdf_field_mxu (pass2='mm',
+    soft_mxu.py:487-556), the path the JAX package's gate picks there on
+    one device. (..., H, W) gray, padded to multiples of 128 with dead
+    (zero-occupancy) pixels; the shifted occupancy (``occupancy``, as the
+    declared kernels form it); the rows conv (radius k1) and the cols conv
+    (radius k2) as float32 matrix products with their self-adjoint VJPs;
+    c - T log (1e30 for dead windows); the sqrt and merge tails. Differentiable with respect to gray by torch autograd; no
+    kernel of this package. Raises if float32 products may run in TF32."""
+    require_fp32_matmul()
+    k1, k2, shift = range_stats(band, tau, temperature, gray_range)
+    h, w = gray.shape[-2:]
+    hp, wl = -(-max(h, _BLK) // _BLK) * _BLK, -(-max(w, _BLK) // _BLK) * _BLK
+    g = F.pad(gray.to(torch.float32), (0, wl - w, 0, hp - h))
+    _, e_in, e_out = occupancy(g, tau, temperature, shift, test_above)
+    live = (torch.arange(hp, device=g.device)[:, None] < h) & (torch.arange(wl, device=g.device)[None, :] < w)
+    zero = torch.zeros((), device=g.device)
+    t = float(temperature)
+    d = []
+    for e in (e_in, e_out):
+        s = _ConvSym.apply(_ConvSym.apply(torch.where(live, e, zero), k1, t, False), k2, t, True)
+        d.append(torch.sqrt(torch.clamp(_safe_neglog(s, t, shift, PAD_D2), min=0) + eps))
+    field = d[1] - torch.clamp(d[0] - 1.0, min=0)
+    return field[..., :h, :w]
 

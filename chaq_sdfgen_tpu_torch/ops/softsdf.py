@@ -9,16 +9,23 @@ Construction (mirrors the hard pipeline structurally):
   merge       s = d_out - relu(d_in - 1)            (the -1 bias, soft)
 
 soft_sdf_field dispatches as the JAX package does on its accelerator
-(chaq_sdfgen_tpu/ops/softsdf.py:218-344), on every device: a declared range
-inside the gamut runs ops/cuda_soft_mm.py; otherwise, for band <= 112, a
-runtime gate on the input's largest height picks the same two kernels with
-a runtime shift or the four adaptive kernels of ops/soft_fused.py. Each
-runs its kernels on CUDA and their plain versions on the CPU. The composed
-scan form below (band_softmin, soft_edt_sq, soft_sdf_field_composed) is
-plain PyTorch on any device and serves the tests as the independent
-oracle; the band > 112 path it stands for on the card is the place of TPU
-kernels not yet ported (ROADMAP Queue 2 item 13), so soft_sdf_field refuses
-such calls instead of running it there.
+(chaq_sdfgen_tpu/ops/softsdf.py:218-372), on every device:
+  1. a declared range inside the gamut with tap radii <= 16 runs the kernels
+     of ops/cuda_soft_mm.py;
+  2. a declared range inside the gamut with wider taps (up to 128) runs
+     ops/soft_mxu.soft_field_wide, float32 matrix products and no kernel;
+  3. otherwise, for band <= 112 and at least 2 rows, a runtime gate on the
+     input's largest height picks the kernels of item 1 with a runtime shift
+     or the four adaptive kernels of ops/soft_fused.py;
+  4. everything else takes the composed path: band_softmin three times, the
+     column soft-min kernels of ops/softmin.py (pass 1 per field on the
+     transposed heights, pass 2 once on both fields side by side).
+Each runs its kernels on CUDA and their plain versions on the CPU.
+
+The streaming scan below (_band_softmin_fwd_impl, _BandSoftmin,
+band_softmin_scan, soft_sdf_field_composed) is plain PyTorch on any device
+and is no part of that dispatch: it serves the tests as the independent
+oracle.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from chaq_sdfgen_tpu_torch.ops import cuda_soft_mm, merge, soft_fused, soft_mxu, threshold
+from chaq_sdfgen_tpu_torch.ops import cuda_soft_mm, merge, soft_fused, soft_mxu, softmin, threshold
 from chaq_sdfgen_tpu_torch.ops.edt import big_sentinel
 from chaq_sdfgen_tpu_torch.ops.numerics import div, softplus
 
@@ -54,9 +61,9 @@ def _band_softmin_fwd_impl(gext: torch.Tensor, band: int, temperature: float, ax
 
 
 class _BandSoftmin(torch.autograd.Function):
-    """band_softmin_ext with the JAX custom VJP: the backward recomputes
-    the softmax weights from the saved output instead of storing per-tap
-    residuals, so memory stays O(n^2), not O(n^2 band)."""
+    """band_softmin_ext by the streaming scan, with the JAX custom VJP: the
+    backward recomputes the softmax weights from the saved output instead of
+    storing per-tap residuals, so memory stays O(n^2), not O(n^2 band)."""
 
     @staticmethod
     def forward(ctx, gext, band, temperature, axis):
@@ -87,25 +94,35 @@ class _BandSoftmin(torch.autograd.Function):
         return acc, None, None, None
 
 
+def _pad_axis(g: torch.Tensor, band: int, axis: int) -> torch.Tensor:
+    """``band`` sentinel heights on both sides of ``axis``."""
+    pad = [0, 0] * g.dim()
+    pad[2 * (g.dim() - 1 - axis)] = pad[2 * (g.dim() - 1 - axis) + 1] = band
+    return torch.nn.functional.pad(g, pad, value=_PAD_HEIGHT)
+
+
 def band_softmin_ext(gext: torch.Tensor, band: int, temperature: float, axis: int = -2) -> torch.Tensor:
     """band_softmin on a pre-extended input (``band`` extra entries on each
-    side of ``axis``). Output is 2 band shorter along ``axis``."""
-    return _BandSoftmin.apply(gext, band, float(temperature), axis)
+    side of ``axis``). Output is 2 band shorter along ``axis``. The column
+    soft-min kernels of ops/softmin.py (their plain versions on the CPU),
+    under autograd; another axis is moved to -2 and back, as the JAX
+    package's 2-D path transposes."""
+    return softmin.band_softmin_col(gext.movedim(axis, -2), band, temperature).movedim(-2, axis)
 
 
 def band_softmin(g: torch.Tensor, band: int, temperature: float, axis: int = -2) -> torch.Tensor:
     """S(p) = -T log sum_{|d| <= band} exp(-(d^2 + g(p+d))/T) along
-    ``axis``; out-of-range taps contribute exp(-inf) = 0."""
+    ``axis``; out-of-range taps read the sentinel height 1e30 and contribute
+    nothing."""
     axis = axis % g.dim()
-    pad = [0, 0] * g.dim()
-    pad[2 * (g.dim() - 1 - axis)] = pad[2 * (g.dim() - 1 - axis) + 1] = band
-    gp = torch.nn.functional.pad(g, pad, value=_PAD_HEIGHT)
-    return band_softmin_ext(gp, band, temperature, axis)
+    return band_softmin_ext(_pad_axis(g, band, axis), band, temperature, axis)
 
 
-def soft_edt_sq(heights: torch.Tensor, band: int, temperature: float) -> torch.Tensor:
-    """Two-pass separable soft squared EDT of a height field (..., H, W)."""
-    return band_softmin(band_softmin(heights, band, temperature, axis=-1), band, temperature, axis=-2)
+def band_softmin_scan(g: torch.Tensor, band: int, temperature: float, axis: int = -2) -> torch.Tensor:
+    """band_softmin by the streaming scan (_BandSoftmin): plain PyTorch on
+    any device, the tests' oracle."""
+    axis = axis % g.dim()
+    return _BandSoftmin.apply(_pad_axis(g, band, axis), band, float(temperature), axis)
 
 
 def soft_sdf_field_composed(
@@ -124,31 +141,35 @@ def soft_sdf_field_composed(
     logits = threshold.soft_logits(gray, tau=tau, test_above=test_above)
     h_in = threshold.soft_log_indicator_from_logits(logits, temperature, True, big)
     h_out = threshold.soft_log_indicator_from_logits(logits, temperature, False, big)
-    d2_in = soft_edt_sq(h_in, band, temperature)
-    d2_out = soft_edt_sq(h_out, band, temperature)
+
+    def edt_sq(h):
+        return band_softmin_scan(band_softmin_scan(h, band, temperature, axis=-1), band, temperature, axis=-2)
+
+    d2_in = edt_sq(h_in)
+    d2_out = edt_sq(h_out)
     d_in = torch.sqrt(torch.clamp(d2_in, min=0) + eps)
     d_out = torch.sqrt(torch.clamp(d2_out, min=0) + eps)
     return d_out - torch.clamp(d_in - 1.0, min=0)
 
 
-def unported_reason(band: int, tau: float, temperature: float, gray_range, shape=None) -> Optional[str]:
-    """Why soft_sdf_field refuses these parameters (and, when given, this
-    input shape), or None when the ported kernels take them."""
-    stats = soft_mxu.range_stats(band, tau, temperature, gray_range)
-    if stats is not None:
-        k1, k2, _ = stats
-        if not cuda_soft_mm.mm_fused_ok(k1, k2):
-            return (f"tap radii ({k1}, {k2}) exceed the kernels' {cuda_soft_mm.MAX_TAPS} "
-                    f"(tau={tau}, T={temperature}); the wide-tap paths are not ported yet "
-                    "(ROADMAP Queue 2 item 14)")
-        return None
-    if band > soft_fused.MAX_BAND:
-        return (f"band {band} exceeds the adaptive kernels' {soft_fused.MAX_BAND}; the composed "
-                "path that takes it (TPU kernels 12-13) is not ported yet (ROADMAP Queue 2 item 13)")
-    if shape is not None and (len(shape) < 2 or shape[-2] < 2):
-        return (f"an input of shape {tuple(shape)} has fewer than 2 rows; the composed path that "
-                "takes it (TPU kernels 12-13) is not ported yet (ROADMAP Queue 2 item 13)")
-    return None
+def soft_field_cols(gray, band, tau, temperature, eps, test_above=True):
+    """The composed path (JAX softsdf.py:345-372) of (..., H, W) gray of any
+    value range, differentiable with respect to gray: the heights of the
+    transposed image, clipped at big_sentinel(band) = (band + 1)^2 as the
+    JAX composed path clips them; pass 1 along x per field; pass 2 along y
+    once, on both fields side by side (..., H, 2W); then the sqrt and merge
+    tails. A batch runs as one: the kernels take it in their grid (JAX runs
+    its XLA scans there, the same function)."""
+    g = gray.to(torch.float32)
+    h, w = g.shape[-2:]
+    big = big_sentinel(band)
+    logits_t = threshold.soft_logits(g.transpose(-1, -2).contiguous(), tau=tau, test_above=test_above)
+    s1 = [band_softmin(threshold.soft_log_indicator_from_logits(logits_t, temperature, on, big), band,
+                       temperature, axis=-2).transpose(-1, -2) for on in (True, False)]
+    d2s = band_softmin(torch.cat(s1, dim=-1), band, temperature, axis=-2)
+    d_in = torch.sqrt(torch.clamp(d2s[..., :w], min=0) + eps)
+    d_out = torch.sqrt(torch.clamp(d2s[..., w:], min=0) + eps)
+    return d_out - torch.clamp(d_in - 1.0, min=0)
 
 
 _RT_SHIFT_T = 60.0  # the gate's shift: max(h_max - 60 T, 0)
@@ -191,22 +212,23 @@ def soft_sdf_field(
 
     ``gray_range``: optional DECLARED (lo, hi) bound on the input values
     (the CLI/atlas u8 path passes (0, 255)); the caller guarantees it, and
-    mild overshoot (e.g. SGD pixel updates) degrades gracefully. A range
-    inside the gamut runs ops/cuda_soft_mm.py; None (trained images) or a
-    range outside it goes through runtime_gate to the same kernels or to
-    ops/soft_fused.py. Band > 112 and inputs of fewer than 2 rows on that
-    path raise NotImplementedError (ROADMAP Queue 2 item 13).
+    mild overshoot (e.g. SGD pixel updates) degrades gracefully. The module
+    docstring lists the four paths and when each runs.
     """
+    if gray.dim() < 2:
+        raise ValueError(f"soft_sdf_field: expected (..., H, W), got shape {tuple(gray.shape)}")
     band = band if band is not None else spread + 2
-    reason = unported_reason(band, tau, temperature, gray_range, tuple(gray.shape))
-    if reason is not None:
-        raise NotImplementedError(f"soft_sdf_field: {reason}")
-    if soft_mxu.range_stats(band, tau, temperature, gray_range) is not None:
-        return cuda_soft_mm.soft_field_mm_fused(gray, band, tau, temperature, eps, test_above, gray_range)
-    shift = runtime_gate(gray, band, tau, temperature)
-    if shift is not None:
-        return cuda_soft_mm.soft_field_mm_rt(gray, shift, band, tau, temperature, eps, test_above)
-    return soft_fused.soft_sdf_field_fused(gray, band, tau, temperature, eps, test_above)
+    stats = soft_mxu.range_stats(band, tau, temperature, gray_range)
+    if stats is not None:
+        if cuda_soft_mm.mm_fused_ok(stats[0], stats[1]):
+            return cuda_soft_mm.soft_field_mm_fused(gray, band, tau, temperature, eps, test_above, gray_range)
+        return soft_mxu.soft_field_wide(gray, band, tau, temperature, eps, test_above, gray_range)
+    if soft_fused.fused_geometry_ok(gray, band):
+        shift = runtime_gate(gray, band, tau, temperature)
+        if shift is not None:
+            return cuda_soft_mm.soft_field_mm_rt(gray, shift, band, tau, temperature, eps, test_above)
+        return soft_fused.soft_sdf_field_fused(gray, band, tau, temperature, eps, test_above)
+    return soft_field_cols(gray, band, tau, temperature, eps, test_above)
 
 
 def soft_sdf_bytes(

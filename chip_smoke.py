@@ -94,20 +94,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
      4096x4096 spread 64 on both inputs: each kernel against its plain
      version and the three pipelines;
  19. where the BRUTE pipeline's and signed_distance_field_exact's device
-     time goes: torch.profiler, as in phase 7.
+     time goes: torch.profiler, as in phase 7;
+ 20. the composed path's column soft-min kernels (csrc/softmin.cu:
+     softmin_col_fwd, softmin_col_bwd) against their plain versions on the
+     card, tolerance 0 (float32 bits), on the strips the composed path
+     gives them (pass 1 per field, pass 2 on both): 4096x4096 at band 130
+     on noise in [0, 255), noise in +-2000 and the glyph's alpha mapped to
+     +-2040; 2048x2048 at band 258; bands 0, 1 and 113; 1x4096, 4096x1,
+     139x131 and a batch of 3; an all-1e30 strip (finite, above 1e29);
+ 21. the composed path through its entry points at 4096x4096, spread 128:
+     3 training steps of soft_sdf_field without gray_range on the bench's
+     noise and on noise in +-2000 (the counters must show 3 + 3 column
+     soft-mins per step and no other soft kernel), one 1x4096 row, 3 Adam
+     steps of SoftSDFModel(spread=128) and the CLI --soft -s 128
+     --gray-range -1000000000 1000000000 on the glyph PNG, each held
+     against its plain twin (the same entry point with the plain versions
+     in the kernels' place); the glyph's 1024x1024 corner, blurred and in
+     +-2040, against the scan oracle (gradient within 1e-3 of the scale,
+     phase 12's tolerance: far from the strokes the backward forms its
+     weights from S ~ 1e3); and the declared wide-tap step (tau 2, T 8:
+     tap radii 28, 29) on the glyph, which must launch no kernel, its
+     1024x1024 corner against soft_mxu.soft_field_collapsed;
+ 22. composed times (CUDA events, as in phase 6): both kernels and their
+     plain versions per step (the three launches each way), the composed
+     step on both noises and its plain twin, the SoftSDFModel step and
+     the wide-tap step; then torch.profiler over the composed step.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
 inputs at 67 T/s (the H100 SXM's HBM3 rate and float32 rate outside the
 tensor cores; the hard kernels' integer operations are counted at the
-same rate); for the adaptive kernels the operations count the taps that
-this run's data puts inside the cut; for the column searches
+same rate); for the adaptive and the column soft-min kernels the
+operations count the taps that this run's data puts inside the cut; for
+the column searches
 (edt_band_bytes, brute_scan_bytes, edt_dist) the count is what a
 linear-time lower envelope needs, whatever the kernel's own walk does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -125,7 +151,7 @@ from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
 from chaq_sdfgen_tpu_torch.ops import (
-    _build, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, merge, soft_fused, soft_mxu, softsdf,
+    _build, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, merge, soft_fused, soft_mxu, softmin, softsdf,
     threshold,
 )
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, softplus
@@ -197,6 +223,16 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:1092",
+    },
+    "softmin_col_fwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/softmin.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft.py:51",
+    },
+    "softmin_col_bwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/softmin.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_soft.py:181",
     },
 }
 
@@ -1159,6 +1195,299 @@ def brute_dist_phases(dev, noise, glyph):
     return err, launches, times["glyph"], bounds
 
 
+# ------------------------------------------------------ composed soft phases
+
+COMPOSED_SPREAD = 128  # band 130: past the adaptive kernels' 112
+WIDE_T = 8.0  # tau 2, T 8 on (0, 255): tap radii 28 and 29
+
+
+@contextlib.contextmanager
+def plain_softmin():
+    """The column soft-min's plain versions in the kernels' place, for the
+    plain twin of a path through its entry points (ops/softmin.py's
+    autograd function looks its two wrappers up at each call)."""
+    fwd, bwd = softmin.softmin_col_fwd, softmin.softmin_col_bwd
+    softmin.softmin_col_fwd, softmin.softmin_col_bwd = softmin.softmin_col_fwd_plain, softmin.softmin_col_bwd_plain
+    try:
+        yield
+    finally:
+        softmin.softmin_col_fwd, softmin.softmin_col_bwd = fwd, bwd
+
+
+def composed_strips(gray: torch.Tensor, band: int, tau: float, t: float) -> list:
+    """The three (label, gext) strips that the composed path gives the
+    column soft-min on ``gray`` (ops/softsdf.soft_field_cols): pass 1 per
+    field on the transposed heights, pass 2 on both fields side by side,
+    its input from the plain forward."""
+    big = edt.big_sentinel(band)
+    logits_t = threshold.soft_logits(gray.transpose(-1, -2).contiguous(), tau)
+    strips, s1 = [], []
+    for on in (True, False):
+        gext = torch.nn.functional.pad(threshold.soft_log_indicator_from_logits(logits_t, t, on, big),
+                                       (0, 0, band, band), value=1e30)
+        strips.append((f"pass 1 {'in' if on else 'out'}", gext))
+        s1.append(softmin.softmin_col_fwd_plain(gext, band, t).transpose(-1, -2))
+    strips.append(("pass 2", torch.nn.functional.pad(torch.cat(s1, -1), (0, 0, band, band), value=1e30)))
+    return strips
+
+
+def col_taps(gext: torch.Tensor, s: torch.Tensor, band: int, t: float) -> tuple:
+    """Taps inside the cut (exponent >= -27) over all pixels: of the
+    forward's soft-min on gext and of the backward's weight sums against S."""
+    inv_t, h, hext = float(np.float32(1.0 / t)), s.shape[-2], gext.shape[-2]
+    m = gext.narrow(-2, band, h)
+    for d in range(1, band + 1):
+        m = torch.minimum(m, torch.minimum(gext.narrow(-2, band - d, h), gext.narrow(-2, band + d, h)) + float(d * d))
+    sp = torch.nn.functional.pad(s, (0, 0, 2 * band, 2 * band), value=float("-inf"))
+    fwd = torch.zeros((), dtype=torch.int64, device=s.device)
+    bwd = torch.zeros((), dtype=torch.int64, device=s.device)
+    for d in range(-band, band + 1):
+        fwd += ((((m - gext.narrow(-2, band + d, h)) - float(d * d)) * inv_t) >= -27.0).sum()
+        bwd += ((((sp.narrow(-2, band - d, hext) - float(d * d)) - gext) * inv_t) >= -27.0).sum()
+    return int(fwd), int(bwd)
+
+
+def composed_phases(dev, glyph):
+    """Phases 20-22. Returns (errors, launches, times, bounds)."""
+    err = {k: 0.0 for k in softmin.LAUNCHES}
+    band, tau, t = COMPOSED_SPREAD + 2, TRAIN_TAU, TRAIN_T
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    rng = np.random.default_rng(SEED + 10)
+
+    def check(label, gext, band, t):
+        s = softmin.softmin_col_fwd(gext, band, t)
+        sp = softmin.softmin_col_fwd_plain(gext, band, t)
+        ct = torch.randn(sp.shape, generator=gen, device=dev)
+        dg = softmin.softmin_col_bwd(gext, sp, ct, band, t)
+        dgp = softmin.softmin_col_bwd_plain(gext, sp, ct, band, t)
+        torch.cuda.synchronize()
+        bits = (bits_err(s, sp), bits_err(dg, dgp))
+        errs = {"softmin_col_fwd": abs_err(s, sp), "softmin_col_bwd": abs_err(dg, dgp)}
+        for k, e in errs.items():
+            err[k] = max(err[k], e)
+        log(f"check composed {label} gext {tuple(gext.shape)} band {band} T {t}: softmin_col_fwd {bits[0]} "
+            f"values differ, softmin_col_bwd {bits[1]}; finite {bool(torch.isfinite(s).all())}")
+        require(bits == (0, 0) and bool(torch.isfinite(s).all()) and bool(torch.isfinite(dg).all()),
+                f"a column soft-min kernel differs from its plain version on {label}")
+
+    big = {
+        "noise": torch.from_numpy((rng.random((SIZE, SIZE)) * 255).astype(np.float32)).to(dev),
+        "pm2000": torch.from_numpy(pm_noise((SIZE, SIZE), SEED + 12)).to(dev),
+        "glyph+-2040": torch.from_numpy(glyph[..., 1].astype(np.float32) / 255 * 4080 - 2040).to(dev),
+    }
+    # phase 20: both kernels against their plain versions, tolerance 0
+    for name, g in big.items():
+        for label, gext in composed_strips(g, band, tau, t):
+            check(f"{name} {SIZE}x{SIZE} {label}", gext, band, t)
+    small = torch.from_numpy(pm_noise((2048, 2048), SEED + 13)).to(dev)
+    for label, gext in composed_strips(small, 258, 1.0, 0.5):
+        check(f"pm2000 2048x2048 {label}", gext, 258, 0.5)
+    for b in (0, 1, 113):
+        for label, gext in composed_strips(big["pm2000"][:512, :512], b, tau, t):
+            check(f"pm2000 512x512 {label}", gext, b, t)
+    for shape in ((1, SIZE), (SIZE, 1), (139, 131), (3, 256, 256)):
+        g = torch.from_numpy(pm_noise(shape, int(rng.integers(1 << 30)))).to(dev)
+        for label, gext in composed_strips(g, band, 1.0, 0.5):
+            check(f"pm2000 {shape} {label}", gext, band, 0.5)
+        check(f"heights {shape}", torch.nn.functional.pad(g.abs(), (0, 0, band, band), value=1e30), band, t)
+    sat = softmin.softmin_col_fwd(torch.full((64 + 2 * band, 256), 1e30, device=dev), band, 0.5)
+    log(f"check composed all-1e30 strip: finite {bool(torch.isfinite(sat).all())}, min {float(sat.min()):.3e}")
+    require(bool(torch.isfinite(sat).all()) and bool((sat > 1e29).all()), "the all-1e30 strip left (1e29, inf)")
+
+    # phase 21: the composed path through its entry points
+    def reset_counts():
+        torch.cuda.synchronize()
+        for counts in (cuda_soft_mm.LAUNCHES, soft_fused.LAUNCHES, softmin.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
+
+    def step_with(field_fn):
+        def step(g):
+            x = g.detach().requires_grad_()
+            value = field_fn(x).sum()
+            value.backward()
+            with torch.no_grad():
+                return x - TRAIN_LR * x.grad, value.detach(), x.grad
+        return step
+
+    def held(label, step, g0, steps=3):
+        """``steps`` steps with the counts read over them; the first step's
+        value and gradient against the plain twin."""
+        reset_counts()
+        g, values, first = g0, [], None
+        for _ in range(steps):
+            g, value, grad = step(g)
+            values.append(float(value))
+            first = first if first is not None else grad
+        c = counts()
+        require(all(math.isfinite(v) for v in values) and bool(torch.isfinite(g).all()),
+                f"{label}: the training step is not finite")
+        with plain_softmin():
+            _, p_value, p_grad = step(g0)
+        rel_v = abs(values[0] - float(p_value)) / max(abs(float(p_value)), 1e-30)
+        rel_g = float((first - p_grad).abs().max()) / max(float(p_grad.abs().max()), 1e-30)
+        log(f"main path composed: {label} {steps} steps, losses {values}, launches "
+            f"{ {k: v for k, v in c.items() if v} }; step 1 vs plain twin: loss rel err {rel_v:.3e}, "
+            f"gradient {rel_g:.3e} of scale")
+        require(rel_v < 1e-5 and rel_g < 1e-4, f"{label}: the step differs from its plain twin")
+        return c
+
+    composed_step = step_with(lambda x: softsdf.soft_sdf_field(x, COMPOSED_SPREAD, tau=tau, temperature=t))
+    launches = None
+    for name in ("noise", "pm2000"):
+        c = held(f"training {name} {SIZE}x{SIZE} spread {COMPOSED_SPREAD}", composed_step, big[name])
+        require(c["softmin_col_fwd"] == 9 and c["softmin_col_bwd"] == 9
+                and not any(v for k, v in c.items() if not k.startswith("softmin")),
+                f"the composed step on {name} did not launch 3 + 3 column soft-mins and nothing else")
+        if name == "pm2000":
+            launches = {k: c[k] for k in softmin.LAUNCHES}
+    row = torch.from_numpy(pm_noise((1, SIZE), SEED + 14)).to(dev)
+    c = held(f"one row (1, {SIZE}) spread {SPREAD}",
+             step_with(lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=tau, temperature=t)), row)
+    require(c["softmin_col_fwd"] == 9 and c["softmin_col_bwd"] == 9, "the one-row step did not run 3 + 3")
+
+    # the glyph's 1024x1024 corner, blurred (5x5 box) so that its stroke edges hold gradients, in
+    # +-2040: the kernels' chain against the independent scan oracle
+    a = torch.from_numpy(glyph[:1024, :1024, 1].astype(np.float32)).to(dev)[None, None]
+    a = torch.nn.functional.avg_pool2d(a, 5, stride=1, padding=2, count_include_pad=False)[0, 0]
+    corner = (a / 255 * 4080 - 2040).contiguous()
+    ct = torch.randn(corner.shape, generator=gen, device=dev)
+    x = corner.clone().requires_grad_()
+    f_k = softsdf.soft_sdf_field(x, COMPOSED_SPREAD, tau=tau, temperature=t)
+    (f_k * ct).sum().backward()
+    y = corner.clone().requires_grad_()
+    f_s = softsdf.soft_sdf_field_composed(y, COMPOSED_SPREAD, tau=tau, temperature=t)
+    (f_s * ct).sum().backward()
+    e_f, e_g = abs_err(f_k.detach(), f_s.detach()), abs_err(x.grad, y.grad) / float(y.grad.abs().max())
+    log(f"main path composed: blurred glyph+-2040 1024x1024 vs the scan oracle: field max abs err {e_f:.3e}, "
+        f"gradient {e_g:.3e} of scale")
+    require(e_f <= 1e-4 and e_g <= 1e-3, "the composed path differs from the scan oracle on the glyph")
+    del x, y, f_k, f_s, ct
+
+    # the trainer past band 112
+    img = torch.from_numpy(np.stack([pm_noise((SIZE, SIZE), SEED + 15), pm_noise((SIZE, SIZE), SEED + 16)], -1)).to(dev)
+    d_in, d_out = edt.dual_edt_banded(img[..., 1] > 127, band)
+    target = merge.signed_merge(d_out, d_in)
+    model = SoftSDFModel(COMPOSED_SPREAD, SoftConfig(tau=tau, temperature=t), device=dev)
+
+    def model_grads():
+        loss = torch.mean((model(img) - target) ** 2)
+        return [loss.detach()] + list(torch.autograd.grad(loss, list(model.parameters())))
+
+    k_out = model_grads()
+    with plain_softmin():
+        p_out = model_grads()
+    rel_v = abs(float(k_out[0]) - float(p_out[0])) / abs(float(p_out[0]))
+    rel_g = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(k_out[1:], p_out[1:]))
+    log(f"main path composed: SoftSDFModel spread {COMPOSED_SPREAD} step 1 vs plain twin: loss rel err "
+        f"{rel_v:.3e}, parameter gradients {rel_g:.3e} of their size")
+    require(rel_v < 1e-5 and rel_g < 1e-3, "SoftSDFModel past band 112 differs from its plain twin")
+    train = make_train_step(model, create_train_state(model, img, lr=ADAM_LR))
+    reset_counts()
+    losses = [float(train(img, target)) for _ in range(3)]
+    c = counts()
+    log(f"main path composed: SoftSDFModel {tuple(img.shape)} 3 Adam steps, losses {losses}, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    require(all(math.isfinite(v) for v in losses) and c["softmin_col_fwd"] == 9 and c["softmin_col_bwd"] == 9
+            and not any(v for k, v in c.items() if not k.startswith("softmin")),
+            "SoftSDFModel past band 112 did not run the column soft-mins alone")
+
+    # the CLI: an undeclared range past band 112 on the glyph PNG
+    flags = ["--soft", "-s", str(COMPOSED_SPREAD), "--gray-range", "-1000000000", "1000000000"]
+    cli_out, cli_log, cli_field = run_cli(glyph, flags, "soft composed", soft_field=True)
+    gray = torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev)
+    soft_cfg = SoftConfig()
+    with plain_softmin():
+        plain_field = softsdf.soft_sdf_field(gray, COMPOSED_SPREAD, tau=soft_cfg.tau, temperature=soft_cfg.temperature,
+                                             eps=soft_cfg.eps)
+    plain_bytes = torch.clamp(merge.soft_remap(plain_field, COMPOSED_SPREAD, False, "hard"), 0, 255)
+    plain_bytes = plain_bytes.to(torch.int32).cpu().numpy()
+    e_bytes = int(np.abs(cli_out.astype(np.int32) - plain_bytes).max())
+    e_field = float(np.abs(cli_field - plain_field.cpu().numpy()).max())
+    log(f"main path composed: CLI vs plain twin: bytes max abs err {e_bytes}, field max abs err {e_field:.3e}")
+    require(bool(np.isfinite(cli_field).all()) and e_bytes <= 1 and e_field <= 1e-4,
+            "the composed CLI differs from its plain twin")
+    cli_launches = json.loads(next(l for l in cli_log if "kernel launches" in l).split("launches ", 1)[1])
+    require(cli_launches["softmin_col_fwd"] > 0 and cli_launches["soft_mm_fwd"] == 0
+            and cli_launches["soft_f1"] == 0, "the composed CLI did not launch the column soft-min alone")
+    del gray, plain_field
+
+    # the declared wide-tap step: float32 matrix products, no kernel
+    glyph_u8 = torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev)
+    wide_step = step_with(lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=tau, temperature=WIDE_T, gray_range=U8))
+    k1, k2, c_shift = soft_mxu.range_stats(SPREAD + 2, tau, WIDE_T, U8)
+    reset_counts()
+    g, values = glyph_u8, []
+    for _ in range(3):
+        g, value, _ = wide_step(g)
+        values.append(float(value))
+    c = counts()
+    log(f"main path wide taps: tau {tau} T {WIDE_T} k = ({k1}, {k2}) {SIZE}x{SIZE} 3 steps, losses {values}, "
+        f"launches {c}")
+    require(not any(c.values()) and all(math.isfinite(v) for v in values), "the wide-tap step launched a kernel")
+    wcorner = glyph_u8[:1024, :1024].contiguous()
+    _, w_value, w_grad = wide_step(wcorner)
+    _, p_value, p_grad = step_with(
+        lambda x: soft_mxu.soft_field_collapsed(x, k1, k2, c_shift, tau, WIDE_T, EPS)[0])(wcorner)
+    rel_v = abs(float(w_value) - float(p_value)) / abs(float(p_value))
+    rel_g = float((w_grad - p_grad).abs().max()) / float(p_grad.abs().max())
+    field_err = abs_err(softsdf.soft_sdf_field(wcorner, SPREAD, tau=tau, temperature=WIDE_T, gray_range=U8),
+                        soft_mxu.soft_field_collapsed(wcorner, k1, k2, c_shift, tau, WIDE_T, EPS)[0])
+    log(f"main path wide taps: 1024x1024 corner vs soft_field_collapsed: field max abs err {field_err:.3e}, "
+        f"loss rel err {rel_v:.3e}, gradient {rel_g:.3e} of scale")
+    require(field_err <= 1e-4 and rel_g < 1e-4, "the wide-tap step differs from its plain twin")
+
+    # phase 22: times with CUDA events, per step (its 3 launches each way)
+    g = big["pm2000"]
+    strips = composed_strips(g, band, tau, t)
+    fwd_in = [(gext, band, t) for _, gext in strips]
+    s_out = [softmin.softmin_col_fwd(*a) for a in fwd_in]
+    ones = [torch.ones_like(s) for s in s_out]
+    bwd_in = [(gext, s, ct, band, t) for (gext, _, _), s, ct in zip(fwd_in, s_out, ones)]
+    times = {
+        "softmin_col_fwd": cuda_ms(lambda: [softmin.softmin_col_fwd(*a) for a in fwd_in]),
+        "softmin_col_fwd_plain": cuda_ms(lambda: [softmin.softmin_col_fwd_plain(*a) for a in fwd_in], 2, 3),
+        "softmin_col_bwd": cuda_ms(lambda: [softmin.softmin_col_bwd(*a) for a in bwd_in]),
+        "softmin_col_bwd_plain": cuda_ms(lambda: [softmin.softmin_col_bwd_plain(*a) for a in bwd_in], 2, 3),
+    }
+    for name in ("pm2000", "noise"):
+        times[f"composed_step_{name}"] = cuda_ms(lambda: composed_step(big[name]))
+        with plain_softmin():
+            times[f"composed_step_{name}_plain"] = cuda_ms(lambda: composed_step(big[name]), 2, 3)
+    times["soft_model_step"] = cuda_ms(lambda: train(img, target), 5, 3)
+    times["wide_step"] = cuda_ms(lambda: wide_step(glyph_u8))
+    times["wide_step_plain_1024"] = cuda_ms(lambda: step_with(
+        lambda x: soft_mxu.soft_field_collapsed(x, k1, k2, c_shift, tau, WIDE_T, EPS)[0])(wcorner), 2, 3)
+    times["wide_step_1024"] = cuda_ms(lambda: wide_step(wcorner))
+    for k, ms in times.items():
+        log(f"time composed {k}: {ms:.4f} ms")
+
+    nbytes = {"softmin_col_fwd": 0, "softmin_col_bwd": 0}
+    taps = {"softmin_col_fwd": 0, "softmin_col_bwd": 0}
+    for (gext, _, _), s in zip(fwd_in, s_out):
+        nbytes["softmin_col_fwd"] += 4 * (gext.numel() + s.numel())
+        nbytes["softmin_col_bwd"] += 4 * 2 * (gext.numel() + s.numel())
+        tf, tb = col_taps(gext, s, band, t)
+        taps["softmin_col_fwd"] += tf
+        taps["softmin_col_bwd"] += tb
+    npix = SIZE * SIZE
+    for k, n in taps.items():
+        log(f"bound inputs {k}: {n} live taps per step ({n / (4 * npix):.2f} per pixel and pass)")
+    bounds = {
+        "softmin_col_fwd": bound(nbytes["softmin_col_fwd"], 5 * taps["softmin_col_fwd"]),
+        "softmin_col_bwd": bound(nbytes["softmin_col_bwd"], 6 * taps["softmin_col_bwd"]),
+    }
+    for k, (b_ms, by) in bounds.items():
+        log(f"bound composed {k}: {b_ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
+            f"roofline share {100 * b_ms / times[k]:.1f}%")
+    profile_device("composed step, pm2000", lambda: composed_step(big["pm2000"]))
+    return err, launches, times, bounds
+
+
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
     bounds). No PyTorch call computes any kernel's function, so
@@ -1203,8 +1532,14 @@ def main() -> int:
 
     noise = noise_image(SIZE, SEED)
     glyph = glyph_image(SIZE, SEED + 1)
-    kernels = summary(hard_phases(dev, noise, glyph), soft_phases(dev, glyph), fused_phases(dev, glyph),
-                      brute_dist_phases(dev, noise, glyph))
+    paths = []
+    for label, phases, args in (("3-7", hard_phases, (noise, glyph)), ("8-11", soft_phases, (glyph,)),
+                                ("12-15", fused_phases, (glyph,)), ("16-19", brute_dist_phases, (noise, glyph)),
+                                ("20-22", composed_phases, (glyph,))):
+        t0 = time.perf_counter()
+        paths.append(phases(dev, *args))
+        log(f"phases {label}: {time.perf_counter() - t0:.1f} s")
+    kernels = summary(*paths)
     print(smi, flush=True)
     print(json.dumps(kernels))
     print(json.dumps({

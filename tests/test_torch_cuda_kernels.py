@@ -3,7 +3,8 @@ hard path's (csrc/edt.cu) byte for byte, BRUTE's (csrc/brute.cu) byte for
 byte, the exact distance field's (edt_dist) bit for bit, the declared-range soft path's
 (csrc/soft_mm.cu) within 1e-4 (field, and dgray relative to its scale), and
 the adaptive soft kernels (csrc/soft_fused.cu) bit for bit, with the
-gradient of the whole chain within 1e-4 of the scale of autograd. Marked ``gpu``: each
+gradient of the whole chain within 1e-4 of the scale of autograd, and the
+composed path's column soft-min pair (csrc/softmin.cu) bit for bit. Marked ``gpu``: each
 test skips where no CUDA device is present. This file imports no JAX, so on
 a machine without it run it past the suite's conftest:
 
@@ -17,7 +18,7 @@ import torch
 from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
-from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, soft_mxu, softsdf
+from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, soft_mxu, softmin, softsdf
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 
 pytestmark = pytest.mark.gpu
@@ -409,3 +410,103 @@ def test_soft_fused_wrappers_refuse_what_kernels_do_not_take(dev):
         soft_fused.b2_pass(g, s1[:, :4], s1, 5, 1.0, 1e-6)
     with pytest.raises(ValueError):
         soft_fused.b1_pass(g, s1.cpu(), s1, 5, 2.0, 1.0)
+
+
+# ------------------------------------------------- composed soft kernels
+
+SOFTMIN_SHAPES = [(1, 17), (17, 1), (139, 131), (3, 64, 80), (4096, 1), (1, 4096)]
+
+
+def _softmin_case(dev, shape, band, seed):
+    """gext (..., H + 2 band, W): heights in [0, 2000) with 1e30 sentinel
+    rows above and below, as band_softmin extends them; S; a cotangent."""
+    rng = np.random.default_rng(seed)
+    h = rng.random(shape).astype(np.float32) * 2000
+    pad = [(0, 0)] * (len(shape) - 2) + [(band, band), (0, 0)]
+    gext = torch.from_numpy(np.pad(h, pad, constant_values=np.float32(1e30))).to(dev)
+    ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    return gext, ct
+
+
+def _counted_col(name, fn):
+    before = softmin.LAUNCHES[name]
+    out = fn()
+    assert softmin.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("shape", SOFTMIN_SHAPES)
+@pytest.mark.parametrize("band,t", [(0, 1.0), (1, 0.5), (113, 1.0), (130, 0.5)])
+def test_softmin_kernels_match_plain(dev, shape, band, t):
+    """Both kernels against their plain versions on the same inputs, bit
+    for bit."""
+    gext, ct = _softmin_case(dev, shape, band, band + len(shape))
+    s = _counted_col("softmin_col_fwd", lambda: softmin.softmin_col_fwd(gext, band, t))
+    sp = softmin.softmin_col_fwd_plain(gext, band, t)
+    dg = _counted_col("softmin_col_bwd", lambda: softmin.softmin_col_bwd(gext, sp, ct, band, t))
+    dgp = softmin.softmin_col_bwd_plain(gext, sp, ct, band, t)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sp) and torch.equal(dg, dgp)
+
+
+def test_softmin_saturated_strip(dev):
+    out = softmin.softmin_col_fwd(torch.full((22 + 2 * 130, 16), 1e30, device=dev), 130, 0.5)
+    assert bool(torch.isfinite(out).all()) and bool((out > 1e29).all())
+
+
+@pytest.mark.parametrize("shape,spread", [((300, 200), 111), ((1, 500), 64), ((2, 40, 60), 128)])
+def test_composed_path_launches_three_each_way(dev, shape, spread, monkeypatch):
+    """soft_sdf_field past the adaptive kernels' geometry: 3 forward and 3
+    backward launches, no other soft kernel; the field and gradient equal
+    the same path with the plain versions in the kernels' place, bit for
+    bit."""
+    g, ct = _fused_case(dev, shape, "pm2000", spread)
+    x = g.clone().requires_grad_()
+    before = {**cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
+    field = softsdf.soft_sdf_field(x, spread, tau=2.0, temperature=1.0)
+    (field * ct).sum().backward()
+    after = {**cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
+    grew = {k: after[k] - before[k] for k in after}
+    assert grew == {k: 3 if k.startswith("softmin") else 0 for k in grew}
+    monkeypatch.setattr(softmin, "softmin_col_fwd", softmin.softmin_col_fwd_plain)
+    monkeypatch.setattr(softmin, "softmin_col_bwd", softmin.softmin_col_bwd_plain)
+    y = g.clone().requires_grad_()
+    plain = softsdf.soft_sdf_field(y, spread, tau=2.0, temperature=1.0)
+    (plain * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(field, plain) and torch.equal(x.grad, y.grad)
+
+
+def test_wide_taps_launch_no_kernel(dev):
+    """The declared range at tau 2, T 8 (k = 28, 29): float32 matrix
+    products, no kernel of the package; field within 1e-4 and gradient
+    within 1e-4 of the scale of the shifted-slice form."""
+    g = torch.from_numpy(np.where(np.random.default_rng(2).random((200, 260)) < 0.02, 250.0, 5.0)
+                         .astype(np.float32)).to(dev)
+    ct = torch.ones_like(g)
+    before = {**cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
+    x = g.clone().requires_grad_()
+    (softsdf.soft_sdf_field(x, 64, tau=2.0, temperature=8.0, gray_range=(0.0, 255.0)) * ct).sum().backward()
+    assert {**cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES} == before
+    k1, k2, c = soft_mxu.range_stats(66, 2.0, 8.0, (0.0, 255.0))
+    y = g.clone().requires_grad_()
+    plain = soft_mxu.soft_field_collapsed(y, k1, k2, c, 2.0, 8.0, 1e-6)[0]
+    (plain * ct).sum().backward()
+    field = softsdf.soft_sdf_field(g, 64, tau=2.0, temperature=8.0, gray_range=(0.0, 255.0))
+    assert float((field - plain.detach()).abs().max()) <= 1e-4
+    assert float((x.grad - y.grad).abs().max()) <= 1e-4 * float(y.grad.abs().max())
+
+
+def test_softmin_wrappers_refuse_what_kernels_do_not_take(dev):
+    g = torch.zeros((20, 8), device=dev)
+    s = torch.zeros((10, 8), device=dev)
+    with pytest.raises(ValueError):
+        softmin.softmin_col_fwd(g.t().contiguous().t(), 5, 1.0)  # strided
+    with pytest.raises(TypeError):
+        softmin.softmin_col_fwd(g.double(), 5, 1.0)
+    with pytest.raises(ValueError):
+        softmin.softmin_col_fwd(g, 11, 1.0)  # fewer than 2 band rows
+    with pytest.raises(ValueError):
+        softmin.softmin_col_bwd(g, s[:4], s, 5, 1.0)
+    with pytest.raises(ValueError):
+        softmin.softmin_col_bwd(g, s.cpu(), s, 5, 1.0)

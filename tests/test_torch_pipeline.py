@@ -130,10 +130,16 @@ def test_sdf_generator_brute_and_jfa_match_jax(kw):
 
 
 def test_sdf_generator_refuses_unported_paths():
+    """Only sharding is refused now. SDFGenerator at spread 111 (band 113,
+    past the adaptive kernels: the composed path) with an undeclared and
+    an out-of-gamut range: field within 1e-4 of the JAX SDFGenerator's
+    generate_field (its CPU composed path)."""
+    img = _image(shape=(30, 34), seed=2)
+    want = np.asarray(jmodel.SDFGenerator(jcfg.SdfConfig(spread=111), soft=jcfg.SoftConfig()).generate_field(img))
     for rng in (None, (-1e9, 1e9)):
         tmodel.SDFGenerator(soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
-            tmodel.SDFGenerator(tcfg.SdfConfig(spread=111), soft=tcfg.SoftConfig(gray_range=rng))
+        gen = tmodel.SDFGenerator(tcfg.SdfConfig(spread=111), soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
+        np.testing.assert_allclose(gen.generate_field(img).numpy(), want, atol=1e-4, rtol=0)
     with pytest.raises(NotImplementedError):
         tmodel.SDFGenerator(sharding=tcfg.ShardingConfig())
     with pytest.raises(ValueError):
@@ -233,7 +239,7 @@ def test_import_pulls_in_no_jax():
         "chaq_sdfgen_tpu_torch.ops.cuda_edt, chaq_sdfgen_tpu_torch.utils.imageio, "
         "chaq_sdfgen_tpu_torch.ops.cuda_soft_mm, chaq_sdfgen_tpu_torch.ops.soft_mxu, "
         "chaq_sdfgen_tpu_torch.ops.softsdf, chaq_sdfgen_tpu_torch.ops.cuda_brute, "
-        "chaq_sdfgen_tpu_torch.ops.brute, chaq_sdfgen_tpu_torch.ops.jfa; "
+        "chaq_sdfgen_tpu_torch.ops.brute, chaq_sdfgen_tpu_torch.ops.jfa, chaq_sdfgen_tpu_torch.ops.softmin; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'chaq_sdfgen_tpu.'))"
         " or m == 'chaq_sdfgen_tpu']; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -363,17 +369,35 @@ def test_cli_soft_defaults_match_jax_kernel(tmp_path, input_png):
     assert np.abs(px.astype(int) - _jax_kernel_bytes(want, 64, False, "hard").astype(int)).max() <= 1
 
 
-def test_cli_soft_refuses_undeclared_range(tmp_path, input_png, capsys):
-    """An undeclared range runs (the runtime-gated path) up to band 112;
-    above it the CLI refuses, naming ROADMAP Queue 2 item 13."""
+def test_cli_soft_refuses_undeclared_range(tmp_path, input_png):
+    """An undeclared range runs at every spread: the runtime-gated path up
+    to band 112, the composed path above it. At -s 111 against the JAX CLI
+    (its CPU composed path): bytes within 1, field within 1e-4."""
+    t_out, j_out = tmp_path / "t.png", tmp_path / "j.png"
+    t_f, j_f = tmp_path / "t.npy", tmp_path / "j.npy"
+    flags = ["--soft", "--gray-range", "-1e9", "1e9", "-s", "111"]
+    assert tcli.main(["-i", input_png, "-o", str(t_out), "--soft-field", str(t_f), "--platform", "cpu",
+                      *flags]) == 0
+    assert jcli.main(["-i", input_png, "-o", str(j_out), "--soft-field", str(j_f), *flags]) == 0
+    np.testing.assert_allclose(np.load(t_f), np.load(j_f), atol=1e-4, rtol=0)
+    t_px, j_px = _decode(str(t_out))[1], _decode(str(j_out))[1]
+    assert np.abs(t_px.astype(int) - j_px.astype(int)).max() <= 1
     out = str(tmp_path / "o.png")
-    assert tcli.main(["-i", input_png, "-o", out, "--soft", "--gray-range", "-1e9", "1e9",
-                      "--platform", "cpu", "-s", "111"]) == 1
-    assert "Queue 2 item 13" in capsys.readouterr().err
-    assert not os.path.exists(out)
     assert tcli.main(["-i", input_png, "-o", out, "--soft", "--gray-range", "-1e9", "1e9",
                       "--platform", "cpu", "-s", "12"]) == 0
     assert os.path.exists(out)
+
+
+@pytest.mark.parametrize("flags", [["-s", "65533"], ["--algorithm", "brute", "-s", "32767"]])
+def test_cli_refused_spread_is_one_line(tmp_path, input_png, flags, capsys):
+    """A spread the kernels refuse (EXACT band above 65534, BRUTE spread
+    above 32766) ends the CLI with exit 1 and one line on stderr, no
+    traceback, and writes nothing."""
+    out = str(tmp_path / "o.png")
+    assert tcli.main(["-i", input_png, "-o", out, "--platform", "cpu", *flags]) == 1
+    err = capsys.readouterr().err
+    assert err.count("\n") == 1 and "Traceback" not in err and "spread" in err
+    assert not os.path.exists(out)
 
 
 def test_no_card_needs_an_explicit_cpu(tmp_path, input_png, monkeypatch, capsys):

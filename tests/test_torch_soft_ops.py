@@ -189,19 +189,26 @@ def test_soft_gradient_vs_finite_difference():
 
 
 def test_soft_sdf_field_refuses_undeclared_range():
-    """An undeclared or out-of-gamut range runs (the runtime-gated path),
-    except where the adaptive kernels' geometry ends (band > 112, one row):
-    JAX takes its composed path there, Queue 2 item 13. Wide taps on a
-    declared range wait for Queue 2 item 14."""
-    g = torch.zeros((8, 8))
+    """Nothing is refused on one device any more. An undeclared or
+    out-of-gamut range runs at every band and shape: through the runtime
+    gate where the adaptive kernels' geometry allows (band <= 112, two rows
+    or more), else the composed path, held within 1e-4 of JAX's CPU
+    soft_sdf_field (its composed scans). Wide taps on a declared range
+    (here k = 28 and 29 at tau 2, T 8) take the matrix-product path, held
+    within 1e-4 of JAX's soft_mxu.soft_sdf_field_mxu on the CPU."""
+    g = _gray((8, 8), 9, lo=-2000.0, hi=2000.0)
+    row = _gray((1, 8), 10, lo=-2000.0, hi=2000.0)
     for rng in (None, (-1e9, 1e9)):
-        assert tsoft.soft_sdf_field(g, 8, gray_range=rng).shape == (8, 8)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
-            tsoft.soft_sdf_field(g, 111, gray_range=rng)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 13"):
-            tsoft.soft_sdf_field(torch.zeros((1, 8)), 8, gray_range=rng)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 14"):
-        tsoft.soft_sdf_field(g, 300, tau=2.0, temperature=8.0, gray_range=(0.0, 255.0))
+        assert tsoft.soft_sdf_field(torch.from_numpy(g), 8, gray_range=rng).shape == (8, 8)
+        for x, spread in ((g, 111), (row, 8)):
+            want = np.asarray(jsoft.soft_sdf_field(jnp.asarray(x), spread))
+            got = tsoft.soft_sdf_field(torch.from_numpy(x), spread, gray_range=rng).numpy()
+            np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    u8 = _gray((40, 36), 11, lo=0.0, hi=255.0)
+    u8[10:20, 5:30] = 250.0  # a bar, so that d2 > 0 away from it
+    want = np.asarray(jmxu.soft_sdf_field_mxu(jnp.asarray(u8), 302, 2.0, 8.0, 1e-6, True, (0.0, 255.0)))
+    got = tsoft.soft_sdf_field(torch.from_numpy(u8), 300, tau=2.0, temperature=8.0, gray_range=(0.0, 255.0))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
 
 
 def test_soft_sdf_bytes_in_range():

@@ -14,8 +14,11 @@ range (--gray-range, default 0 255) where it lies inside the gamut of
 --soft-tau and --soft-temperature, else as an undeclared range (a range
 such as -1000000000 1000000000 forces it): the runtime gate up to spread 110 (band 112),
 the composed path above. --soft-prec is not ported yet. A spread that the
-kernels refuse (EXACT above 65532, BRUTE above 32766) ends the run with one
-line on stderr and exit code 1.
+kernels refuse (EXACT above 2^30 - 3, BRUTE above 32766) ends the run with
+one line on stderr and exit code 1. --shard-y/--shard-x/--halo-impl run the
+hard algorithms over a device mesh (ShardingConfig): distinct cards on
+cuda (exit code 1 when there are too few, or when --device selects another
+card than the first), logical shards on the CPU.
 
 Usage:  python -m chaq_sdfgen_tpu_torch -i in.png -o out.png -s 100 -al
 """
@@ -98,6 +101,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "the declared-range kernels' gamut (e.g. -1000000000 "
                         "1000000000; older Pythons read -1e9 as an option) takes "
                         "the undeclared-range paths")
+    p.add_argument("--shard-y", type=int, default=1, metavar="N",
+                   help="shard image rows over N mesh devices "
+                        "(ShardingConfig; 1 = unsharded)")
+    p.add_argument("--shard-x", type=int, default=1, metavar="N",
+                   help="shard image columns over N mesh devices "
+                        "(2-D ('y','x') tile mesh)")
+    p.add_argument("--halo-impl", default="ppermute",
+                   choices=["ppermute", "rdma"],
+                   help="halo-exchange implementation for sharded runs "
+                        "(default: ppermute)")
     return p
 
 
@@ -191,9 +204,10 @@ def main(argv: Optional[list] = None) -> int:
         print("--soft-field requires --soft.", file=sys.stderr)
         return 1
 
-    from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, SoftConfig
+    from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, ShardingConfig, SoftConfig
     from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
     from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, softmin
+    from chaq_sdfgen_tpu_torch.parallel import cuda_halo
     from chaq_sdfgen_tpu_torch.utils import imageio as iio
 
     t0 = time.perf_counter()
@@ -228,7 +242,27 @@ def main(argv: Optional[list] = None) -> int:
         print(f"Invalid value given for spread. Must be at most {top} for --algorithm {args.algorithm}.",
               file=sys.stderr)
         return 1
-    gen = SDFGenerator(cfg, soft=soft_cfg, device=device)
+    shard_cfg = None
+    if args.shard_y > 1 or args.shard_x > 1 or args.halo_impl != "ppermute":
+        if args.shard_x > 1:
+            shard_cfg = ShardingConfig(mesh_shape=(args.shard_y, args.shard_x), axis_names=("y", "x"),
+                                       halo_impl=args.halo_impl)
+        else:
+            shard_cfg = ShardingConfig(mesh_shape=(args.shard_y,), axis_names=("y",),
+                                       halo_impl=args.halo_impl)
+        if soft_cfg is not None:
+            print("--soft with a mesh is not ported yet (the sharded soft path).", file=sys.stderr)
+            return 1
+        n_dev = len(devs) if platform == "cuda" else args.shard_y * args.shard_x
+        if args.shard_y * args.shard_x > n_dev:
+            print(f"--shard-y/--shard-x need {args.shard_y * args.shard_x} devices, have {n_dev}.",
+                  file=sys.stderr)
+            return 1
+        if device != devs[0][0]:
+            print(f"--shard-y/--shard-x run over the cards from {devs[0][0]} on; --device selected {device}.",
+                  file=sys.stderr)
+            return 1
+    gen = SDFGenerator(cfg, soft=soft_cfg, sharding=shard_cfg, device=device)
     t0 = time.perf_counter()
     out = gen.generate(img2ch).cpu().numpy()
     log.info("sdf computed in %.3fs on %s (first call: includes device and kernel start-up)",
@@ -240,7 +274,7 @@ def main(argv: Optional[list] = None) -> int:
         print(f"Kernel timing: {gen.kernel_time(img2ch):.6f} sec", file=sys.stderr)
     log.info("kernel launches %s",
              json.dumps({**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_soft_mm.LAUNCHES,
-                         **soft_fused.LAUNCHES, **softmin.LAUNCHES}))
+                         **soft_fused.LAUNCHES, **softmin.LAUNCHES, **cuda_halo.LAUNCHES}))
 
     t0 = time.perf_counter()
     try:

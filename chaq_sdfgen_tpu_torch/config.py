@@ -115,8 +115,7 @@ class SoftConfig:
 @dataclasses.dataclass(frozen=True)
 class ShardingConfig:
     """Device-mesh layout (same fields, defaults and validation as the JAX
-    package's). Building a mesh waits for the multi-GPU tier (ROADMAP
-    Queue 1 item 11)."""
+    package's)."""
 
     mesh_shape: Tuple[int, ...] = (1,)
     axis_names: Tuple[str, ...] = ("y",)
@@ -152,7 +151,10 @@ class ShardingConfig:
                 return img_axes[1]
         return None
 
-    def build_mesh(self):
-        raise NotImplementedError(
-            "multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 11)"
-        )
+    def build_mesh(self, devices=None):
+        """make_mesh(mesh_shape, axis_names): by default over the visible
+        cards, raising when too few; ``devices="cpu"`` for logical CPU
+        shards, or a list of devices (parallel/mesh.make_mesh)."""
+        from chaq_sdfgen_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(self.mesh_shape, self.axis_names, devices)

@@ -38,6 +38,16 @@
 //   spread^2, so they cannot change the result. Neighbouring threads read
 //   neighbouring columns of each plane.
 //
+// brute_scan_bytes_halo<T> replaces pallas_brute.py:_brute_kernel_halo_entry
+//   (brute_sdf_bytes_pallas_halo, a shard of parallel/sharded.py). The same
+//   per-pixel walk (the device function brute_pixel, shared with
+//   brute_scan_bytes, as the TPU entry is a thin wrapper around the same
+//   _brute_kernel_impl, pallas_brute.py:570-574) on planes that carry the
+//   neighbouring shards' rows: (2, 4, N, H_loc + 2 hr, W), the shard's own
+//   rows from row_off = hr on. The sign comes from the shard's own codes
+//   (N, H_loc, W), and only its H_loc rows are written. With hr >= spread
+//   the walk never leaves the planes. Bound: bytes, as brute_scan_bytes.
+//
 // Exact numbers: the float tail is explicit _rn intrinsics in the plain
 // version's order (ops/brute.py, ops/merge.py). Build without
 // --use_fast_math.
@@ -170,21 +180,14 @@ brute_rows_kernel(const uint8_t* __restrict__ codes, T* __restrict__ out, int n,
 constexpr int kScanTx = 64;
 constexpr int kScanTy = 4;
 
-// grid (ceil(W/64), ceil(H/4), N); block (64, 4): one thread per pixel.
+// One output pixel of the scan. val: the pixel's value (it searches the
+// seeds of the other polarity, sdf.cl:201); l1: its column of that
+// polarity's L1 plane, the L2, R1 and R2 planes `plane` elements apart;
+// the planes hold rows [0, hs) and the pixel sits at row ys.
 template <typename T>
-__global__ void __launch_bounds__(kScanTx * kScanTy)
-brute_scan_bytes_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
-                        uint8_t* __restrict__ out, int n, int h, int w, int spread,
-                        float s_min, float s_max, int invert) {
-  const int x = blockIdx.x * kScanTx + threadIdx.x;
-  const int y = blockIdx.y * kScanTy + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t plane = (size_t)n * h * w;
-  const size_t img = (size_t)blockIdx.z * h * w;
-  const size_t pix = img + (size_t)y * w + x;
-  const bool val = codes[pix] != 0;
-  // candidates are the seeds of the other polarity (sdf.cl:201)
-  const T* l1 = strips + (val ? 4 : 0) * plane + img + x;
+__device__ __forceinline__ uint8_t brute_pixel(bool val, const T* __restrict__ l1, size_t plane,
+                                               int w, int ys, int hs, int spread, float s_min,
+                                               float s_max, int invert) {
   const T* l2 = l1 + plane;
   const T* r1 = l1 + 2 * plane;
   const T* r2 = l1 + 3 * plane;
@@ -198,12 +201,12 @@ brute_scan_bytes_kernel(const uint8_t* __restrict__ codes, const T* __restrict__
     const int dx = min(dl, dr);
     return dx * dx + a * a;
   };
-  int best = tap(y, 0);
-  const int reach = min(spread, max(y, h - 1 - y));
+  int best = tap(ys, 0);
+  const int reach = min(spread, max(ys, hs - 1 - ys));
   for (int a = 1; a <= reach; ++a) {
     if (a * a >= best) break;
-    if (y - a >= 0) best = min(best, tap(y - a, a));
-    if (y + a < h) best = min(best, tap(y + a, a));
+    if (ys - a >= 0) best = min(best, tap(ys - a, a));
+    if (ys + a < hs) best = min(best, tap(ys + a, a));
   }
 
   // OpenCL tail (sdf.cl:206-223)
@@ -215,7 +218,42 @@ brute_scan_bytes_kernel(const uint8_t* __restrict__ codes, const T* __restrict__
   const float v = fmaxf(fminf(dist, s_max), s_min);
   const float remap = __fadd_rn(
       __fdiv_rn(__fmul_rn(__fsub_rn(v, s_min), 255.0f), __fsub_rn(s_max, s_min)), 0.0f);
-  out[pix] = (uint8_t)(int)remap;
+  return (uint8_t)(int)remap;
+}
+
+// grid (ceil(W/64), ceil(H/4), N); block (64, 4): one thread per pixel.
+template <typename T>
+__global__ void __launch_bounds__(kScanTx * kScanTy)
+brute_scan_bytes_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
+                        uint8_t* __restrict__ out, int n, int h, int w, int spread,
+                        float s_min, float s_max, int invert) {
+  const int x = blockIdx.x * kScanTx + threadIdx.x;
+  const int y = blockIdx.y * kScanTy + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t plane = (size_t)n * h * w;
+  const size_t img = (size_t)blockIdx.z * h * w;
+  const size_t pix = img + (size_t)y * w + x;
+  const bool val = codes[pix] != 0;
+  out[pix] = brute_pixel(val, strips + (val ? 4 : 0) * plane + img + x, plane, w, y, h, spread,
+                         s_min, s_max, invert);
+}
+
+// grid (ceil(W/64), ceil(H_loc/4), N); block (64, 4): one thread per output
+// pixel. codes and out are (N, h, W); the planes (2, 4, N, hs, W), the
+// shard's row y at plane row y + row_off.
+template <typename T>
+__global__ void __launch_bounds__(kScanTx * kScanTy)
+brute_scan_bytes_halo_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
+                             uint8_t* __restrict__ out, int n, int h, int hs, int w,
+                             int row_off, int spread, float s_min, float s_max, int invert) {
+  const int x = blockIdx.x * kScanTx + threadIdx.x;
+  const int y = blockIdx.y * kScanTy + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t plane = (size_t)n * hs * w;
+  const size_t pix = (size_t)blockIdx.z * h * w + (size_t)y * w + x;
+  const bool val = codes[pix] != 0;
+  const T* l1 = strips + (val ? 4 : 0) * plane + (size_t)blockIdx.z * hs * w + x;
+  out[pix] = brute_pixel(val, l1, plane, w, y + row_off, hs, spread, s_min, s_max, invert);
 }
 
 }  // namespace
@@ -260,6 +298,35 @@ extern "C" int chaq_brute_scan_bytes(const void* codes, const void* strips, void
     brute_scan_bytes_kernel<uint16_t><<<grid, block, 0, s>>>(
         (const uint8_t*)codes, (const uint16_t*)strips, (uint8_t*)out, n, h, w, spread, s_min,
         s_max, invert);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// codes, out: (n, h, w); strips: (2, 4, n, hs, w) with the shard's rows
+// from row_off on.
+extern "C" int chaq_brute_scan_bytes_halo(const void* codes, const void* strips, void* out,
+                                          int n, int h, int hs, int w, int row_off, int spread,
+                                          float s_min, float s_max, int invert, int elem_bytes,
+                                          void* stream) {
+  if (n < 1 || h < 1 || w < 1 || n > 65535 || spread < 1 || spread > 32766 || row_off < 0 ||
+      row_off + h > hs) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 block(kScanTx, kScanTy);
+  const dim3 grid((unsigned)((w + kScanTx - 1) / kScanTx),
+                  (unsigned)((h + kScanTy - 1) / kScanTy), (unsigned)n);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 1 && spread + 1 <= 255) {
+    brute_scan_bytes_halo_kernel<uint8_t><<<grid, block, 0, s>>>(
+        (const uint8_t*)codes, (const uint8_t*)strips, (uint8_t*)out, n, h, hs, w, row_off,
+        spread, s_min, s_max, invert);
+  } else if (elem_bytes == 2) {
+    brute_scan_bytes_halo_kernel<uint16_t><<<grid, block, 0, s>>>(
+        (const uint8_t*)codes, (const uint16_t*)strips, (uint8_t*)out, n, h, hs, w, row_off,
+        spread, s_min, s_max, invert);
   } else {
     return (int)cudaErrorInvalidValue;
   }

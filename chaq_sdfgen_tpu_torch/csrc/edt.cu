@@ -6,6 +6,8 @@
 //   _row_pass_block_kernel_ext (row_distances_u8_ext, the u16 strips).
 //   Per image row, the distance along x to the nearest TRUE pixel (code 1)
 //   and to the nearest FALSE pixel (code 0), clipped at min(band+1, max(T)).
+//   T is uint8, uint16 or int32: the int32 strips serve bands above 65534,
+//   where the JAX package answers through XLA (pallas_edt.py:939-945).
 //   Code 2 seeds neither field. Bound: memory; a row is read once (W bytes)
 //   and written twice (2 W sizeof(T)), plus one re-read of the outputs from
 //   L2. Design: one block per row walks it in tiles of blockDim pixels; a
@@ -15,11 +17,15 @@
 //
 // edt_band_bytes<T> replaces chaq_sdfgen_tpu/ops/pallas_edt.py:
 //   _fused_kernel_looped_halo (fused_pass2_bytes_halo) and
-//   _fused_kernel_looped (fused_pass2_bytes, the u16 strips).
+//   _fused_kernel_looped (fused_pass2_bytes, the u16 strips, with row_off).
 //   Per pixel and field: g(y') = min(d(y'), band+1)^2, with rows outside
-//   [0, H) reading (band+1)^2; D = min over |dy| <= band of dy^2 + g(y+dy)
-//   in float32; then the correctly rounded sqrt, the -1-biased signed merge
-//   and the clamped remap to a truncated byte. Bound: taps, i.e. loads of
+//   the strip reading (band+1)^2; D = min over |dy| <= band of dy^2 +
+//   g(y+dy) in float32; then the correctly rounded sqrt, the -1-biased
+//   signed merge and the clamped remap to a truncated byte. The strip may
+//   carry halo rows (a shard's neighbours' rows, parallel/sharded.py):
+//   output row y reads strip row y + row_off, and only out_rows rows are
+//   written. With row_off >= band halo rows each side the walk never
+//   leaves the strip; a single device passes row_off 0 and out_rows H. Bound: taps, i.e. loads of
 //   the column strips; on dense content a pixel stops after a few taps,
 //   on sparse content it walks up to band taps. Design: one thread per
 //   output pixel walks dy = 1, 2, ... and stops once dy^2 >= the running
@@ -164,6 +170,8 @@ edt_rows_kernel(const uint8_t* __restrict__ codes, T* din, T* dout, int h, int w
 
 // D = min over |dy| <= band of dy^2 + g(y+dy) for the column that `col`
 // points into (row stride w).
+// Beyond max(y, h - 1 - y) both taps lie outside the strip: they read big
+// >= best and cannot lower it, so the walk stops there too.
 template <typename T>
 __device__ __forceinline__ float band_min_at(const T* __restrict__ col, int h, int w, int y,
                                              int band) {
@@ -176,7 +184,8 @@ __device__ __forceinline__ float band_min_at(const T* __restrict__ col, int h, i
     return __fmul_rn(d, d);
   };
   float best = g(y);
-  for (int dy = 1; dy <= band; ++dy) {
+  const int reach = min(band, max(y, h - 1 - y));
+  for (int dy = 1; dy <= reach; ++dy) {
     const float fdy = (float)dy;
     const float dy2 = __fmul_rn(fdy, fdy);
     if (dy2 >= best) break;
@@ -188,18 +197,19 @@ __device__ __forceinline__ float band_min_at(const T* __restrict__ col, int h, i
 constexpr int kBandTx = 64;
 constexpr int kBandTy = 4;
 
-// grid (ceil(W/64), ceil(H/4), N); block (64, 4): one thread per pixel.
+// grid (ceil(W/64), ceil(out_rows/4), N); block (64, 4): one thread per
+// output pixel. The strips are (N, h, W), the output (N, out_rows, W).
 template <typename T>
 __global__ void __launch_bounds__(kBandTx * kBandTy)
 edt_band_bytes_kernel(const T* __restrict__ din, const T* __restrict__ dout,
-                      uint8_t* __restrict__ out, int h, int w, int band, float s_min,
-                      float s_max, int apply_sqrt) {
+                      uint8_t* __restrict__ out, int h, int w, int row_off, int out_rows,
+                      int band, float s_min, float s_max, int apply_sqrt) {
   const int x = blockIdx.x * kBandTx + threadIdx.x;
   const int y = blockIdx.y * kBandTy + threadIdx.y;
-  if (x >= w || y >= h) return;
+  if (x >= w || y >= out_rows) return;
   const size_t plane = (size_t)blockIdx.z * h * w;
-  float d_in = band_min_at(din + plane + x, h, w, y, band);
-  float d_out = band_min_at(dout + plane + x, h, w, y, band);
+  float d_in = band_min_at(din + plane + x, h, w, y + row_off, band);
+  float d_out = band_min_at(dout + plane + x, h, w, y + row_off, band);
   if (apply_sqrt) {
     d_in = refined_sqrt_f32(d_in);
     d_out = refined_sqrt_f32(d_out);
@@ -210,7 +220,7 @@ edt_band_bytes_kernel(const T* __restrict__ din, const T* __restrict__ dout,
   const float v = fmaxf(fminf(vals, s_max), s_min);
   const float remap = __fadd_rn(
       __fdiv_rn(__fmul_rn(__fsub_rn(v, s_min), 255.0f), __fsub_rn(s_max, s_min)), 0.0f);
-  out[plane + (size_t)y * w + x] = (uint8_t)(int)remap;
+  out[(size_t)blockIdx.z * out_rows * w + (size_t)y * w + x] = (uint8_t)(int)remap;
 }
 
 // grid (ceil(W/64), ceil(H/4), N); block (64, 4): one thread per pixel.
@@ -259,29 +269,41 @@ extern "C" int chaq_edt_rows(const void* codes, void* din, void* dout, int n, in
   } else if (elem_bytes == 2) {
     edt_rows_kernel<uint16_t><<<grid, kRowThreads, 0, s>>>(
         (const uint8_t*)codes, (uint16_t*)din, (uint16_t*)dout, h, w, clip);
+  } else if (elem_bytes == 4) {
+    edt_rows_kernel<int32_t><<<grid, kRowThreads, 0, s>>>(
+        (const uint8_t*)codes, (int32_t*)din, (int32_t*)dout, h, w, clip);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// h: the strips' rows; output row y reads strip row y + row_off, for
+// out_rows rows (row_off 0 and out_rows h on one device).
 extern "C" int chaq_edt_band_bytes(const void* din, const void* dout, void* out, int n, int h,
-                                   int w, int band, float s_min, float s_max, int apply_sqrt,
-                                   int elem_bytes, void* stream) {
-  if (n < 1 || h < 1 || w < 1 || n > 65535 || band < 0) return (int)cudaErrorInvalidValue;
+                                   int w, int row_off, int out_rows, int band, float s_min,
+                                   float s_max, int apply_sqrt, int elem_bytes, void* stream) {
+  if (n < 1 || h < 1 || w < 1 || n > 65535 || band < 0 || band > (1 << 30) - 1 ||
+      row_off < 0 || out_rows < 1 || row_off + out_rows > h) {
+    return (int)cudaErrorInvalidValue;
+  }
   const dim3 block(kBandTx, kBandTy);
   const dim3 grid((unsigned)((w + kBandTx - 1) / kBandTx),
-                  (unsigned)((h + kBandTy - 1) / kBandTy), (unsigned)n);
+                  (unsigned)((out_rows + kBandTy - 1) / kBandTy), (unsigned)n);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 1) {
     edt_band_bytes_kernel<uint8_t><<<grid, block, 0, s>>>(
-        (const uint8_t*)din, (const uint8_t*)dout, (uint8_t*)out, h, w, band, s_min, s_max,
-        apply_sqrt);
+        (const uint8_t*)din, (const uint8_t*)dout, (uint8_t*)out, h, w, row_off, out_rows, band,
+        s_min, s_max, apply_sqrt);
   } else if (elem_bytes == 2) {
     edt_band_bytes_kernel<uint16_t><<<grid, block, 0, s>>>(
-        (const uint16_t*)din, (const uint16_t*)dout, (uint8_t*)out, h, w, band, s_min, s_max,
-        apply_sqrt);
+        (const uint16_t*)din, (const uint16_t*)dout, (uint8_t*)out, h, w, row_off, out_rows,
+        band, s_min, s_max, apply_sqrt);
+  } else if (elem_bytes == 4) {
+    edt_band_bytes_kernel<int32_t><<<grid, block, 0, s>>>(
+        (const int32_t*)din, (const int32_t*)dout, (uint8_t*)out, h, w, row_off, out_rows,
+        band, s_min, s_max, apply_sqrt);
   } else {
     return (int)cudaErrorInvalidValue;
   }

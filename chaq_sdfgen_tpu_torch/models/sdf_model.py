@@ -8,8 +8,9 @@
                      field (ops/softsdf.py), on a declared gray range or
                      none (gray_range=None), at any spread
 
-Sharding is not ported yet (ROADMAP Queue 1 item 11); asking for it raises
-NotImplementedError.
+SDFGenerator(sharding=ShardingConfig(...)) runs the hard algorithms over a
+device mesh (parallel/sharded.py); the sharded soft path is not ported yet
+(ROADMAP Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -119,7 +120,13 @@ class SDFGenerator:
 
     device: where the pipeline runs (default: the first CUDA device; with
     no card, only an explicit ``device="cpu"`` runs). Inputs are moved
-    there; the result stays there."""
+    there; the result stays there.
+
+    sharding: optional ShardingConfig. The hard algorithms then run over
+    its mesh (parallel/sharded.py): on ``device="cpu"`` mesh_shape logical
+    CPU shards, on a card distinct cards cuda:0..n-1, raising when there
+    are too few or when ``device`` names another card than cuda:0. The
+    result is joined onto the mesh's first device."""
 
     def __init__(
         self,
@@ -128,13 +135,23 @@ class SDFGenerator:
         sharding=None,
         device: Union[str, torch.device, None] = None,
     ):
-        if sharding is not None:
+        if sharding is not None and soft is not None:
             raise NotImplementedError(
-                "multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 11)"
+                "the sharded soft path is not ported yet (ROADMAP Queue 1 item 11b)"
             )
         self.config = config
         self.soft = soft
         self.device = resolve_device(device)
+        self.sharding = sharding
+        self._mesh = None
+        if sharding is not None:
+            if self.device.type == "cuda" and self.device.index not in (None, 0):
+                raise ValueError(
+                    f"a sharded run spans the cards cuda:0..n-1 and returns on cuda:0; "
+                    f"device {self.device} is not the mesh's first card"
+                )
+            self._mesh = sharding.build_mesh("cpu" if self.device.type == "cpu" else None)
+            self.device = self._mesh.devices.flat[0]
 
     def _as_input(self, img2ch) -> torch.Tensor:
         if isinstance(img2ch, np.ndarray):
@@ -154,6 +171,8 @@ class SDFGenerator:
             v = merge.soft_remap(self._field(x), cfg.spread, cfg.asymmetric, clamp=self.soft.clamp)
             # truncating u8 cast, matching the hard remap (sdfgen.c:94)
             return torch.clamp(v, 0.0, 255.0).to(torch.int32).to(torch.uint8)
+        if self._mesh is not None:
+            return self._sharded(x)
         if cfg.algorithm == Algorithm.BRUTE:
             return hard_sdf_brute(
                 x,
@@ -179,6 +198,28 @@ class SDFGenerator:
             test_above=not cfg.invert,
             band=cfg.effective_band,
         )
+
+    def _sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """The hard pipelines over the mesh (JAX _sharded_pipeline_fn)."""
+        from chaq_sdfgen_tpu_torch.parallel import sharded
+
+        cfg, sh, mesh = self.config, self.sharding, self._mesh
+        kw = dict(y_axis=sh.y_axis, x_axis=sh.x_axis, halo=sh.halo_impl)
+        if cfg.algorithm == Algorithm.BRUTE:
+            # BRUTE thresholds > 127 always; invert flips the sign decider
+            b = threshold.hard_threshold(x, channel=cfg.channel_offset, test_above=True)
+            return sharded.sharded_brute_sdf_bytes(
+                b, cfg.spread, mesh, asymmetric=cfg.asymmetric, invert=cfg.invert,
+                batch_axis=sh.data_axis if b.dim() > 2 else None, **kw)
+        b = threshold.hard_threshold(x, channel=cfg.channel_offset, test_above=not cfg.invert)
+        if cfg.algorithm == Algorithm.JFA:
+            kw.pop("halo")
+            d_in = sharded.sharded_jfa_distance(b, mesh, plus_one=cfg.jfa_plus_one, **kw)
+            d_out = sharded.sharded_jfa_distance(torch.logical_not(b), mesh, plus_one=cfg.jfa_plus_one, **kw)
+            return merge.remap_to_byte(merge.signed_merge(d_out, d_in), cfg.spread, cfg.asymmetric)
+        return sharded.sharded_hard_sdf_bytes(
+            b, cfg.spread, mesh, asymmetric=cfg.asymmetric, band=cfg.effective_band,
+            batch_axis=sh.data_axis if b.dim() > 2 else None, **kw)
 
     def generate_field(self, img2ch) -> torch.Tensor:
         """Raw float32 signed soft field (pre-remap) of (..., H, W, 2) u8

@@ -105,8 +105,9 @@ def load() -> ctypes.CDLL:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.chaq_edt_rows.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
         lib.chaq_edt_rows.restype = i32
+        # (din, dout, out, n, h, w, row_off, out_rows, band, s_min, s_max, apply_sqrt, elem_bytes, stream)
         lib.chaq_edt_band_bytes.argtypes = [
-            vp, vp, vp, i32, i32, i32, i32, ctypes.c_float, ctypes.c_float, i32, i32, vp,
+            vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.c_float, ctypes.c_float, i32, i32, vp,
         ]
         lib.chaq_edt_band_bytes.restype = i32
         lib.chaq_refined_sqrt_f32.argtypes = [vp, vp, ctypes.c_longlong, vp]
@@ -121,6 +122,10 @@ def load() -> ctypes.CDLL:
         # (codes, strips, out, n, h, w, spread, s_min, s_max, invert, elem_bytes, stream)
         lib.chaq_brute_scan_bytes.argtypes = [vp, vp, vp, i32, i32, i32, i32, f32, f32, i32, i32, vp]
         lib.chaq_brute_scan_bytes.restype = i32
+        # (codes, strips, out, n, h, hs, w, row_off, spread, s_min, s_max, invert, elem_bytes, stream)
+        lib.chaq_brute_scan_bytes_halo.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, f32, f32,
+                                                   i32, i32, vp]
+        lib.chaq_brute_scan_bytes_halo.restype = i32
         taps = ctypes.POINTER(f32)
         # (n, h, w, k1, k2, taps, tau, T, eps, shift, test_above, stream)
         soft_tail = [i32, i32, i32, i32, i32, taps, f32, f32, f32, f32, i32, vp]
@@ -139,6 +144,15 @@ def load() -> ctypes.CDLL:
         for entry, n_ptrs in (("chaq_softmin_fwd", 2), ("chaq_softmin_bwd", 4)):
             getattr(lib, entry).argtypes = [vp] * n_ptrs + col_tail
             getattr(lib, entry).restype = i32
+        ll = ctypes.c_longlong
+        # (src_up, src_dn, up, dn, n_img, rows, src_rows, row_bytes, fill_word, stream)
+        lib.chaq_halo_slab.argtypes = [vp, vp, vp, vp, ll, i32, i32, ll, ctypes.c_uint, vp]
+        lib.chaq_halo_slab.restype = i32
+        # (src_up, src_dn, up, dn, n_img, rows, row_bytes, stream)
+        lib.chaq_halo_ring_shift.argtypes = [vp, vp, vp, vp, ll, i32, ll, vp]
+        lib.chaq_halo_ring_shift.restype = i32
+        lib.chaq_enable_peer_access.argtypes = [i32, i32]
+        lib.chaq_enable_peer_access.restype = i32
         _lib = lib
         return _lib
 

@@ -71,12 +71,13 @@ def row_seed_distances(seeds: torch.Tensor, sentinel: int):
 
 
 def seed_strips(b: torch.Tensor, spread: int) -> torch.Tensor:
-    """Pass A for both polarities: (..., H, W) bool -> (2, 4, ..., H, W)
-    int32, [polarity][L1, L2, R1, R2] with polarity 0 the TRUE pixels as
-    seeds and 1 the FALSE ones, clipped at spread + 1."""
+    """Pass A for both polarities: (..., H, W) bool mask or uint8 tri-state
+    codes (threshold.as_codes) -> (2, 4, ..., H, W) int32, [polarity][L1,
+    L2, R1, R2] with polarity 0 the TRUE pixels (code 1) as seeds and 1 the
+    FALSE ones (code 0), clipped at spread + 1; code 2 seeds neither."""
     sent = spread + 1
-    return torch.stack([torch.stack(row_seed_distances(seeds, sent))
-                        for seeds in (b, torch.logical_not(b))])
+    seeds = (b, torch.logical_not(b)) if b.dtype == torch.bool else (b == 1, b == 0)
+    return torch.stack([torch.stack(row_seed_distances(s, sent)) for s in seeds])
 
 
 def triangle_d2(b: torch.Tensor, strips: torch.Tensor, spread: int) -> torch.Tensor:

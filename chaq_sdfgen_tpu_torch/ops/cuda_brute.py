@@ -1,4 +1,4 @@
-"""The BRUTE pipeline's two kernels (csrc/brute.cu), each beside its plain
+"""The BRUTE pipeline's kernels (csrc/brute.cu), each beside its plain
 PyTorch version (chaq_sdfgen_tpu/ops/pallas_brute.py counterparts).
 
   seed_strips       pass A: per row, side and polarity, the distances to
@@ -8,13 +8,17 @@ PyTorch version (chaq_sdfgen_tpu/ops/pallas_brute.py counterparts).
                     and the OpenCL sign and remap tail in one kernel (kernel
                     ``brute_scan_bytes``);
   brute_sdf_bytes   both: (..., H, W) mask -> (..., H, W) uint8, byte for
-                    byte the OpenCL binary's output.
+                    byte the OpenCL binary's output;
+  brute_scan_bytes_halo  the scan on one shard of parallel/sharded.py: the
+                    strips carry the neighbouring shards' rows (kernel
+                    ``brute_scan_bytes_halo``).
 
 The strips are (2, 4, ..., H, W): [polarity][L1, L2, R1, R2], polarity 0
 the TRUE pixels as seeds and 1 the FALSE ones, clipped at spread + 1,
 uint8 while that fits and uint16 above, so one pair of kernels serves every
-spread up to 32766 (where 2 (spread + 1)^2 still fits int32). The strips
-carry no halo rows: the scan reads rows outside the image itself.
+spread up to 32766 (where 2 (spread + 1)^2 still fits int32). On one
+device the strips carry no halo rows: the scan reads rows outside the
+image itself.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``LAUNCHES``
@@ -27,7 +31,7 @@ import torch
 
 from chaq_sdfgen_tpu_torch.ops import _build, brute, threshold
 
-LAUNCHES = {"brute_rows": 0, "brute_scan_bytes": 0}
+LAUNCHES = {"brute_rows": 0, "brute_scan_bytes": 0, "brute_scan_bytes_halo": 0}
 
 MAX_SPREAD = 32766  # 2 (spread + 1)^2 must fit the int32 d^2
 
@@ -53,17 +57,18 @@ def _cuda_args(name: str, b: torch.Tensor, *others: torch.Tensor) -> None:
 def seed_strips_plain(b: torch.Tensor, spread: int) -> torch.Tensor:
     """Plain pass A on any device: (2, 4, ..., H, W) of strip_dtype(spread)."""
     _check_spread(spread)
-    return brute.seed_strips(threshold.as_mask(b), spread).to(strip_dtype(spread))
+    return brute.seed_strips(threshold.as_codes(b), spread).to(strip_dtype(spread))
 
 
 def seed_strips(b: torch.Tensor, spread: int) -> torch.Tensor:
-    """Pass A: (..., H, W) mask -> (2, 4, ..., H, W) strips of
-    strip_dtype(spread). Kernel ``brute_rows`` on CUDA, the plain version on
-    the CPU."""
+    """Pass A: (..., H, W) bool mask or uint8 tri-state codes (1 seeds TRUE,
+    0 seeds FALSE, 2 neither; threshold.as_codes) -> (2, 4, ..., H, W)
+    strips of strip_dtype(spread). Kernel ``brute_rows`` on CUDA, the plain
+    version on the CPU."""
     if b.device.type == "cpu":
         return seed_strips_plain(b, spread)
     _check_spread(spread)
-    b = threshold.as_mask(b)
+    b = threshold.as_codes(b)
     _cuda_args("seed_strips", b)
     out = torch.empty((2, 4) + tuple(b.shape), dtype=strip_dtype(spread), device=b.device)
     n, h, w = _build.flat_shape(b)
@@ -114,12 +119,63 @@ def brute_scan_bytes(b: torch.Tensor, strips: torch.Tensor, spread: int,
     return out
 
 
+def brute_scan_bytes_halo_plain(b: torch.Tensor, strips: torch.Tensor, spread: int, row_off: int,
+                                asymmetric: bool = False, invert: bool = False) -> torch.Tensor:
+    """Plain halo scan on any device: brute_scan_bytes_plain's scan on the
+    extended strips, cropped to the shard's rows (see brute_scan_bytes_halo)."""
+    _check_spread(spread)
+    b = threshold.as_mask(b)
+    h, hs = b.shape[-2], strips.shape[-2]
+    _check_halo_rows(h, hs, row_off)
+    # the halo rows' values only pick the polarity of halo pixels, which are cropped
+    ext = torch.nn.functional.pad(b.view(torch.uint8), (0, 0, row_off, hs - h - row_off)) != 0
+    d2 = brute.triangle_d2(ext, strips, spread)[..., row_off : row_off + h, :]
+    return brute.brute_tail(d2, b, spread, asymmetric, invert)
+
+
+def brute_scan_bytes_halo(b: torch.Tensor, strips: torch.Tensor, spread: int, row_off: int,
+                          asymmetric: bool = False, invert: bool = False) -> torch.Tensor:
+    """The scan on one shard: the shard's mask (..., H, W) and its strips
+    extended by neighbouring shards' rows, (2, 4, ..., Hs, W) with the
+    shard's rows at [row_off, row_off + H) -> the shard's (..., H, W) uint8.
+    Byte for byte brute_scan_bytes on the whole image wherever the strips
+    hold at least ``spread`` rows on either side of the shard (or the image
+    ends there). Kernel ``brute_scan_bytes_halo`` on CUDA, the plain version
+    on the CPU."""
+    if b.device.type == "cpu":
+        return brute_scan_bytes_halo_plain(b, strips, spread, row_off, asymmetric, invert)
+    _check_spread(spread)
+    b = threshold.as_mask(b)
+    _cuda_args("brute_scan_bytes_halo", b, strips)
+    h, hs = b.shape[-2], strips.shape[-2]
+    _check_halo_rows(h, hs, row_off)
+    want = (2, 4) + tuple(b.shape[:-2]) + (hs, b.shape[-1])
+    if strips.shape != want or strips.dtype != strip_dtype(spread):
+        raise ValueError(f"brute_scan_bytes_halo: strips must be {want} {strip_dtype(spread)}, "
+                         f"got {tuple(strips.shape)} {strips.dtype}")
+    out = torch.empty(b.shape, dtype=torch.uint8, device=b.device)
+    n, _, w = _build.flat_shape(b)
+    if b.numel() == 0:
+        return out
+    s_min = 0.0 if asymmetric else -float(spread)
+    _build.launch("chaq_brute_scan_bytes_halo", b.device, b.data_ptr(), strips.data_ptr(), out.data_ptr(),
+                  n, h, hs, w, row_off, spread, s_min, float(spread), int(invert), strips.element_size())
+    LAUNCHES["brute_scan_bytes_halo"] += 1
+    return out
+
+
+def _check_halo_rows(h: int, hs: int, row_off: int) -> None:
+    if row_off < 0 or row_off + h > hs:
+        raise ValueError(f"shard rows [{row_off}, {row_off + h}) outside strips of {hs} rows")
+
+
 # ------------------------------------------------------------------ pipeline
 
 
 def brute_sdf_bytes_plain(b: torch.Tensor, spread: int, asymmetric: bool = False,
                           invert: bool = False) -> torch.Tensor:
     """brute_sdf_bytes through the plain versions, on any device."""
+    b = threshold.as_mask(b)
     return brute_scan_bytes_plain(b, seed_strips_plain(b, spread), spread, asymmetric, invert)
 
 
@@ -128,4 +184,5 @@ def brute_sdf_bytes(b: torch.Tensor, spread: int, asymmetric: bool = False,
     """BRUTE pipeline: (..., H, W) mask (bool, or any dtype with nonzero as
     TRUE) -> (..., H, W) uint8, byte-identical to the OpenCL reference
     kernel (opencl/sdf.cl:193-224)."""
+    b = threshold.as_mask(b)
     return brute_scan_bytes(b, seed_strips(b, spread), spread, asymmetric, invert)

@@ -12,10 +12,16 @@
   exact_distance_field(s)  pass 1 at the saturation tier, then exact_dist:
                      (..., H, W) bool -> float32 distance field(s).
 
-The strips between the passes are uint8 when band + 1 <= 255 and uint16
-above, so one pair of kernels serves every band up to 65534. Unlike the
-TPU kernels, the strips carry no halo rows: pass 2 reads rows outside the
-image as saturated itself.
+The strips between the passes are uint8 when band + 1 <= 255, uint16 up
+to 65535 and int32 above, so one pair of kernels serves every band up to
+MAX_BAND (the JAX package takes XLA above 65534, pallas_edt.py:939-945,
+where its int32 d * d wraps once a clipped row distance passes 46340: on
+a row with no seed, in an image wider than that or lacking a polarity;
+the port squares in float32 and keeps the reference's saturation there).
+On one device the strips carry no halo rows: pass 2 reads rows outside
+the image as saturated itself. A shard's strips carry its neighbours'
+rows (parallel/sharded.py): pass 2 then starts at a row offset and writes
+only the shard's own rows.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``LAUNCHES``
@@ -34,11 +40,13 @@ from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, walk_done
 
 LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0, "edt_dist": 0}
 
-MAX_BAND = 65534  # band + 1 must fit the uint16 strips
+MAX_BAND = (1 << 30) - 1  # band + 1 stays below the kernels' "no seed" index 2^30
 
 
 def strip_dtype(band: int) -> torch.dtype:
-    return torch.uint8 if band + 1 <= 255 else torch.uint16
+    if band + 1 <= 255:
+        return torch.uint8
+    return torch.uint16 if band + 1 <= 65535 else torch.int32
 
 
 def _check_band(band: int) -> None:
@@ -46,43 +54,31 @@ def _check_band(band: int) -> None:
         raise ValueError(f"band must be in [0, {MAX_BAND}], got {band}")
 
 
-def _canonical_codes(b: torch.Tensor) -> torch.Tensor:
-    """bool -> {0, 1} uint8 codes (a view: a bool is stored as one byte,
-    0 or 1); uint8 tri-state codes (1 seeds TRUE, 0 seeds FALSE, 2 seeds
-    neither) pass through."""
-    if b.dtype == torch.bool:
-        return b.view(torch.uint8)
-    if b.dtype != torch.uint8:
-        raise TypeError(f"expected a bool mask or uint8 codes, got {b.dtype}")
-    return b
-
-
 # --------------------------------------------------------------------- pass 1
 
 
 def row_distances_u8_plain(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain pass 1 on any device: (din, dout), each (..., H, W) of
-    strip_dtype(band), clipped at min(band + 1, max of that dtype)."""
+    strip_dtype(band), clipped at band + 1."""
     _check_band(band)
-    codes = _canonical_codes(b)
+    codes = threshold.as_codes(b)
     dtype = strip_dtype(band)
-    clip = min(band + 1, 255 if dtype == torch.uint8 else 65535)
-    din = edt.row_nearest(codes == 1, clip).to(dtype)
-    dout = edt.row_nearest(codes == 0, clip).to(dtype)
+    din = edt.row_nearest(codes == 1, band + 1).to(dtype)
+    dout = edt.row_nearest(codes == 0, band + 1).to(dtype)
     return din, dout
 
 
 def row_distances_u8(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1: (..., H, W) bool mask or uint8 tri-state codes -> (din, dout)
     of strip_dtype(band): the distance along x to the nearest TRUE (code 1)
-    and the nearest FALSE (code 0) pixel, clipped at min(band + 1, max of
-    the dtype). Kernel ``edt_rows`` on CUDA, the plain version on the CPU."""
+    and the nearest FALSE (code 0) pixel, clipped at band + 1. Kernel
+    ``edt_rows`` on CUDA, the plain version on the CPU."""
     if b.device.type == "cpu":
         return row_distances_u8_plain(b, band)
     if b.device.type != "cuda":
         raise ValueError(f"row_distances_u8: unsupported device {b.device}")
     _check_band(band)
-    codes = _canonical_codes(b)
+    codes = threshold.as_codes(b)
     _build.check_cuda("row_distances_u8", codes)
     dtype = strip_dtype(band)
     din = torch.empty(codes.shape, dtype=dtype, device=codes.device)
@@ -90,9 +86,8 @@ def row_distances_u8(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Te
     n, h, w = _build.flat_shape(codes)
     if codes.numel() == 0:
         return din, dout
-    clip = min(band + 1, 255 if dtype == torch.uint8 else 65535)
     _build.launch("chaq_edt_rows", codes.device, codes.data_ptr(), din.data_ptr(), dout.data_ptr(),
-            n, h, w, clip, din.element_size())
+            n, h, w, band + 1, din.element_size())
     LAUNCHES["edt_rows"] += 1
     return din, dout
 
@@ -100,20 +95,31 @@ def row_distances_u8(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Te
 # --------------------------------------------------------------------- pass 2
 
 
+def _out_rows(din: torch.Tensor, row_off: int, out_rows) -> int:
+    h = din.shape[-2]
+    out_rows = h - 2 * row_off if out_rows is None else out_rows
+    if row_off < 0 or out_rows < 0 or row_off + out_rows > h:
+        raise ValueError(f"rows [{row_off}, {row_off} + {out_rows}) outside a strip of {h} rows")
+    return out_rows
+
+
 def fused_pass2_bytes_plain(
     din: torch.Tensor, dout: torch.Tensor, spread: int, asymmetric: bool, band: int,
-    apply_sqrt: bool = True,
+    apply_sqrt: bool = True, row_off: int = 0, out_rows: int | None = None,
 ) -> torch.Tensor:
-    """Plain pass 2 on any device: (..., H, W) strips -> (..., H, W) uint8."""
+    """Plain pass 2 on any device: (..., H, W) strips -> (..., out_rows, W)
+    uint8 (see fused_pass2_bytes)."""
     _check_band(band)
+    out_rows = _out_rows(din, row_off, out_rows)
     clip = band + 1
 
     def squares(d):
         d = torch.clamp(d.to(torch.int32), max=clip).to(torch.float32)
         return d * d
 
-    d_in = edt.band_min_columns(squares(din), band)
-    d_out = edt.band_min_columns(squares(dout), band)
+    rows = slice(row_off, row_off + out_rows)
+    d_in = edt.band_min_columns(squares(din), band)[..., rows, :]
+    d_out = edt.band_min_columns(squares(dout), band)[..., rows, :]
     if apply_sqrt:
         d_in, d_out = refined_sqrt(d_in), refined_sqrt(d_out)
     return merge.remap_to_byte(merge.signed_merge(d_out, d_in), spread, asymmetric)
@@ -121,32 +127,35 @@ def fused_pass2_bytes_plain(
 
 def fused_pass2_bytes(
     din: torch.Tensor, dout: torch.Tensor, spread: int, asymmetric: bool, band: int,
-    apply_sqrt: bool = True,
+    apply_sqrt: bool = True, row_off: int = 0, out_rows: int | None = None,
 ) -> torch.Tensor:
-    """Pass 2: row-distance strips (..., H, W) uint8 or uint16 -> final
-    (..., H, W) uint8 bytes. D = min over |dy| <= band of dy^2 +
-    min(d, band+1)^2 per field (rows outside the image read (band+1)^2),
+    """Pass 2: row-distance strips (..., H, W) of strip_dtype -> final
+    (..., out_rows, W) uint8 bytes. D = min over |dy| <= band of dy^2 +
+    min(d, band+1)^2 per field (rows outside the strip read (band+1)^2),
     then the correctly rounded sqrt (skipped when ``apply_sqrt`` is False:
     the reference's single-row quirk), the -1-biased signed merge and the
-    clamped remap. Kernel ``edt_band_bytes`` on CUDA, the plain version on
-    the CPU."""
+    clamped remap. Output row y is strip row y + row_off; out_rows defaults
+    to H - 2 row_off, the rows between two halos of row_off rows (the
+    counterpart of pallas_edt.fused_pass2_bytes(row_off=, out_rows=)).
+    Kernel ``edt_band_bytes`` on CUDA, the plain version on the CPU."""
     if din.device.type == "cpu":
-        return fused_pass2_bytes_plain(din, dout, spread, asymmetric, band, apply_sqrt)
+        return fused_pass2_bytes_plain(din, dout, spread, asymmetric, band, apply_sqrt, row_off, out_rows)
     if din.device.type != "cuda":
         raise ValueError(f"fused_pass2_bytes: unsupported device {din.device}")
     _check_band(band)
     _build.check_cuda("fused_pass2_bytes", din, dout)
     if din.shape != dout.shape or din.dtype != dout.dtype:
         raise ValueError("fused_pass2_bytes: din and dout must match in shape and dtype")
-    if din.dtype not in (torch.uint8, torch.uint16):
-        raise TypeError(f"fused_pass2_bytes: strips must be uint8 or uint16, got {din.dtype}")
-    out = torch.empty(din.shape, dtype=torch.uint8, device=din.device)
+    if din.dtype not in (torch.uint8, torch.uint16, torch.int32):
+        raise TypeError(f"fused_pass2_bytes: strips must be uint8, uint16 or int32, got {din.dtype}")
+    out_rows = _out_rows(din, row_off, out_rows)
+    out = torch.empty(din.shape[:-2] + (out_rows, din.shape[-1]), dtype=torch.uint8, device=din.device)
     n, h, w = _build.flat_shape(din)
-    if din.numel() == 0:
+    if out.numel() == 0:
         return out
     s_min = 0.0 if asymmetric else -float(spread)
     _build.launch("chaq_edt_band_bytes", din.device, din.data_ptr(), dout.data_ptr(), out.data_ptr(),
-            n, h, w, band, s_min, float(spread), int(apply_sqrt), din.element_size())
+            n, h, w, row_off, out_rows, band, s_min, float(spread), int(apply_sqrt), din.element_size())
     LAUNCHES["edt_band_bytes"] += 1
     return out
 
@@ -169,7 +178,7 @@ def fused_sdf_bytes(
     """Hard EXACT pipeline: (..., H, W) mask (bool, or any dtype with
     nonzero as TRUE) -> (..., H, W) uint8, byte-identical to the OpenMP
     reference (see ops/edt.py for the banding argument). band defaults to
-    spread + 2 and may be at most 65534."""
+    spread + 2 and may be at most MAX_BAND."""
     band = band if band is not None else spread + 2
     _check_band(band)
     din, dout = row_distances_u8(threshold.as_mask(b), band)

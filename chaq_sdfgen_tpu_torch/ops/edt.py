@@ -54,10 +54,13 @@ def row_nearest_sq(seeds: torch.Tensor, band: int) -> torch.Tensor:
 
 def band_min_columns(g: torch.Tensor, band: int) -> torch.Tensor:
     """Pass 2: D(y, x) = min_{|dy| <= band} dy^2 + g(y+dy, x) along the
-    second-to-last axis; out-of-image taps read the big sentinel."""
+    second-to-last axis; out-of-image taps read the big sentinel. g is at
+    most big (pass 1 clips), so a tap with |dy| > H - 1, outside the image
+    on both sides, cannot lower D: the walk stops at H - 1."""
     big = big_sentinel(band)
-    pad = g.new_full(g.shape[:-2] + (band, g.shape[-1]), big)
-    return band_min_ext(torch.cat([pad, g, pad], dim=-2), band)
+    reach = min(band, g.shape[-2] - 1)
+    pad = g.new_full(g.shape[:-2] + (reach, g.shape[-1]), big)
+    return band_min_ext(torch.cat([pad, g, pad], dim=-2), reach)
 
 
 def band_min_ext(gext: torch.Tensor, band: int) -> torch.Tensor:

@@ -27,6 +27,18 @@ def as_mask(b: torch.Tensor) -> torch.Tensor:
     return b if b.dtype == torch.bool else b != 0
 
 
+def as_codes(b: torch.Tensor) -> torch.Tensor:
+    """The row passes' input: a bool mask -> {0, 1} uint8 codes (a view: a
+    bool is stored as one byte, 0 or 1); uint8 tri-state codes (1 seeds
+    TRUE, 0 seeds FALSE, 2 seeds neither: the image-edge columns of a 2-D
+    tile's halo) pass through."""
+    if b.dtype == torch.bool:
+        return b.view(torch.uint8)
+    if b.dtype != torch.uint8:
+        raise TypeError(f"expected a bool mask or uint8 codes, got {b.dtype}")
+    return b
+
+
 def indicator(b: torch.Tensor, true_is_zero: bool, big: float) -> torch.Tensor:
     """bool -> {0, big} float32 parabola heights (transform_bool_to_float,
     openmp/sdfgen.c:65-72); ``big`` is the finite stand-in for +inf."""

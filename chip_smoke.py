@@ -118,7 +118,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
  22. composed times (CUDA events, as in phase 6): both kernels and their
      plain versions per step (the three launches each way), the composed
      step on both noises and its plain twin, the SoftSDFModel step and
-     the wide-tap step; then torch.profiler over the composed step.
+     the wide-tap step; then torch.profiler over the composed step;
+ 23. the halo kernels (csrc/halo.cu: halo_slab, halo_ring_shift) against
+     their plain versions bit for bit, in uint8, uint16, int32 and
+     float32: 4 logical shards of a 4096-wide image at bands 66 and 72
+     (one hop, the edge fills), 8 shards of 64 rows at band 150 (3 hops);
+     each timed (per exchange: one launch per shard) beside its plain
+     version and its Tensor.to form (library_ms);
+ 24. the sharded EXACT and BRUTE pipelines (parallel/sharded.py) at 4096²,
+     spread 64, on the glyph and the noise, over a (4,) 'y' mesh and a
+     (2, 2) ('y', 'x') mesh of logical shards of the card, each under
+     ppermute and rdma, and an (8, 2048, 2048) stack on ('data', 'y'),
+     each byte for byte the single-device pipeline; checked, not timed:
+     EXACT at spread 300 (uint16 strips), 1024² over 16 shards at spread
+     100 (multi-hop, both halo forms), the int32 strips (spread 65600)
+     against their plain versions; brute_scan_bytes_halo bit for bit
+     against its plain version on shard 1's halo'd planes; the launch
+     counters over the rdma main path (the halo kernels and the halo scan
+     must launch), the ppermute one (no halo kernel) and one device (no
+     sharded kernel); times of the 4-shard runs against one device;
+ 25. sharded JFA over both meshes at 1024² bit for bit against
+     jfa_distance, and one 4096² sharded JFA time; with 2 or more cards,
+     phase 24's (n,) mesh over real cards, SDFGenerator(sharding=...) and
+     the CLI --shard-y n --halo-impl rdma, else one line that says the
+     multi-card path was not run.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -147,13 +170,15 @@ import zlib
 import numpy as np
 import torch
 
-from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
+from chaq_sdfgen_tpu_torch.config import SdfConfig, ShardingConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
 from chaq_sdfgen_tpu_torch.ops import (
-    _build, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, merge, soft_fused, soft_mxu, softmin, softsdf,
+    _build, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, jfa, merge, soft_fused, soft_mxu, softmin, softsdf,
     threshold,
 )
+from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo, sharded
+from chaq_sdfgen_tpu_torch.parallel.mesh import make_mesh
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, softplus
 from chaq_sdfgen_tpu_torch.utils import imageio, sdfio_native
 
@@ -233,6 +258,21 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/softmin.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_soft.py:181",
+    },
+    "brute_scan_bytes_halo": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/brute.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_brute.py:546",
+    },
+    "halo_slab": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/halo.cu",
+        "replaces": "chaq_sdfgen_tpu/parallel/pallas_halo.py:34",
+    },
+    "halo_ring_shift": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/halo.cu",
+        "replaces": "chaq_sdfgen_tpu/parallel/pallas_halo.py:96",
     },
 }
 
@@ -1488,17 +1528,295 @@ def composed_phases(dev, glyph):
     return err, launches, times, bounds
 
 
+# ------------------------------------------------------------ sharded phases
+
+SHARDS = 4
+SPREAD_MULTI = 100  # the 16-shard 1024² run: band 102 over 64-row shards, 2 hops
+HALO_FILLS = {torch.uint8: 255, torch.uint16: 65535, torch.int32: -1, torch.float32: -7.25}
+
+
+def logical_mesh(dev, shape, names=("y",)):
+    """A mesh of logical shards, all on ``dev``."""
+    return make_mesh(shape, names, devices=[dev] * int(np.prod(shape)))
+
+
+def differing_bytes(got: list, want: list) -> int:
+    """Bytes that differ between two lists of same-shape tensors (any dtype)."""
+    n = 0
+    for a, b in zip(got, want):
+        require(a.shape == b.shape and a.dtype == b.dtype, f"halo block {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        n += int((a.contiguous().view(torch.uint8) != b.contiguous().view(torch.uint8)).sum())
+    return n
+
+
+def to_slabs(blocks, band):
+    """The ppermute form's peer copies of halo_slab's rows (its library
+    yardstick): each neighbour's boundary rows copied by Tensor.to."""
+    return ([b[..., -band:, :].to(g.device, copy=True) for b, g in zip(blocks[:-1], blocks[1:])]
+            + [b[..., :band, :].to(g.device, copy=True) for b, g in zip(blocks[1:], blocks[:-1])])
+
+
+def reset_launches():
+    torch.cuda.synchronize()
+    for counts in (cuda_edt.LAUNCHES, cuda_brute.LAUNCHES, cuda_halo.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_halo.LAUNCHES}
+
+
+def soft_half_bounds() -> dict:
+    """Bounds of rows 17-19 (pallas_band_conv.py: p2_fused_fwd, p2_fused_bwd,
+    cols_conv; the sharded soft path, not ported yet) at 4096² over 4
+    shards, spread 64, tau 2, T 1, gray range (0, 255), from their shapes:
+    per shard the halo'd pass-1 sums, hp2 = roundup(H_loc + 2 k2, 128)
+    rows by 4096 lanes of float32 (sharded._local_soft_mm). Bytes: each
+    operand read once, each output written once; operations: a multiply
+    and an add per tap of the cols conv, plus the tails. Shape arithmetic
+    only: no card needed."""
+    _, k2, _ = soft_mxu.range_stats(SPREAD + 2, TRAIN_TAU, TRAIN_T, U8)
+    hp2 = -(-(SIZE // SHARDS + 2 * k2) // 128) * 128
+    npix = SHARDS * hp2 * SIZE
+    conv = 2 * (2 * k2 + 1)
+    rows = {
+        # a_in, a_out in; field, d2_in, d2_out out
+        "p2_fused_fwd": bound(4 * 5 * npix, npix * (2 * conv + 22)),
+        # ct, d2_in, d2_out in; da_in, da_out out
+        "p2_fused_bwd": bound(4 * 5 * npix, npix * (2 * conv + 35)),
+        # one field in, one out
+        "cols_conv": bound(4 * 2 * npix, npix * conv),
+    }
+    for k, (ms, by) in rows.items():
+        log(f"bound {k} (not ported), {SHARDS} shards of ({hp2}, {SIZE}) float32, k2 {k2}: {ms:.4f} ms ({by}), "
+            f"{SHARDS} launches per call")
+    return rows
+
+
+def sharded_phases(dev, noise, glyph):
+    """Phases 23-25. Returns (errors, launches, glyph times, bounds)."""
+    err = {"brute_scan_bytes_halo": 0, "halo_slab": 0, "halo_ring_shift": 0}
+    rng = np.random.default_rng(SEED + 23)
+    h4 = SIZE // SHARDS
+
+    def rand_blocks(n, h, dtype):
+        x = torch.from_numpy(rng.integers(0, 1 << 16, size=(n, h, SIZE), dtype=np.int32)).to(dev)
+        return [x[i].to(dtype).contiguous() for i in range(n)]
+
+    # phase 23: the halo kernels against their plain versions, bit for bit
+    for dtype, fill in HALO_FILLS.items():
+        blocks = rand_blocks(SHARDS, h4, dtype)
+        for band in (SPREAD + 2, 72):
+            e = differing_bytes(sum(cuda_halo.halo_slab(blocks, band, fill), []),
+                                sum(cuda_halo.halo_slab_plain(blocks, band, fill), []))
+            err["halo_slab"] = max(err["halo_slab"], e)
+            log(f"check halo_slab {dtype} {SHARDS}x({h4}, {SIZE}) band {band} fill {fill}: {e} bytes differ")
+        e = differing_bytes(sum(cuda_halo.halo_ring_shift(blocks, blocks[::-1]), []),
+                            sum(cuda_halo.halo_ring_shift_plain(blocks, blocks[::-1]), []))
+        err["halo_ring_shift"] = max(err["halo_ring_shift"], e)
+        log(f"check halo_ring_shift {dtype} {SHARDS}x({h4}, {SIZE}): {e} bytes differ")
+        short = rand_blocks(8, 64, dtype)
+        e = differing_bytes(cuda_halo.exchange_row_halo_rdma(short, 150, fill),
+                            halo.exchange_row_halo(short, 150, fill))
+        err["halo_ring_shift"] = max(err["halo_ring_shift"], e)
+        log(f"check rdma exchange {dtype} 8x(64, {SIZE}) band 150 (3 hops) vs ppermute: {e} bytes differ")
+        del blocks, short
+    # the ring shift at the main path's shape: u8 strips of the 16-shard
+    # multi-hop run (1024², spread 100: band 102 over 64-row shards, 2 hops)
+    b16 = [t[:, :1024].contiguous() for t in rand_blocks(16, 64, torch.uint8)]
+    e = differing_bytes(cuda_halo.exchange_row_halo_rdma(b16, SPREAD_MULTI + 2, 255),
+                        halo.exchange_row_halo(b16, SPREAD_MULTI + 2, 255))
+    err["halo_ring_shift"] = max(err["halo_ring_shift"], e)
+    log(f"check rdma exchange u8 16x(64, 1024) band {SPREAD_MULTI + 2} (2 hops) vs ppermute: {e} bytes differ")
+    require(err["halo_slab"] == 0 and err["halo_ring_shift"] == 0, "a halo kernel differs from its plain version")
+
+    # the shapes the main path gives them: a 4096-wide u8 strip over 4 shards
+    # at band 66 (halo_slab), and 1024-wide 64-row shards (the ring shift of
+    # the 16-shard multi-hop run)
+    band = SPREAD + 2
+    b4 = rand_blocks(SHARDS, h4, torch.uint8)
+    times = {
+        "halo_slab": cuda_ms(lambda: cuda_halo.halo_slab(b4, band, 255)),
+        "halo_slab_plain": cuda_ms(lambda: cuda_halo.halo_slab_plain(b4, band, 255)),
+        "halo_slab_library": cuda_ms(lambda: to_slabs(b4, band)),
+        "halo_ring_shift": cuda_ms(lambda: cuda_halo.halo_ring_shift(b16, b16)),
+        "halo_ring_shift_plain": cuda_ms(lambda: cuda_halo.halo_ring_shift_plain(b16, b16)),
+        "halo_ring_shift_library": cuda_ms(lambda: [b.to(dev, copy=True) for b in b16 + b16]),
+    }
+    bounds = {
+        # each neighbour's halo rows read once, each shard's two slabs written
+        # once: the first shard's up and the last one's down are fill, not read
+        "halo_slab": bound(((2 * SHARDS - 2) + 2 * SHARDS) * band * SIZE, 0),
+        "halo_ring_shift": bound(2 * 16 * 2 * 64 * 1024, 0),
+    }
+    for k in ("halo_slab", "halo_ring_shift"):
+        log(f"time {k}: {times[k]:.4f} ms per exchange ({len(b4) if k == 'halo_slab' else 16} launches), "
+            f"plain {times[k + '_plain']:.4f}, Tensor.to {times[k + '_library']:.4f}; bound {bounds[k][0]:.5f} ms "
+            f"({bounds[k][1]})")
+    del b4, b16
+
+    soft_half_bounds()
+
+    # phase 24: sharded EXACT and BRUTE at full width, byte for byte one device
+    masks = {
+        "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
+        "glyph": threshold.hard_threshold(torch.from_numpy(glyph).to(dev)),
+    }
+    layouts = (("(4,)", logical_mesh(dev, (SHARDS,)), None),
+               ("(2, 2)", logical_mesh(dev, (2, 2), ("y", "x")), "x"))
+
+    def check_sharded(label, b, spread, m, x_axis=None, batch_axis=None, algos=("exact", "brute")):
+        for algo in algos:
+            if algo == "exact":
+                want = cuda_edt.fused_sdf_bytes(b, spread)
+                run = lambda impl: sharded.sharded_hard_sdf_bytes(  # noqa: E731
+                    b, spread, m, halo=impl, x_axis=x_axis, batch_axis=batch_axis)
+            else:
+                want = cuda_brute.brute_sdf_bytes(b, spread)
+                run = lambda impl: sharded.sharded_brute_sdf_bytes(  # noqa: E731
+                    b, spread, m, halo=impl, x_axis=x_axis, batch_axis=batch_axis)
+            for impl in ("ppermute", "rdma"):
+                e = max_abs_err(run(impl), want)
+                log(f"check sharded {algo} {label} {tuple(b.shape)} spread {spread} {impl}: max abs err {e} "
+                    f"vs one device")
+                require(e == 0, f"sharded {algo} {label} {impl} differs from the single-device pipeline")
+
+    for name, b in masks.items():
+        for label, m, x_axis in layouts:
+            check_sharded(f"{name} {label}", b, SPREAD, m, x_axis)
+    half = SIZE // 2
+    stack = torch.stack([masks[k][y:y + half, x:x + half] for k in masks for y in (0, half) for x in (0, half)])
+    check_sharded(f"(8, {half}, {half}) on ('data', 'y') (2, 2)", stack, SPREAD,
+                  logical_mesh(dev, (2, 2), ("data", "y")), batch_axis="data")
+    del stack
+    g = masks["glyph"]
+    check_sharded("glyph (4,) u16 strips", g, 300, layouts[0][1], algos=("exact",))
+    corner = g[:1024, :1024].contiguous()
+    check_sharded("glyph 1024x1024 over 16 shards (multi-hop)", corner, SPREAD_MULTI, logical_mesh(dev, (16,)))
+
+    # row 16 against its plain version, on shard 1's halo'd planes; and
+    # halo_slab on the plane stacks BRUTE's rdma run exchanges (8 images a block)
+    for name, b in masks.items():
+        planes = cuda_brute.seed_strips(b, SPREAD)
+        stacks = [planes[..., i * h4 : (i + 1) * h4, :].contiguous() for i in range(SHARDS)]
+        e = differing_bytes(sum(cuda_halo.halo_slab(stacks, SPREAD, SPREAD + 1), []),
+                            sum(cuda_halo.halo_slab_plain(stacks, SPREAD, SPREAD + 1), []))
+        err["halo_slab"] = max(err["halo_slab"], e)
+        log(f"check halo_slab {name} planes {SHARDS}x{tuple(stacks[0].shape)} band {SPREAD} fill {SPREAD + 1}: "
+            f"{e} bytes differ")
+        require(e == 0, "halo_slab differs from its plain version on BRUTE's plane stacks")
+        del stacks
+        ext = planes[..., h4 - SPREAD : 2 * h4 + SPREAD, :].contiguous()
+        local = b[h4 : 2 * h4].contiguous()
+        got = cuda_brute.brute_scan_bytes_halo(local, ext, SPREAD, SPREAD)
+        e = max_abs_err(got, cuda_brute.brute_scan_bytes_halo_plain(local, ext, SPREAD, SPREAD))
+        e2 = max_abs_err(got, cuda_brute.brute_sdf_bytes(b, SPREAD)[h4 : 2 * h4])
+        err["brute_scan_bytes_halo"] = max(err["brute_scan_bytes_halo"], e)
+        log(f"check brute_scan_bytes_halo {name} shard 1 of 4, planes {tuple(ext.shape)}: err {e} vs plain, "
+            f"{e2} vs one device")
+        require(e == 0 and e2 == 0, "brute_scan_bytes_halo differs from its plain version")
+    del planes, ext
+
+    # the int32 strips (band above 65534) against their plain versions
+    din, dout = cuda_edt.row_distances_u8(corner, 65602)
+    pin, pout = cuda_edt.row_distances_u8_plain(corner, 65602)
+    e1 = max(max_abs_err(din, pin), max_abs_err(dout, pout))
+    e2 = max_abs_err(cuda_edt.fused_pass2_bytes(din, dout, 65600, False, 65602),
+                     cuda_edt.fused_pass2_bytes_plain(pin, pout, 65600, False, 65602))
+    log(f"check int32 strips glyph 1024x1024 spread 65600: edt_rows err {e1}, edt_band_bytes err {e2}")
+    require(din.dtype == torch.int32 and e1 == 0 and e2 == 0, "the int32 strips differ from their plain versions")
+
+    # the launch counters: the sharded main path under rdma (4 shards at 4096²,
+    # and the 16-shard multi-hop run), then under ppermute, then unsharded
+    m4 = layouts[0][1]
+    reset_launches()
+    sharded.sharded_hard_sdf_bytes(g, SPREAD, m4, halo="rdma")
+    sharded.sharded_brute_sdf_bytes(g, SPREAD, m4, halo="rdma")
+    sharded.sharded_hard_sdf_bytes(corner, SPREAD_MULTI, logical_mesh(dev, (16,)), halo="rdma")
+    launches = read_launches()
+    log(f"main path sharded rdma: launches {launches}")
+    for k in err:
+        require(launches[k] > 0, f"kernel {k} was not launched on the sharded rdma path")
+    reset_launches()
+    sharded.sharded_hard_sdf_bytes(g, SPREAD, m4)
+    sharded.sharded_brute_sdf_bytes(g, SPREAD, m4)
+    pp = read_launches()
+    log(f"main path sharded ppermute: launches {pp}")
+    require(pp["halo_slab"] == pp["halo_ring_shift"] == 0 and pp["brute_scan_bytes_halo"] == SHARDS,
+            "the ppermute path launched a halo kernel, or the halo scan did not run once per shard")
+    reset_launches()
+    cuda_edt.fused_sdf_bytes(g, SPREAD)
+    cuda_brute.brute_sdf_bytes(g, SPREAD)
+    one = read_launches()
+    require(one["brute_scan_bytes_halo"] == one["halo_slab"] == one["halo_ring_shift"] == 0,
+            "the single-device path launched a sharded kernel")
+
+    # times: 4 shards against one device, the glyph at 4096², spread 64
+    for impl in ("ppermute", "rdma"):
+        times[f"sharded_exact_{impl}"] = cuda_ms(lambda: sharded.sharded_hard_sdf_bytes(g, SPREAD, m4, halo=impl))
+        times[f"sharded_brute_{impl}"] = cuda_ms(lambda: sharded.sharded_brute_sdf_bytes(g, SPREAD, m4, halo=impl))
+    times["exact_one_device"] = cuda_ms(lambda: cuda_edt.fused_sdf_bytes(g, SPREAD))
+    times["brute_one_device"] = cuda_ms(lambda: cuda_brute.brute_sdf_bytes(g, SPREAD))
+    local = g[h4 : 2 * h4].contiguous()
+    ext = cuda_brute.seed_strips(g, SPREAD)[..., h4 - SPREAD : 2 * h4 + SPREAD, :].contiguous()
+    times["brute_scan_bytes_halo"] = cuda_ms(lambda: cuda_brute.brute_scan_bytes_halo(local, ext, SPREAD, SPREAD))
+    times["brute_scan_bytes_halo_plain"] = cuda_ms(
+        lambda: cuda_brute.brute_scan_bytes_halo_plain(local, ext, SPREAD, SPREAD), 2, 3)
+    npix = h4 * SIZE
+    # the shard's mask and its halo'd planes in, its bytes out
+    bounds["brute_scan_bytes_halo"] = bound(npix + ext.numel() * ext.element_size() + npix, brute_scan_flops(npix))
+    for k in ("sharded_exact_ppermute", "sharded_exact_rdma", "exact_one_device", "sharded_brute_ppermute",
+              "sharded_brute_rdma", "brute_one_device", "brute_scan_bytes_halo", "brute_scan_bytes_halo_plain"):
+        log(f"time glyph {k}: {times[k]:.4f} ms")
+    log(f"bound brute_scan_bytes_halo (shard 1 of 4): {bounds['brute_scan_bytes_halo'][0]:.4f} ms "
+        f"({bounds['brute_scan_bytes_halo'][1]})")
+    del ext
+
+    # phase 25: JFA over both layouts, bit for bit, and real cards where present
+    want = jfa.jfa_distance(corner)
+    for label, m, x_axis in layouts:
+        e = bits_err(sharded.sharded_jfa_distance(corner, m, x_axis=x_axis), want)
+        log(f"check sharded jfa {label} 1024x1024: {e} values differ from one device")
+        require(e == 0, f"sharded JFA {label} differs from jfa_distance")
+    times["sharded_jfa_4"] = cuda_ms(lambda: sharded.sharded_jfa_distance(g, m4), 2, 3)
+    log(f"time glyph sharded_jfa (4,) {SIZE}x{SIZE}: {times['sharded_jfa_4']:.4f} ms")
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"multi-card: not run ({n} CUDA device visible); the sharded tier ran on logical shards of one card")
+    else:
+        cards = make_mesh((n,))
+        for name, b in masks.items():
+            check_sharded(f"{name} over {n} cards", b, SPREAD, cards)
+        img = torch.from_numpy(glyph).to(dev)
+        for algorithm in ("exact", "brute", "jfa"):
+            cfg = SdfConfig(spread=SPREAD, algorithm=algorithm)
+            want = SDFGenerator(cfg, device=dev).generate(img)
+            got = SDFGenerator(cfg, sharding=ShardingConfig((n,), ("y",), halo_impl="rdma"), device=dev).generate(img)
+            log(f"check SDFGenerator {algorithm} over {n} cards rdma: equal {bool(torch.equal(got, want))}")
+            require(torch.equal(got, want), f"SDFGenerator {algorithm} over {n} cards differs from one card")
+        cli_out, _, _ = run_cli(glyph, ["-s", str(SPREAD), "--shard-y", str(n), "--halo-impl", "rdma"], "sharded")
+        want = cuda_edt.fused_sdf_bytes(masks["glyph"], SPREAD).cpu().numpy().astype(np.int32)
+        e = int(np.abs(cli_out.astype(np.int32) - want).max())
+        log(f"main path sharded: CLI --shard-y {n} --halo-impl rdma max abs err vs one card {e}")
+        require(e == 0, "the sharded CLI differs from one card")
+    return err, launches, times, bounds
+
+
+
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
-    bounds). No PyTorch call computes any kernel's function, so
-    library_ms is null throughout."""
+    bounds). library_ms is the time of the halo kernels' Tensor.to form;
+    no PyTorch call computes any other kernel's function (null)."""
     rows = []
     for k, spec in KERNELS.items():
         err, launches, times, bounds = next(p for p in paths if k in p[0])
         rows.append(dict(
             name=k, **spec, launches=launches[k], max_abs_err=err[k], ms=times[k],
             plain_ms=times[f"{k}_plain"], bound_ms=bounds[k][0], bound_by=bounds[k][1],
-            library_ms=None,
+            library_ms=times.get(f"{k}_library"),
         ))
     return {"kernels": rows}
 
@@ -1535,7 +1853,7 @@ def main() -> int:
     paths = []
     for label, phases, args in (("3-7", hard_phases, (noise, glyph)), ("8-11", soft_phases, (glyph,)),
                                 ("12-15", fused_phases, (glyph,)), ("16-19", brute_dist_phases, (noise, glyph)),
-                                ("20-22", composed_phases, (glyph,))):
+                                ("20-22", composed_phases, (glyph,)), ("23-25", sharded_phases, (noise, glyph))):
         t0 = time.perf_counter()
         paths.append(phases(dev, *args))
         log(f"phases {label}: {time.perf_counter() - t0:.1f} s")

@@ -147,13 +147,16 @@ def test_batch_of_three_matches_jax_per_image():
 
 
 def test_zero_255_mask_is_canonicalised():
-    """A 0/255 uint8 mask reads as its bool: pass A would seed TRUE at code
-    1 only (ROADMAP Queue 3, hazard 5)."""
+    """A 0/255 uint8 mask reads as its bool in the pipeline: pass A seeds
+    TRUE at code 1 only (ROADMAP Queue 3, hazard 5), and takes uint8 as
+    tri-state codes (code 2, and 255, seed neither polarity)."""
     b = _mask((21, 26), 0.4, 8)
     m = torch.from_numpy(np.where(b, 255, 0).astype(np.uint8))
     np.testing.assert_array_equal(cuda_brute.brute_sdf_bytes(m, 5).numpy(), _xla(b, 5))
-    np.testing.assert_array_equal(cuda_brute.seed_strips(m, 5).numpy(),
+    np.testing.assert_array_equal(cuda_brute.seed_strips(m // 255, 5).numpy(),
                                   cuda_brute.seed_strips(torch.from_numpy(b), 5).numpy())
+    dead = cuda_brute.seed_strips(torch.full((3, 7), 2, dtype=torch.uint8), 5)
+    assert bool((dead == 6).all())  # no seed anywhere: every plane reads spread + 1
 
 
 def test_plain_versions_and_wrappers_agree_on_the_cpu():

@@ -122,6 +122,13 @@ def test_sharding_validation_matches(kw):
             mod.ShardingConfig(**kw)
 
 
-def test_build_mesh_waits_for_multi_gpu_tier():
-    with pytest.raises(NotImplementedError):
+def test_build_mesh_waits_for_multi_gpu_tier(monkeypatch):
+    """build_mesh makes the mesh now (the sharded hard tier): logical CPU
+    shards on request, else the visible cards, raising when too few."""
+    import torch
+
+    m = tcfg.ShardingConfig((2, 2), ("y", "x")).build_mesh("cpu")
+    assert m.shape == {"y": 2, "x": 2} and all(d.type == "cpu" for d in m.devices.flat)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="needs 1 devices, have 0"):
         tcfg.ShardingConfig().build_mesh()

@@ -137,11 +137,16 @@ def test_cpu_tensors_do_not_launch():
 
 
 def test_band_beyond_u16_raises():
+    """Bands beyond uint16 take int32 strips; only a band past MAX_BAND
+    (band + 1 reaching the kernels' 2^30 "no seed" index) raises."""
     b = torch.zeros((4, 4), dtype=torch.bool)
     with pytest.raises(ValueError):
-        cuda_edt.fused_sdf_bytes(b, 65533)  # band 65535: band + 1 does not fit u16
+        cuda_edt.fused_sdf_bytes(b, cuda_edt.MAX_BAND - 1)  # band MAX_BAND + 1
     assert cuda_edt.strip_dtype(254) == torch.uint8  # band + 1 = 255 still fits
     assert cuda_edt.strip_dtype(255) == torch.uint16
+    assert cuda_edt.strip_dtype(65534) == torch.uint16
+    assert cuda_edt.strip_dtype(65535) == torch.int32
+    assert cuda_edt.fused_sdf_bytes(b, 65533).dtype == torch.uint8  # band 65535
 
 
 def test_wrappers_reject_bad_inputs():
@@ -151,3 +156,33 @@ def test_wrappers_reject_bad_inputs():
         cuda_edt.row_distances_u8(torch.zeros((4, 4), dtype=torch.int64), 3)
     with pytest.raises(ValueError):
         cuda_edt.refined_sqrt_cuda(torch.zeros(4))
+
+
+def test_band_beyond_u16_matches_jax_xla():
+    """A band above 65534 (spread 65600, band 65602) takes int32 strips,
+    where the JAX package answers through XLA (pallas_edt.py:939-945):
+    byte for byte on an image that holds both values (a row without a
+    TRUE pixel clips at band + 1; JAX's d * d wraps there, but other rows
+    hold nearer seeds, so no byte shows it)."""
+    b = _mask((16, 40), 11)
+    b[5] = False
+    din, _ = cuda_edt.row_distances_u8(torch.from_numpy(b), 65602)
+    assert din.dtype == torch.int32 and int(din.max()) == 65603  # rows without a seed clip at band + 1
+    want = np.asarray(pallas_edt.fused_sdf_bytes(jnp.asarray(b), 65600, interpret=True))
+    np.testing.assert_array_equal(cuda_edt.fused_sdf_bytes(torch.from_numpy(b), 65600).numpy(), want)
+
+
+def test_band_beyond_u16_keeps_the_saturation_where_jax_wraps():
+    """Where a clipped row distance passes 46340, JAX's int32 d * d wraps
+    (edt.row_nearest_sq): an image without a TRUE pixel reads d^2 =
+    65603^2 mod 2^32 = 8786313 there, a distance of 2964. The port squares
+    in float32 and gives the reference binary's saturated byte, as the
+    NumPy oracle of the OpenMP binary does (ROADMAP Queue 3 item 7)."""
+    from sdfref import oracle
+
+    img = np.zeros((16, 40, 2), np.uint8)
+    b = img[..., 1] > 127
+    got = cuda_edt.fused_sdf_bytes(torch.from_numpy(b), 65600).numpy()
+    np.testing.assert_array_equal(got, oracle.sdf_pipeline_openmp(img, spread=65600))
+    jax_bytes = np.asarray(pallas_edt.fused_sdf_bytes(jnp.asarray(b), 65600, interpret=True))
+    assert int(got.max()) == 0 and np.unique(jax_bytes).tolist() == [121]

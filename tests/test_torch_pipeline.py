@@ -140,8 +140,8 @@ def test_sdf_generator_refuses_unported_paths():
         tmodel.SDFGenerator(soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
         gen = tmodel.SDFGenerator(tcfg.SdfConfig(spread=111), soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
         np.testing.assert_allclose(gen.generate_field(img).numpy(), want, atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError):
-        tmodel.SDFGenerator(sharding=tcfg.ShardingConfig())
+    with pytest.raises(NotImplementedError):  # the sharded soft path is the next slice
+        tmodel.SDFGenerator(soft=tcfg.SoftConfig(), sharding=tcfg.ShardingConfig(), device="cpu")
     with pytest.raises(ValueError):
         tmodel.SDFGenerator(device="cpu").generate(np.zeros((4, 4, 3), np.uint8))
 
@@ -388,11 +388,11 @@ def test_cli_soft_refuses_undeclared_range(tmp_path, input_png):
     assert os.path.exists(out)
 
 
-@pytest.mark.parametrize("flags", [["-s", "65533"], ["--algorithm", "brute", "-s", "32767"]])
+@pytest.mark.parametrize("flags", [["-s", "1073741822"], ["--algorithm", "brute", "-s", "32767"]])
 def test_cli_refused_spread_is_one_line(tmp_path, input_png, flags, capsys):
-    """A spread the kernels refuse (EXACT band above 65534, BRUTE spread
-    above 32766) ends the CLI with exit 1 and one line on stderr, no
-    traceback, and writes nothing."""
+    """A spread the kernels refuse (EXACT band above MAX_BAND = 2^30 - 1,
+    BRUTE spread above 32766) ends the CLI with exit 1 and one line on
+    stderr, no traceback, and writes nothing."""
     out = str(tmp_path / "o.png")
     assert tcli.main(["-i", input_png, "-o", out, "--platform", "cpu", *flags]) == 1
     err = capsys.readouterr().err

@@ -10,8 +10,10 @@ declared gray range (csrc/soft_mm.cu; wider taps as float32 matrix
 products), behind a runtime gate four adaptive ones for any range
 (csrc/soft_fused.cu), and above band 112 or on one row the composed path's
 column soft-min pair (csrc/softmin.cu); and the trainable SoftSDFModel on
-top. Plain PyTorch versions beside the kernels serve CPU
-tensors. This package imports no JAX; the JAX package beside it is
+top. parallel/ runs the hard algorithms and the soft field over a device
+mesh, with halo kernels (csrc/halo.cu) and the sharded soft tier's
+cols-conv kernels (csrc/band_conv.cu). Plain PyTorch versions beside the
+kernels serve CPU tensors. This package imports no JAX; the JAX package beside it is
 the reference it is tested against.
 """
 

@@ -16,9 +16,12 @@ such as -1000000000 1000000000 forces it): the runtime gate up to spread 110 (ba
 the composed path above. --soft-prec is not ported yet. A spread that the
 kernels refuse (EXACT above 2^30 - 3, BRUTE above 32766) ends the run with
 one line on stderr and exit code 1. --shard-y/--shard-x/--halo-impl run the
-hard algorithms over a device mesh (ShardingConfig): distinct cards on
-cuda (exit code 1 when there are too few, or when --device selects another
-card than the first), logical shards on the CPU.
+hard algorithms, or with --soft the soft field, over a device mesh
+(ShardingConfig): distinct cards on cuda (exit code 1 when there are too
+few, or when --device selects another card than the first), logical shards
+on the CPU. A soft run that the mesh tiers refuse (a --shard-x mesh
+outside the declared-range kernels' tier, as in the JAX package) ends with
+one line on stderr and exit code 1.
 
 Usage:  python -m chaq_sdfgen_tpu_torch -i in.png -o out.png -s 100 -al
 """
@@ -206,8 +209,8 @@ def main(argv: Optional[list] = None) -> int:
 
     from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, ShardingConfig, SoftConfig
     from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-    from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, softmin
-    from chaq_sdfgen_tpu_torch.parallel import cuda_halo
+    from chaq_sdfgen_tpu_torch.ops import band_conv, cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, softmin
+    from chaq_sdfgen_tpu_torch.parallel import cuda_halo, sharded
     from chaq_sdfgen_tpu_torch.utils import imageio as iio
 
     t0 = time.perf_counter()
@@ -250,9 +253,6 @@ def main(argv: Optional[list] = None) -> int:
         else:
             shard_cfg = ShardingConfig(mesh_shape=(args.shard_y,), axis_names=("y",),
                                        halo_impl=args.halo_impl)
-        if soft_cfg is not None:
-            print("--soft with a mesh is not ported yet (the sharded soft path).", file=sys.stderr)
-            return 1
         n_dev = len(devs) if platform == "cuda" else args.shard_y * args.shard_x
         if args.shard_y * args.shard_x > n_dev:
             print(f"--shard-y/--shard-x need {args.shard_y * args.shard_x} devices, have {n_dev}.",
@@ -264,7 +264,11 @@ def main(argv: Optional[list] = None) -> int:
             return 1
     gen = SDFGenerator(cfg, soft=soft_cfg, sharding=shard_cfg, device=device)
     t0 = time.perf_counter()
-    out = gen.generate(img2ch).cpu().numpy()
+    try:
+        out = gen.generate(img2ch).cpu().numpy()
+    except sharded.XShardingRefused as e:  # a mesh the soft tiers refuse, as JAX's
+        print(f"--soft over this mesh: {e}.", file=sys.stderr)
+        return 1
     log.info("sdf computed in %.3fs on %s (first call: includes device and kernel start-up)",
              time.perf_counter() - t0, device)
     if args.soft_field is not None:
@@ -274,7 +278,8 @@ def main(argv: Optional[list] = None) -> int:
         print(f"Kernel timing: {gen.kernel_time(img2ch):.6f} sec", file=sys.stderr)
     log.info("kernel launches %s",
              json.dumps({**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_soft_mm.LAUNCHES,
-                         **soft_fused.LAUNCHES, **softmin.LAUNCHES, **cuda_halo.LAUNCHES}))
+                         **soft_fused.LAUNCHES, **softmin.LAUNCHES, **band_conv.LAUNCHES,
+                         **cuda_halo.LAUNCHES}))
 
     t0 = time.perf_counter()
     try:

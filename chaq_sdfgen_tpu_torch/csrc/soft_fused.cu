@@ -39,10 +39,15 @@
 // tile's column window (64 + 2 band rows) one field at a time. One thread per
 // output pixel (8 per thread in the column kernels). Float32 on CUDA cores.
 //
-// A halo-extended row range (the sharded tier's pass2_ext, not ported yet)
-// needs no other kernel: F2 and B2 take the S1 block with its halo rows
-// attached as the image, the caller crops the field and gives the halo rows
-// a zero cotangent, and B2 returns their dS1 with the interior's.
+// Halo-extended blocks (the sharded tier). F1 and B1 take a live-row window
+// [ylo, yhi): a row outside it is beyond the image (an edge shard's halo),
+// so F1 writes the clipped height 1e30 as its S1, which F2's cut drops like
+// a missing tap, and B1 writes a zero dgray (pallas_soft_fused._params'
+// prm[5:7]); a single-device call passes (0, h) and computes what it did
+// before. F2 and B2 need no window: they take the S1 block with its halo
+// rows attached as the image (pass2_ext), the caller crops the field and
+// gives the halo rows a zero cotangent, and B2 returns their dS1 with the
+// interior's.
 //
 // Exact numbers: every multiply and add is an _rn intrinsic, so nvcc
 // contracts nothing into an FMA; expf, logf and IEEE sqrt and division, no
@@ -69,6 +74,7 @@ struct Soft {
   int n, h, w, band;
   float scale;  // (+-1) x 1/tau rounded once: l = (g - 127.5) * scale
   float t, inv_t, eps;
+  int ylo, yhi;  // F1/B1: the live rows
 };
 
 __device__ __forceinline__ float logit(float g, float scale) {
@@ -171,6 +177,15 @@ __global__ void __launch_bounds__(kThreads) soft_f1_kernel(const float* gray, fl
   int y, x0;
   row_block(p, y, x0);
   const size_t plane = (size_t)p.h * p.w;
+  if (y < p.ylo || y >= p.yhi) {  // beyond the image: no seed, height 1e30
+    const int x = x0 + threadIdx.x;
+    if (x < p.w) {
+      float* out = s1 + (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w + x;
+      out[0] = kPadH;
+      out[plane] = kPadH;
+    }
+    return;
+  }
   const float* g = gray + (size_t)blockIdx.y * plane + (size_t)y * p.w;
   const int span = kRowTile + 2 * p.band;
   float lo0 = kInf, lo1 = kInf;
@@ -201,6 +216,11 @@ __global__ void __launch_bounds__(kThreads) soft_b1_kernel(const float* gray, co
   int y, x0;
   row_block(p, y, x0);
   const size_t plane = (size_t)p.h * p.w;
+  if (y < p.ylo || y >= p.yhi) {  // beyond the image: its gray is no input
+    const int x = x0 + threadIdx.x;
+    if (x < p.w) dgray[(size_t)blockIdx.y * plane + (size_t)y * p.w + x] = 0.0f;
+    return;
+  }
   const size_t row = (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w;
   const int span = kRowTile + 2 * p.band;
   float hi0 = -kInf, hi1 = -kInf;
@@ -308,11 +328,12 @@ __global__ void __launch_bounds__(kThreads) soft_b2_kernel(const float* ct, cons
   }
 }
 
-int prepare(int n, int h, int w, int band, float scale, float t, float inv_t, float eps, Soft* p) {
+int prepare(int n, int h, int w, int band, float scale, float t, float inv_t, float eps, int ylo,
+            int yhi, Soft* p) {
   if (n < 1 || n > 65535 || h < 1 || w < 1 || band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
   if ((long long)((w + kRowTile - 1) / kRowTile) * h > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if ((h + kColRows - 1) / kColRows > 65535) return (int)cudaErrorInvalidValue;
-  *p = Soft{n, h, w, band, scale, t, inv_t, eps};
+  *p = Soft{n, h, w, band, scale, t, inv_t, eps, ylo, yhi};
   return 0;
 }
 
@@ -333,21 +354,23 @@ size_t col_smem(int band, int windows) {
 
 // Launchers: plain C entry points for ctypes. Each launches on the given
 // stream, does not synchronise, and returns cudaGetLastError(). scale is
-// (+-1) x float32(1/tau), inv_t float32(1/T); eps is read by F2 and B2 only.
+// (+-1) x float32(1/tau), inv_t float32(1/T); eps is read by F2 and B2 only,
+// the live rows [ylo, yhi) by F1 and B1 only.
 
 extern "C" int chaq_soft_f1(const void* gray, void* s1, int n, int h, int w, int band, float scale,
-                            float t, float inv_t, float eps, void* stream) {
+                            float t, float inv_t, float eps, int ylo, int yhi, void* stream) {
   Soft p;
-  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
   soft_f1_kernel<<<row_grid(p), kThreads, 0, (cudaStream_t)stream>>>((const float*)gray, (float*)s1, p);
   return (int)cudaGetLastError();
 }
 
 extern "C" int chaq_soft_f2(const void* s1, void* field, void* d2, int n, int h, int w, int band,
-                            float scale, float t, float inv_t, float eps, void* stream) {
+                            float scale, float t, float inv_t, float eps, int ylo, int yhi,
+                            void* stream) {
   Soft p;
-  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
   soft_f2_kernel<<<col_grid(p), kThreads, col_smem(band, 1), (cudaStream_t)stream>>>(
       (const float*)s1, (float*)field, (float*)d2, p);
@@ -355,10 +378,10 @@ extern "C" int chaq_soft_f2(const void* s1, void* field, void* d2, int n, int h,
 }
 
 extern "C" int chaq_soft_b2(const void* ct, const void* d2, const void* s1, void* ds1, int n, int h,
-                            int w, int band, float scale, float t, float inv_t, float eps,
-                            void* stream) {
+                            int w, int band, float scale, float t, float inv_t, float eps, int ylo,
+                            int yhi, void* stream) {
   Soft p;
-  int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
   // two windows exceed 48 KB from band 65 on: allow the dynamic size first
   rc = (int)cudaFuncSetAttribute(soft_b2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -371,9 +394,9 @@ extern "C" int chaq_soft_b2(const void* ct, const void* d2, const void* s1, void
 
 extern "C" int chaq_soft_b1(const void* gray, const void* s1, const void* ds1, void* dgray, int n,
                             int h, int w, int band, float scale, float t, float inv_t, float eps,
-                            void* stream) {
+                            int ylo, int yhi, void* stream) {
   Soft p;
-  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, &p);
+  const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
   soft_b1_kernel<<<row_grid(p), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)gray, (const float*)s1, (const float*)ds1, (float*)dgray, p);

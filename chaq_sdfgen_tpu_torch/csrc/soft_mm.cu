@@ -22,6 +22,17 @@
 //   occupancy VJP, dg = (dE_in e_in sigmoid(-l) - dE_out e_out sigmoid(l))
 //   (+-1/tau).
 //
+// Halo frames (the sharded tier). The producer reads an input frame of
+// h_in rows and the epilogue writes h_out rows: output row o is input row
+// o + row_off. A live window [ylo, yhi) x [xlo, xhi) of the input frame
+// marks the pixels inside the image: outside it, and outside the frame, a
+// pixel produces zeros (the convs' zero boundary), and the backward writes a
+// zero dgray. The forward of a shard reads [k2 halo | local | k2 halo] gray
+// rows and writes its local rows; the backward reads the neighbours' k2 edge
+// rows of the cotangent and the memos and writes the complete dgray of its
+// own rows. A single-device call is the frame with no halo and the whole
+// image live, and computes what it computed before.
+//
 // Bound: operations. Per pixel about 2 fields x 2 convs x (2k+1) taps of a
 // multiply and an add, plus ~10 transcendentals (the occupancy of the halo
 // pixels is computed again by each tile that reads them); the bytes are
@@ -46,6 +57,8 @@
 
 #include <cuda_runtime.h>
 
+#include "soft_tails.cuh"
+
 namespace {
 
 constexpr int kMaxK = 16;               // tap radius limit (pallas_soft_mm._HK)
@@ -54,17 +67,17 @@ constexpr int kTile = 64;               // output tile: kTile x kTile pixels
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowBuf = kTile + 2 * kMaxK;  // one field of a warp's row buffer
-constexpr float kFloor = 1e-30f;        // live-window floor
-constexpr float kDeadD2 = 1e30f;        // d2 of a dead window
-constexpr float kLiveD2 = 1e29f;        // memos at or above: dead
 
 struct Taps {
   float w1[kTaps];  // rows conv, w1[i] = w(i - k1), i <= 2 k1
   float w2[kTaps];  // cols conv
 };
 
+// The frame: input planes of h_in rows, output planes of h_out rows (output
+// row o is input row o + row_off), both w wide; the live window of the input
+// frame, clamped to it.
 struct Geometry {
-  int h, w, k1, k2;
+  int h_in, h_out, w, k1, k2, row_off, ylo, yhi, xlo, xhi;
 };
 
 // The two shifted occupancies exp(c/T + log sigmoid(+-l)), with
@@ -81,10 +94,6 @@ __device__ __forceinline__ float logit(float g, float tau, bool above) {
   return above ? l : -l;
 }
 
-__device__ __forceinline__ float soft_dist(float d2, float eps) {
-  return __fsqrt_rn(__fadd_rn(d2 > 0.0f ? d2 : 0.0f, eps));
-}
-
 // Forward producer: the two shifted occupancies of a pixel.
 struct Occupancy {
   const float* gray;
@@ -95,44 +104,12 @@ struct Occupancy {
   }
 };
 
-// Forward epilogue: the tails, the field and the memos.
-struct Tails {
-  float* field;
-  float* d2_in;  // null: no memos
-  float* d2_out;
-  float c, t, eps;
-  __device__ __forceinline__ float neglog(float s) const {
-    return s > kFloor ? __fsub_rn(c, __fmul_rn(t, logf(s))) : kDeadD2;
-  }
-  __device__ __forceinline__ void operator()(size_t i, float s_in, float s_out) const {
-    const float a = neglog(s_in), b = neglog(s_out);
-    const float d_in = soft_dist(a, eps), d_out = soft_dist(b, eps);
-    field[i] = __fsub_rn(d_out, d_in > 1.0f ? __fsub_rn(d_in, 1.0f) : 0.0f);
-    if (d2_in != nullptr) {
-      d2_in[i] = a;
-      d2_out[i] = b;
-    }
-  }
-};
-
-// Backward producer: the tails' VJP, ds of both fields.
-struct TailsVjp {
-  const float* ct;
-  const float* d2_in;
-  const float* d2_out;
-  float c, t, eps;
-  __device__ __forceinline__ float ds(float d2, float ct_d2) const {
-    if (!(d2 < kLiveD2)) return 0.0f;
-    return __fmul_rn(__fmul_rn(ct_d2, -t), expf(__fdiv_rn(__fsub_rn(d2, c), t)));
-  }
-  __device__ __forceinline__ void operator()(size_t i, float& ds_in, float& ds_out) const {
-    const float g = ct[i], a = d2_in[i], b = d2_out[i];
-    const float d_in = soft_dist(a, eps), d_out = soft_dist(b, eps);
-    const float gate_i = __fdiv_rn(a > 0.0f ? 0.5f : 0.0f, d_in);
-    const float gate_o = __fdiv_rn(b > 0.0f ? 0.5f : 0.0f, d_out);
-    const float relu_on = d_in > 1.0f ? 1.0f : 0.0f;
-    ds_in = ds(a, __fmul_rn(__fmul_rn(-g, relu_on), gate_i));
-    ds_out = ds(b, __fmul_rn(g, gate_o));
+// Forward epilogue: the tails, the field and the memos, at every output
+// pixel (the caller crops what lies outside the image).
+struct FwdTails {
+  Tails tails;
+  __device__ __forceinline__ void operator()(size_t i, float s_in, float s_out, bool) const {
+    tails(i, s_in, s_out);
   }
 };
 
@@ -142,7 +119,11 @@ struct OccupancyVjp {
   float* dgray;
   float tau, ct1;
   bool above;
-  __device__ __forceinline__ void operator()(size_t i, float de_in, float de_out) const {
+  __device__ __forceinline__ void operator()(size_t i, float de_in, float de_out, bool live) const {
+    if (!live) {
+      dgray[i] = 0.0f;
+      return;
+    }
     const float l = logit(gray[i], tau, above);
     float e_in, e_out;
     occupancies(l, ct1, e_in, e_out);
@@ -160,9 +141,9 @@ __host__ __device__ constexpr int smem_floats(int k2) {
   return 2 * (kTile + 2 * k2) * kTile + kWarps * 2 * kRowBuf;
 }
 
-// One 64x64 tile of image blockIdx.z: producer over the halo-extended
-// tile, rows conv, cols conv, epilogue. Pixels outside the image produce
-// zeros (the convs' zero boundary).
+// One 64x64 output tile of image blockIdx.z: producer over the tile's
+// halo-extended input rows, rows conv, cols conv, epilogue. Pixels outside
+// the live window produce zeros (the convs' zero boundary).
 template <class Producer, class Epilogue>
 __device__ __forceinline__ void two_conv_tile(const Producer& prod, const Epilogue& epi,
                                               const Geometry& geo, const Taps& taps) {
@@ -183,17 +164,18 @@ __device__ __forceinline__ void two_conv_tile(const Producer& prod, const Epilog
   __syncthreads();
 
   const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
-  const size_t plane = (size_t)blockIdx.z * geo.h * geo.w;
+  const size_t in_plane = (size_t)blockIdx.z * geo.h_in * geo.w;
+  const size_t out_plane = (size_t)blockIdx.z * geo.h_out * geo.w;
 
   // stage 1: per row of the tile and its k2-row halo, the producer over
   // the row's 64 + 2 k1 pixels, then the rows conv of its 64 outputs
   for (int r = warp; r < rows; r += kWarps) {
-    const int y = y0 - k2 + r;
-    const bool y_in = y >= 0 && y < geo.h;
+    const int y = y0 - k2 + r + geo.row_off;  // input row
+    const bool y_in = y >= geo.ylo && y < geo.yhi;
     for (int j = lane; j < cols_in; j += 32) {
       const int x = x0 - k1 + j;
       float v_in = 0.0f, v_out = 0.0f;
-      if (y_in && x >= 0 && x < geo.w) prod(plane + (size_t)y * geo.w + x, v_in, v_out);
+      if (y_in && x >= geo.xlo && x < geo.xhi) prod(in_plane + (size_t)y * geo.w + x, v_in, v_out);
       r_in[j] = v_in;
       r_out[j] = v_out;
     }
@@ -217,19 +199,21 @@ __device__ __forceinline__ void two_conv_tile(const Producer& prod, const Epilog
   const int q = threadIdx.x % kTile;
   const int x = x0 + q;
   if (x >= geo.w) return;
-  for (int o = threadIdx.x / kTile; o < kTile && y0 + o < geo.h; o += kThreads / kTile) {
+  const bool x_in = x >= geo.xlo && x < geo.xhi;
+  for (int o = threadIdx.x / kTile; o < kTile && y0 + o < geo.h_out; o += kThreads / kTile) {
     float s_in = 0.0f, s_out = 0.0f;
     for (int i = 0; i <= 2 * k2; ++i) {
       const float wv = w2[i];
       s_in = __fadd_rn(s_in, __fmul_rn(wv, a_in[(o + i) * kTile + q]));
       s_out = __fadd_rn(s_out, __fmul_rn(wv, a_out[(o + i) * kTile + q]));
     }
-    epi(plane + (size_t)(y0 + o) * geo.w + x, s_in, s_out);
+    const int y = y0 + o + geo.row_off;
+    epi(out_plane + (size_t)(y0 + o) * geo.w + x, s_in, s_out, x_in && y >= geo.ylo && y < geo.yhi);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-soft_mm_fwd_kernel(Occupancy prod, Tails epi, Geometry geo, Taps taps) {
+soft_mm_fwd_kernel(Occupancy prod, FwdTails epi, Geometry geo, Taps taps) {
   two_conv_tile(prod, epi, geo, taps);
 }
 
@@ -239,15 +223,21 @@ soft_mm_bwd_kernel(TailsVjp prod, OccupancyVjp epi, Geometry geo, Taps taps) {
 }
 
 // Validates the launch and fills the geometry, taps, grid and shared size.
-int prepare(int n, int h, int w, int k1, int k2, const float* taps_host, Geometry* geo,
-            Taps* taps, dim3* grid, size_t* smem) {
-  if (n < 1 || h < 1 || w < 1 || n > 65535 || k1 < 0 || k2 < 0 || k1 > kMaxK || k2 > kMaxK ||
-      taps_host == nullptr)
+// The window is clamped to the input frame.
+int prepare(int n, int h_in, int h_out, int w, int row_off, int ylo, int yhi, int xlo, int xhi,
+            int k1, int k2, const float* taps_host, Geometry* geo, Taps* taps, dim3* grid,
+            size_t* smem) {
+  if (n < 1 || h_in < 1 || h_out < 1 || w < 1 || n > 65535 || k1 < 0 || k2 < 0 || k1 > kMaxK ||
+      k2 > kMaxK || taps_host == nullptr)
     return (int)cudaErrorInvalidValue;
-  *grid = dim3((unsigned)((w + kTile - 1) / kTile), (unsigned)((h + kTile - 1) / kTile),
+  *grid = dim3((unsigned)((w + kTile - 1) / kTile), (unsigned)((h_out + kTile - 1) / kTile),
                (unsigned)n);
   if (grid->y > 65535) return (int)cudaErrorInvalidValue;
-  *geo = Geometry{h, w, k1, k2};
+  ylo = ylo < 0 ? 0 : ylo;
+  yhi = yhi > h_in ? h_in : yhi;
+  xlo = xlo < 0 ? 0 : xlo;
+  xhi = xhi > w ? w : xhi;
+  *geo = Geometry{h_in, h_out, w, k1, k2, row_off, ylo, yhi, xlo, xhi};
   for (int i = 0; i < kTaps; ++i) {
     taps->w1[i] = taps_host[i];
     taps->w2[i] = taps_host[kTaps + i];
@@ -267,36 +257,44 @@ int allow_smem(Kernel kernel) {
 }  // namespace
 
 // Launchers: plain C entry points for ctypes. Each launches on the given
-// stream, does not synchronise, and returns cudaGetLastError(). taps holds
-// 2 x 33 floats: the rows-conv taps w(-k1 .. k1), then the cols-conv taps
-// w(-k2 .. k2), each padded to 33. shift is c, a runtime argument.
+// stream, does not synchronise, and returns cudaGetLastError(). The frame:
+// the producer's input planes have h_in rows, the output planes h_out
+// (forward: field and memos; backward: gray and dgray), output row o is input
+// row o + row_off, and [ylo, yhi) x [xlo, xhi) is the live window of the
+// input frame. taps holds 2 x 33 floats: the rows-conv taps w(-k1 .. k1),
+// then the cols-conv taps w(-k2 .. k2), each padded to 33. shift is c, a
+// runtime argument.
 
 extern "C" int chaq_soft_mm_fwd(const void* gray, void* field, void* d2_in, void* d2_out, int n,
-                                int h, int w, int k1, int k2, const float* taps, float tau,
-                                float t, float eps, float shift, int test_above, void* stream) {
+                                int h_in, int h_out, int w, int row_off, int ylo, int yhi, int xlo,
+                                int xhi, int k1, int k2, const float* taps, float tau, float t,
+                                float eps, float shift, int test_above, void* stream) {
   Geometry geo;
   Taps tp;
   dim3 grid;
   size_t smem;
-  int rc = prepare(n, h, w, k1, k2, taps, &geo, &tp, &grid, &smem);
+  int rc = prepare(n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, &geo, &tp, &grid,
+                   &smem);
   if (rc == 0) rc = allow_smem(soft_mm_fwd_kernel);
   if (rc != 0) return rc;
   if ((d2_in == nullptr) != (d2_out == nullptr)) return (int)cudaErrorInvalidValue;
   const Occupancy prod{(const float*)gray, tau, shift / t, test_above != 0};
-  const Tails epi{(float*)field, (float*)d2_in, (float*)d2_out, shift, t, eps};
+  const FwdTails epi{Tails{(float*)field, (float*)d2_in, (float*)d2_out, shift, t, eps}};
   soft_mm_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(prod, epi, geo, tp);
   return (int)cudaGetLastError();
 }
 
 extern "C" int chaq_soft_mm_bwd(const void* ct, const void* d2_in, const void* d2_out,
-                                const void* gray, void* dgray, int n, int h, int w, int k1, int k2,
+                                const void* gray, void* dgray, int n, int h_in, int h_out, int w,
+                                int row_off, int ylo, int yhi, int xlo, int xhi, int k1, int k2,
                                 const float* taps, float tau, float t, float eps, float shift,
                                 int test_above, void* stream) {
   Geometry geo;
   Taps tp;
   dim3 grid;
   size_t smem;
-  int rc = prepare(n, h, w, k1, k2, taps, &geo, &tp, &grid, &smem);
+  int rc = prepare(n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, &geo, &tp, &grid,
+                   &smem);
   if (rc == 0) rc = allow_smem(soft_mm_bwd_kernel);
   if (rc != 0) return rc;
   const TailsVjp prod{(const float*)ct, (const float*)d2_in, (const float*)d2_out, shift, t, eps};

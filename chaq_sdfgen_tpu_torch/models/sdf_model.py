@@ -8,9 +8,8 @@
                      field (ops/softsdf.py), on a declared gray range or
                      none (gray_range=None), at any spread
 
-SDFGenerator(sharding=ShardingConfig(...)) runs the hard algorithms over a
-device mesh (parallel/sharded.py); the sharded soft path is not ported yet
-(ROADMAP Queue 1 item 11b).
+SDFGenerator(sharding=ShardingConfig(...)) runs the hard algorithms and the
+soft field over a device mesh (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -122,7 +121,8 @@ class SDFGenerator:
     no card, only an explicit ``device="cpu"`` runs). Inputs are moved
     there; the result stays there.
 
-    sharding: optional ShardingConfig. The hard algorithms then run over
+    sharding: optional ShardingConfig. The hard algorithms, or with
+    ``soft`` the soft field (sharded.sharded_soft_sdf_field), then run over
     its mesh (parallel/sharded.py): on ``device="cpu"`` mesh_shape logical
     CPU shards, on a card distinct cards cuda:0..n-1, raising when there
     are too few or when ``device`` names another card than cuda:0. The
@@ -135,10 +135,6 @@ class SDFGenerator:
         sharding=None,
         device: Union[str, torch.device, None] = None,
     ):
-        if sharding is not None and soft is not None:
-            raise NotImplementedError(
-                "the sharded soft path is not ported yet (ROADMAP Queue 1 item 11b)"
-            )
         self.config = config
         self.soft = soft
         self.device = resolve_device(device)
@@ -229,17 +225,19 @@ class SDFGenerator:
         return self._field(self._as_input(img2ch))
 
     def _field(self, x: torch.Tensor) -> torch.Tensor:
-        cfg, soft = self.config, self.soft
-        return softsdf.soft_sdf_field(
-            x[..., cfg.channel_offset].to(torch.float32),
-            cfg.spread,
-            tau=soft.tau,
-            temperature=soft.temperature,
-            eps=soft.eps,
-            test_above=not cfg.invert,
-            band=cfg.effective_band,
-            gray_range=soft.gray_range,
-        )
+        """The soft field, over the mesh when there is one (JAX
+        _soft_field_fn)."""
+        cfg, soft, sh = self.config, self.soft, self.sharding
+        gray = x[..., cfg.channel_offset].to(torch.float32)
+        kw = dict(tau=soft.tau, temperature=soft.temperature, eps=soft.eps, test_above=not cfg.invert,
+                  band=cfg.effective_band, gray_range=soft.gray_range)
+        if self._mesh is not None:
+            from chaq_sdfgen_tpu_torch.parallel import sharded
+
+            return sharded.sharded_soft_sdf_field(
+                gray, cfg.spread, self._mesh, y_axis=sh.y_axis, x_axis=sh.x_axis,
+                batch_axis=sh.data_axis if gray.dim() > 2 else None, halo=sh.halo_impl, **kw)
+        return softsdf.soft_sdf_field(gray, cfg.spread, **kw)
 
     def kernel_time(self, img2ch, iters: int = 10) -> float:
         """Seconds per pipeline run on ``self.device``, the median of

@@ -14,13 +14,16 @@ The model passes no gray_range, so its field takes the undeclared-range
 paths of ops/softsdf.py: up to band 112 the runtime gate (the
 declared-range kernels with a runtime shift while the mixed values stay in
 gamut, the adaptive kernels otherwise), above it the composed path.
-``params_from_jax`` carries a flax parameter tree over. The sharded
-pipeline (``mesh``) waits for the multi-GPU tier (ROADMAP Queue 1 item 11).
+``params_from_jax`` carries a flax parameter tree over. With ``mesh`` the
+field runs over a device mesh (parallel/sharded.sharded_soft_sdf_field,
+the undeclared tiers: the adaptive kernels or the composed path), the
+batch over ``batch_axis``, and the parameters live on the mesh's first
+device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Union
+from typing import Any, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -37,18 +40,21 @@ class SoftSDFModel(torch.nn.Module):
 
     forward(img2ch float32 (..., H, W, 2)) -> signed soft SDF (..., H, W).
     The parameters live on ``device`` (default: the first CUDA device;
-    with no card, only an explicit ``device="cpu"`` runs)."""
+    with no card, only an explicit ``device="cpu"`` runs), or with a
+    ``mesh`` (parallel/mesh.Mesh) on its first device; ``batch_axis`` names
+    the mesh axis that shards the batch of a (N, H, W, 2) input."""
 
     def __init__(self, spread: int = 16, soft: SoftConfig = SoftConfig(), mesh=None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None, batch_axis: Optional[str] = None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError(
-                "SoftSDFModel(mesh=...): the sharded pipeline is not ported yet "
-                "(ROADMAP Queue 1 item 11)")
         self.spread = spread
         self.soft = soft
-        dev = resolve_device(device)
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        dev = mesh.devices.flat[0] if mesh is not None and device is None else resolve_device(device)
+        if mesh is not None and dev != mesh.devices.flat[0]:
+            raise ValueError(f"the parameters live on the mesh's first device {mesh.devices.flat[0]}, "
+                             f"not {dev}")
         f32 = dict(dtype=torch.float32, device=dev)
         self.threshold_bias = torch.nn.Parameter(torch.zeros((), **f32))
         self.log_tau = torch.nn.Parameter(torch.log(torch.tensor(soft.tau, **f32)))
@@ -61,8 +67,12 @@ class SoftSDFModel(torch.nn.Module):
         # fold the learnable tau into the pixel values, so that the kernels
         # run at the configured tau: logits (v - 127.5) / tau_static
         v = (gray - 127.5) / tau * self.soft.tau + 127.5
-        return softsdf.soft_sdf_field(
-            v, self.spread, tau=self.soft.tau, temperature=self.soft.temperature, eps=self.soft.eps)
+        kw = dict(tau=self.soft.tau, temperature=self.soft.temperature, eps=self.soft.eps)
+        if self.mesh is not None:
+            from chaq_sdfgen_tpu_torch.parallel import sharded
+
+            return sharded.sharded_soft_sdf_field(v, self.spread, self.mesh, batch_axis=self.batch_axis, **kw)
+        return softsdf.soft_sdf_field(v, self.spread, **kw)
 
 
 def create_train_state(model: SoftSDFModel, example: torch.Tensor = None,

@@ -127,14 +127,15 @@ def load() -> ctypes.CDLL:
                                                    i32, i32, vp]
         lib.chaq_brute_scan_bytes_halo.restype = i32
         taps = ctypes.POINTER(f32)
-        # (n, h, w, k1, k2, taps, tau, T, eps, shift, test_above, stream)
-        soft_tail = [i32, i32, i32, i32, i32, taps, f32, f32, f32, f32, i32, vp]
+        # (n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, tau, T, eps, shift,
+        #  test_above, stream)
+        soft_tail = [i32] * 11 + [taps, f32, f32, f32, f32, i32, vp]
         lib.chaq_soft_mm_fwd.argtypes = [vp, vp, vp, vp, *soft_tail]
         lib.chaq_soft_mm_fwd.restype = i32
         lib.chaq_soft_mm_bwd.argtypes = [vp, vp, vp, vp, vp, *soft_tail]
         lib.chaq_soft_mm_bwd.restype = i32
-        # (n, h, w, band, scale, T, 1/T, eps, stream)
-        fused_tail = [i32, i32, i32, i32, f32, f32, f32, f32, vp]
+        # (n, h, w, band, scale, T, 1/T, eps, ylo, yhi, stream)
+        fused_tail = [i32, i32, i32, i32, f32, f32, f32, f32, i32, i32, vp]
         for entry, n_ptrs in (("chaq_soft_f1", 2), ("chaq_soft_f2", 3), ("chaq_soft_b2", 4),
                               ("chaq_soft_b1", 4)):
             getattr(lib, entry).argtypes = [vp] * n_ptrs + fused_tail
@@ -143,6 +144,13 @@ def load() -> ctypes.CDLL:
         col_tail = [i32, i32, i32, i32, f32, f32, vp]
         for entry, n_ptrs in (("chaq_softmin_fwd", 2), ("chaq_softmin_bwd", 4)):
             getattr(lib, entry).argtypes = [vp] * n_ptrs + col_tail
+            getattr(lib, entry).restype = i32
+        # (n, h_in, h_out, w, k, row_off, taps, [T, eps, shift,] stream)
+        conv_frame = [i32] * 6 + [taps]
+        lib.chaq_cols_conv.argtypes = [vp, vp, *conv_frame, vp]
+        lib.chaq_cols_conv.restype = i32
+        for entry in ("chaq_p2_fused_fwd", "chaq_p2_fused_bwd"):
+            getattr(lib, entry).argtypes = [vp] * 5 + conv_frame + [f32, f32, f32, vp]
             getattr(lib, entry).restype = i32
         ll = ctypes.c_longlong
         # (src_up, src_dn, up, dn, n_img, rows, src_rows, row_bytes, fill_word, stream)

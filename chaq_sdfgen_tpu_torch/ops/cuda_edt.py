@@ -26,7 +26,8 @@ only the shard's own rows.
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``LAUNCHES``
 counts kernel launches, one per launch, so a run can show that it went
-through the kernels.
+through the kernels; the uint16 instances of the two passes (the TPU's
+``_ext`` kernels) are also counted on their own.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 from chaq_sdfgen_tpu_torch.ops import _build, edt, jfa, merge, threshold
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, walk_done
 
-LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0, "edt_dist": 0}
+LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0, "edt_dist": 0, "edt_rows_u16": 0, "edt_band_bytes_u16": 0}
 
 MAX_BAND = (1 << 30) - 1  # band + 1 stays below the kernels' "no seed" index 2^30
 
@@ -89,6 +90,8 @@ def row_distances_u8(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Te
     _build.launch("chaq_edt_rows", codes.device, codes.data_ptr(), din.data_ptr(), dout.data_ptr(),
             n, h, w, band + 1, din.element_size())
     LAUNCHES["edt_rows"] += 1
+    if din.dtype == torch.uint16:
+        LAUNCHES["edt_rows_u16"] += 1
     return din, dout
 
 
@@ -157,6 +160,8 @@ def fused_pass2_bytes(
     _build.launch("chaq_edt_band_bytes", din.device, din.data_ptr(), dout.data_ptr(), out.data_ptr(),
             n, h, w, row_off, out_rows, band, s_min, float(spread), int(apply_sqrt), din.element_size())
     LAUNCHES["edt_band_bytes"] += 1
+    if din.dtype == torch.uint16:
+        LAUNCHES["edt_band_bytes_u16"] += 1
     return out
 
 

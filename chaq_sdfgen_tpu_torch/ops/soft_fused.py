@@ -10,7 +10,9 @@ counterparts): the adaptive banded soft-min that serves any value range.
            (kernel ``soft_b2``);
   b1_pass  gray, S1, dS1 -> dgray: pass 1's VJP and the heights' and
            threshold's (kernel ``soft_b1``);
-  soft_sdf_field_fused  the field under torch autograd, through all four.
+  soft_sdf_field_fused  the field under torch autograd, through all four;
+  pass1_s1, pass2_ext  the sharded tier's split of it (F1 on a shard, then
+           F2 on the shard's S1 with a halo of its neighbours' rows).
 
 The soft-min of heights v along an axis, for |d| <= band,
     S = m - T log sum_d exp(((m - v[d]) - d^2) / T),  m = min_d (v[d] + d^2),
@@ -20,7 +22,9 @@ backward cut the same way. Pixels outside the image are no taps (the TPU
 kernels pad with height 1e30, which contributes nothing); heights are
 clipped at 1e30 as the TPU kernels clip them. Unlike the TPU kernels, these
 work on the unpadded image and keep dS1 in float32 (the JAX package stores
-it as bf16).
+it as bf16). F1 and B1 take a live-row window (ylo, yhi), default every row:
+a row outside it lies beyond the image (an edge shard's gray halo), F1 gives
+it the clipped height 1e30 as its S1 and B1 a zero dgray.
 
 The plain versions are written tap by tap, in the kernels' order and with
 their cut, so the kernels match them bit for bit on the card. They compute
@@ -138,11 +142,21 @@ def _weight_sum(v, g, target, band: int, inv_t: float, dim: int) -> torch.Tensor
     return s
 
 
-def f1_plain(gray, band, tau, temperature, test_above=True):
+def _live_rows(h: int, window, device):
+    """(H, 1) bool of the rows inside ``window`` (ylo, yhi); None for all."""
+    if window is None or (window[0] <= 0 and window[1] >= h):
+        return None
+    y = torch.arange(h, device=device)
+    return ((y >= window[0]) & (y < window[1]))[:, None]
+
+
+def f1_plain(gray, band, tau, temperature, test_above=True, window=None):
     """Plain F1 on any device: (..., H, W) gray -> S1 (..., 2, H, W),
     differentiable by torch autograd."""
     scale, t, inv_t = _scalars(tau, temperature, test_above)
-    return _soft_min(_heights(_logits(gray, scale), t), band, t, inv_t, -1)
+    s1 = _soft_min(_heights(_logits(gray, scale), t), band, t, inv_t, -1)
+    live = _live_rows(gray.shape[-2], window, gray.device)
+    return s1 if live is None else torch.where(live, s1, torch.full((), PAD_H, device=gray.device))
 
 
 def _dist(d2, eps):
@@ -172,7 +186,7 @@ def b2_plain(ct, d2, s1, band, temperature, eps):
     return _weight_sum(d2, g, s1, band, inv_t, -2)
 
 
-def b1_plain(gray, s1, ds1, band, tau, temperature, test_above=True):
+def b1_plain(gray, s1, ds1, band, tau, temperature, test_above=True, window=None):
     """Plain B1 on any device: the kernel's arithmetic written out."""
     scale, t, inv_t = _scalars(tau, temperature, test_above)
     l = _logits(gray, scale)
@@ -181,7 +195,9 @@ def b1_plain(gray, s1, ds1, band, tau, temperature, test_above=True):
     one = torch.ones((), device=gray.device)
     sig = one / (one + torch.exp(torch.stack([l, -l], dim=-3)))  # sigmoid(-l_f)
     dl = torch.where(h < PAD_H, (dh * -t) * sig, torch.zeros((), device=gray.device))
-    return dl[..., 0, :, :] * scale + dl[..., 1, :, :] * -scale
+    dgray = dl[..., 0, :, :] * scale + dl[..., 1, :, :] * -scale
+    live = _live_rows(gray.shape[-2], window, gray.device)
+    return dgray if live is None else torch.where(live, dgray, torch.zeros((), device=gray.device))
 
 
 # ------------------------------------------------------------------ wrappers
@@ -201,21 +217,23 @@ def _check_shapes(name, image, *fields):
             raise ValueError(f"{name}: shape {tuple(f.shape)}, expected {want}")
 
 
-def _launch(entry, image, *ptrs, band, tau=1.0, temperature=1.0, eps=0.0, test_above=True):
+def _launch(entry, image, *ptrs, band, tau=1.0, temperature=1.0, eps=0.0, test_above=True, window=None):
     n, h, w = _build.flat_shape(image)
     scale, t, inv_t = _scalars(tau, temperature, test_above)
-    _build.launch(entry, image.device, *ptrs, n, h, w, band, scale, t, inv_t, float(eps))
+    ylo, yhi = (0, h) if window is None else (int(window[0]), int(window[1]))
+    _build.launch(entry, image.device, *ptrs, n, h, w, band, scale, t, inv_t, float(eps), ylo, yhi)
 
 
-def f1_pass(gray, band, tau, temperature, test_above=True):
-    """(..., H, W) float32 gray -> S1 (..., 2, H, W): kernel ``soft_f1`` on
+def f1_pass(gray, band, tau, temperature, test_above=True, window=None):
+    """(..., H, W) float32 gray -> S1 (..., 2, H, W), 1e30 in the rows
+    outside ``window`` (ylo, yhi) (default: none): kernel ``soft_f1`` on
     CUDA, the plain version on the CPU."""
     if not _check("f1_pass", band, gray):
-        return f1_plain(gray, band, tau, temperature, test_above)
+        return f1_plain(gray, band, tau, temperature, test_above, window)
     s1 = gray.new_empty(tuple(gray.shape[:-2]) + (2,) + tuple(gray.shape[-2:]))
     if gray.numel() > 0:
         _launch("chaq_soft_f1", gray, gray.data_ptr(), s1.data_ptr(), band=band, tau=tau,
-                temperature=temperature, test_above=test_above)
+                temperature=temperature, test_above=test_above, window=window)
         LAUNCHES["soft_f1"] += 1
     return s1
 
@@ -250,17 +268,18 @@ def b2_pass(ct, d2, s1, band, temperature, eps):
     return ds1
 
 
-def b1_pass(gray, s1, ds1, band, tau, temperature, test_above=True):
-    """dgray (..., H, W) from gray, S1 and dS1: kernel ``soft_b1`` on CUDA,
-    the plain version on the CPU."""
+def b1_pass(gray, s1, ds1, band, tau, temperature, test_above=True, window=None):
+    """dgray (..., H, W) from gray, S1 and dS1, zero in the rows outside
+    ``window`` (ylo, yhi) (default: none): kernel ``soft_b1`` on CUDA, the
+    plain version on the CPU."""
     if not _check("b1_pass", band, gray, s1, ds1):
-        return b1_plain(gray, s1, ds1, band, tau, temperature, test_above)
+        return b1_plain(gray, s1, ds1, band, tau, temperature, test_above, window)
     _check_shapes("b1_pass", gray, s1, ds1)
     dgray = torch.empty_like(gray)
     if gray.numel() > 0:
         _launch("chaq_soft_b1", gray, gray.data_ptr(), s1.data_ptr(), ds1.data_ptr(),
                 dgray.data_ptr(), band=band, tau=tau, temperature=temperature,
-                test_above=test_above)
+                test_above=test_above, window=window)
         LAUNCHES["soft_b1"] += 1
     return dgray
 
@@ -275,29 +294,90 @@ class _FusedField(torch.autograd.Function):
     parameters (the JAX VJP reports them as zero)."""
 
     @staticmethod
-    def forward(ctx, gray, band, tau, temperature, eps, test_above):
-        s1 = f1_pass(gray, band, tau, temperature, test_above)
+    def forward(ctx, gray, band, tau, temperature, eps, test_above, window):
+        s1 = f1_pass(gray, band, tau, temperature, test_above, window)
         if not ctx.needs_input_grad[0]:
             return f2_pass(s1, band, temperature, eps, memos=False)
         field, d2 = f2_pass(s1, band, temperature, eps)
         ctx.save_for_backward(gray, s1, d2)
-        ctx.params = (band, tau, temperature, eps, test_above)
+        ctx.params = (band, tau, temperature, eps, test_above, window)
         return field
 
     @staticmethod
     def backward(ctx, ct):
         gray, s1, d2 = ctx.saved_tensors
-        band, tau, temperature, eps, test_above = ctx.params
+        band, tau, temperature, eps, test_above, window = ctx.params
         ds1 = b2_pass(ct.to(torch.float32).contiguous(), d2, s1, band, temperature, eps)
-        dgray = b1_pass(gray, s1, ds1, band, tau, temperature, test_above)
-        return (dgray,) + (None,) * 5
+        dgray = b1_pass(gray, s1, ds1, band, tau, temperature, test_above, window)
+        return (dgray,) + (None,) * 6
 
 
-def soft_sdf_field_fused(gray, band, tau, temperature, eps, test_above=True):
+def soft_sdf_field_fused(gray, band, tau, temperature, eps, test_above=True, window=None):
     """The soft SDF field of (..., H, W) gray of any value range through the
     four kernels (their plain versions on the CPU), differentiable with
     respect to gray. tau, T and eps are launch arguments: one build serves
-    every schedule, so there is no ``_dynamic`` twin."""
+    every schedule, so there is no ``_dynamic`` twin. ``window`` (ylo, yhi):
+    the live rows (the sharded tier's halo'd blocks; default: all)."""
     g = gray.to(torch.float32).contiguous()
     return _FusedField.apply(g, int(band), float(tau), float(temperature), float(eps),
-                             bool(test_above))
+                             bool(test_above), window)
+
+
+# -------------------------------------------------- split (sharded tier)
+
+
+class _Pass1S1(torch.autograd.Function):
+    """pallas_soft_fused.pass1_s1: F1 forward, B1 backward."""
+
+    @staticmethod
+    def forward(ctx, gray, band, tau, temperature, test_above):
+        ctx.params = (band, tau, temperature, test_above)
+        s1 = f1_pass(gray, band, tau, temperature, test_above)
+        ctx.save_for_backward(gray, s1)
+        return s1
+
+    @staticmethod
+    def backward(ctx, ds1):
+        gray, s1 = ctx.saved_tensors
+        band, tau, temperature, test_above = ctx.params
+        return (b1_pass(gray, s1, ds1.to(torch.float32).contiguous(), band, tau, temperature, test_above),
+                None, None, None, None)
+
+
+def pass1_s1(gray, band, tau, temperature, test_above=True):
+    """(..., H, W) gray -> S1 (..., 2, H, W) through F1, differentiable
+    (B1 in the backward): a shard's pass 1, rows never crossing shards."""
+    g = gray.to(torch.float32).contiguous()
+    return _Pass1S1.apply(g, int(band), float(tau), float(temperature), bool(test_above))
+
+
+class _Pass2Ext(torch.autograd.Function):
+    """pallas_soft_fused.pass2_ext: F2 over the halo'd S1 block, its
+    interior rows out; B2 over the whole block, the halo rows' cotangent
+    zero, so that dS1 comes back for the halo rows too."""
+
+    @staticmethod
+    def forward(ctx, s1ext, band, temperature, eps, halo):
+        h = s1ext.shape[-2] - 2 * halo
+        if not ctx.needs_input_grad[0]:
+            return f2_pass(s1ext, band, temperature, eps, memos=False).narrow(-2, halo, h)
+        field, d2 = f2_pass(s1ext, band, temperature, eps)
+        ctx.save_for_backward(s1ext, d2)
+        ctx.params = (band, temperature, eps, halo)
+        return field.narrow(-2, halo, h)
+
+    @staticmethod
+    def backward(ctx, ct):
+        s1ext, d2 = ctx.saved_tensors
+        band, temperature, eps, halo = ctx.params
+        ct_ext = F.pad(ct.to(torch.float32), (0, 0, halo, halo)).contiguous()
+        return b2_pass(ct_ext, d2, s1ext, band, temperature, eps), None, None, None, None
+
+
+def pass2_ext(s1ext, band, temperature, eps, halo):
+    """A shard's S1 (..., 2, H + 2 halo, W) with ``halo`` rows of its
+    neighbours' S1 above and below (1e30 beyond the image) -> the field of
+    its H rows through F2, differentiable (B2 in the backward, over every
+    row of the block)."""
+    return _Pass2Ext.apply(s1ext.to(torch.float32).contiguous(), int(band), float(temperature), float(eps),
+                           int(halo))

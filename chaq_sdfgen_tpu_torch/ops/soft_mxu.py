@@ -24,6 +24,11 @@ matrix, self-adjoint VJPs), as torch.matmul in full float32; it refuses to
 run when TF32 products are allowed. No Pallas kernel is on that path in
 the JAX package either.
 
+The sharded declared tier (parallel/sharded.py) runs the rows conv as such
+a product (conv_rows_sym) and pass 2 on each shard's halo'd slab through
+the kernels of ops/band_conv.py: pass2_fused_sym (cols conv and tails, tap
+radius <= 16) or, for wider taps, conv_cols_sym and the tails.
+
 The JAX module's corner-matrix variant and its pass2='kernel' branch are
 TPU layout tricks and are not ported.
 """
@@ -50,6 +55,7 @@ _HMAX_OVER_T_LIMIT = 140.0
 _P2_MARGIN_T = 6.0
 _FLO = 1e-30  # live-window floor: the center tap alone gives >= e^-60
 PAD_D2 = 1e30  # d2 of a fully dead window (no live pixel within the taps)
+_LIVE_D2 = 1e29  # memos at or above this mark dead windows
 _TINY = float(np.finfo(np.float32).tiny)
 
 
@@ -106,14 +112,21 @@ def conv_rows(e: torch.Tensor, w: Sequence[float]) -> torch.Tensor:
     return acc
 
 
-def conv_cols(e: torch.Tensor, w: Sequence[float]) -> torch.Tensor:
-    """sum_d w(d) e(y + d, x) over the second-to-last axis, zero outside."""
+def conv_cols(e: torch.Tensor, w: Sequence[float], row_off: int = 0,
+              h_out: Optional[int] = None) -> torch.Tensor:
+    """sum_d w(d) e(y + row_off + d, x) over the second-to-last axis, zero
+    outside e's rows, for output rows y in [0, h_out) (default: e's rows,
+    row_off 0). A halo'd slab's interior is row_off = k, h_out = rows - 2k;
+    the adjoint back onto the slab is row_off = -k, h_out = rows + 2k."""
     k = (len(w) - 1) // 2
     n = e.shape[-2]
-    ep = F.pad(e, (0, 0, k, k))
-    acc = torch.zeros_like(e)
+    h_out = n if h_out is None else h_out
+    top, bot = max(0, k - row_off), max(0, h_out + row_off + k - n)
+    ep = F.pad(e, (0, 0, top, bot))
+    start = row_off - k + top
+    acc = e.new_zeros(e.shape[:-2] + (h_out, e.shape[-1]))
     for i, wi in enumerate(w):
-        acc = acc + wi * ep[..., i : i + n, :]
+        acc = acc + wi * ep[..., start + i : start + i + h_out, :]
     return acc
 
 
@@ -155,20 +168,48 @@ def _safe_neglog(s, temperature, shift, dead_value):
     return torch.where(live, out, torch.full((), dead_value, device=s.device))
 
 
+def tails(s_in, s_out, temperature, shift, eps):
+    """The two fields' conv sums -> (field, d2_in, d2_out): c - T log (1e30
+    for dead windows), sqrt(max(d2, 0) + eps) and the merge d_out -
+    max(d_in - 1, 0). Differentiable by torch autograd."""
+    d2_in = _safe_neglog(s_in, temperature, shift, PAD_D2)
+    d2_out = _safe_neglog(s_out, temperature, shift, PAD_D2)
+    zero = torch.zeros((), device=s_in.device)
+    # where(d2 > 0, d2, 0): max(d2, 0) with the kernel's zero gradient at 0
+    d_in = torch.sqrt(torch.where(d2_in > 0, d2_in, zero) + eps)
+    d_out = torch.sqrt(torch.where(d2_out > 0, d2_out, zero) + eps)
+    field = d_out - torch.where(d_in > 1, d_in - 1.0, zero)
+    return field, d2_in, d2_out
+
+
+def tails_vjp(ct, d2_in, d2_out, temperature, shift, eps):
+    """The tails' VJP as the kernels form it, from the field's cotangent and
+    the d2 memos -> (ds_in, ds_out): ds = ct_d2 (-T) exp((d2 - c)/T), zero
+    in dead windows (d2 >= 1e29, never through the exp)."""
+    zero = torch.zeros((), device=ct.device)
+
+    def ds_of(d2, ct_d2):
+        live = d2 < _LIVE_D2
+        expo = torch.where(live, div(d2 - shift, temperature), zero)
+        return torch.where(live, ct_d2 * (-temperature) * torch.exp(expo), zero)
+
+    d_in = torch.sqrt(torch.where(d2_in > 0, d2_in, zero) + eps)
+    d_out = torch.sqrt(torch.where(d2_out > 0, d2_out, zero) + eps)
+    half = torch.full((), 0.5, device=ct.device)
+    gate_i = torch.where(d2_in > 0, half, zero) / d_in
+    gate_o = torch.where(d2_out > 0, half, zero) / d_out
+    relu_on = torch.where(d_in > 1, torch.ones((), device=ct.device), zero)
+    return ds_of(d2_in, -ct * relu_on * gate_i), ds_of(d2_out, ct * gate_o)
+
+
 def soft_field_collapsed(gray, k1, k2, shift, tau, temperature, eps, test_above=True):
     """(..., H, W) float32 gray -> (field, d2_in, d2_out), each (..., H, W):
     occupancy, rows conv with radius k1, cols conv with radius k2,
     c - T log, sqrt, and the merge. Differentiable by torch autograd."""
     w1, w2 = tap_weights(k1, temperature), tap_weights(k2, temperature)
     _, e_in, e_out = occupancy(gray, tau, temperature, shift, test_above)
-    d2_in = _safe_neglog(conv_cols(conv_rows(e_in, w1), w2), temperature, shift, PAD_D2)
-    d2_out = _safe_neglog(conv_cols(conv_rows(e_out, w1), w2), temperature, shift, PAD_D2)
-    zero = torch.zeros((), device=gray.device)
-    # where(d2 > 0, d2, 0): max(d2, 0) with the kernel's zero gradient at 0
-    d_in = torch.sqrt(torch.where(d2_in > 0, d2_in, zero) + eps)
-    d_out = torch.sqrt(torch.where(d2_out > 0, d2_out, zero) + eps)
-    field = d_out - torch.where(d_in > 1, d_in - 1.0, zero)
-    return field, d2_in, d2_out
+    return tails(conv_cols(conv_rows(e_in, w1), w2), conv_cols(conv_rows(e_out, w1), w2),
+                 temperature, shift, eps)
 
 
 # ------------------------------------------------ wide taps: matrix products
@@ -219,9 +260,9 @@ def _conv(e: torch.Tensor, k: int, temperature: float, cols: bool) -> torch.Tens
 
 
 class _ConvSym(torch.autograd.Function):
-    """conv_rows_sym / conv_cols_sym (JAX soft_mxu.py:244-298): the taps are
-    symmetric and the boundary is zero, so the conv is its own adjoint and
-    the backward runs the same products on the cotangent."""
+    """conv_rows_sym / conv_cols_sym as products (JAX soft_mxu.py:244-298):
+    the taps are symmetric and the boundary is zero, so the conv is its own
+    adjoint and the backward runs the same products on the cotangent."""
 
     @staticmethod
     def forward(ctx, e, k, temperature, cols):
@@ -231,6 +272,79 @@ class _ConvSym(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         return _conv(ct, *ctx.params), None, None, None
+
+
+class _ColsConvSym(torch.autograd.Function):
+    """conv_cols_sym (JAX soft_mxu.py:284-298) on a halo'd slab: the
+    forward runs kernel ``cols_conv`` to the slab's interior, the backward
+    the same kernel from the cotangent back onto the slab (the conv is its
+    own adjoint)."""
+
+    @staticmethod
+    def forward(ctx, e, k, temperature):
+        from chaq_sdfgen_tpu_torch.ops import band_conv
+
+        ctx.params = (k, temperature)
+        return band_conv.cols_conv(e, k, temperature)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from chaq_sdfgen_tpu_torch.ops import band_conv
+
+        k, temperature = ctx.params
+        ct = ct.to(torch.float32).contiguous()
+        return band_conv.cols_conv(ct, k, temperature, -k, ct.shape[-2] + 2 * k), None, None
+
+
+def conv_cols_sym(e: torch.Tensor, k: int, temperature: float) -> torch.Tensor:
+    """(..., h + 2k, W) float32 halo'd slab -> (..., h, W): the banded
+    Gaussian cols conv (radius k <= 128, zero boundary) at the interior
+    rows, differentiable with respect to the slab through the kernel in
+    both directions (its plain version on the CPU)."""
+    return _ColsConvSym.apply(e.to(torch.float32).contiguous(), int(k), float(temperature))
+
+
+class _Pass2FusedSym(torch.autograd.Function):
+    """pass2_fused_sym (JAX soft_mxu.py:301-335): the forward runs kernel
+    ``p2_fused_fwd`` and keeps the d2 memos when a slab needs a gradient;
+    the backward runs kernel ``p2_fused_bwd`` from them."""
+
+    @staticmethod
+    def forward(ctx, a_in, a_out, k, temperature, shift, eps):
+        from chaq_sdfgen_tpu_torch.ops import band_conv
+
+        ctx.params = (k, temperature, shift, eps)
+        if not any(ctx.needs_input_grad[:2]):
+            return band_conv.p2_fused_fwd(a_in, a_out, *ctx.params, memos=False)
+        field, d2i, d2o = band_conv.p2_fused_fwd(a_in, a_out, *ctx.params)
+        ctx.save_for_backward(d2i, d2o)
+        return field
+
+    @staticmethod
+    def backward(ctx, ct):
+        from chaq_sdfgen_tpu_torch.ops import band_conv
+
+        d2i, d2o = ctx.saved_tensors
+        da_in, da_out = band_conv.p2_fused_bwd(ct.to(torch.float32).contiguous(), d2i, d2o, *ctx.params)
+        return da_in, da_out, None, None, None, None
+
+
+def pass2_fused_sym(a_in, a_out, k2, temperature, shift, eps) -> torch.Tensor:
+    """Both pass-1 sums of a k2-row halo'd slab, (..., h + 2 k2, W) float32
+    -> the field (..., h, W): the cols conv and the tails in one kernel each
+    way (ops/band_conv.py; the plain versions on the CPU), differentiable
+    with respect to both slabs."""
+    return _Pass2FusedSym.apply(a_in.to(torch.float32).contiguous(), a_out.to(torch.float32).contiguous(),
+                                int(k2), float(temperature), float(shift), float(eps))
+
+
+def conv_rows_sym(e: torch.Tensor, k: int, temperature: float) -> torch.Tensor:
+    """The rows conv (radius k, zero boundary) of (..., H, W) float32 with
+    W a multiple of 128, as float32 matrix products, self-adjoint under
+    autograd (JAX soft_mxu.conv_rows_sym). Raises if float32 products may
+    run in TF32."""
+    require_fp32_matmul()
+    return _ConvSym.apply(e, int(k), float(temperature), False)
 
 
 def soft_field_wide(gray, band, tau, temperature, eps, test_above=True, gray_range=(0.0, 255.0)):

@@ -152,24 +152,35 @@ def soft_sdf_field_composed(
     return d_out - torch.clamp(d_in - 1.0, min=0)
 
 
-def soft_field_cols(gray, band, tau, temperature, eps, test_above=True):
-    """The composed path (JAX softsdf.py:345-372) of (..., H, W) gray of any
-    value range, differentiable with respect to gray: the heights of the
-    transposed image, clipped at big_sentinel(band) = (band + 1)^2 as the
-    JAX composed path clips them; pass 1 along x per field; pass 2 along y
-    once, on both fields side by side (..., H, 2W); then the sqrt and merge
-    tails. A batch runs as one: the kernels take it in their grid (JAX runs
-    its XLA scans there, the same function)."""
+def cols_pass1(gray, band, tau, temperature, test_above=True):
+    """Pass 1 of the composed path: (..., H, W) gray -> S1 of both fields
+    side by side, (..., H, 2W): the heights of the transposed image, clipped
+    at big_sentinel(band) = (band + 1)^2 as the JAX composed path clips
+    them, and their soft-min along x per field."""
     g = gray.to(torch.float32)
-    h, w = g.shape[-2:]
     big = big_sentinel(band)
     logits_t = threshold.soft_logits(g.transpose(-1, -2).contiguous(), tau=tau, test_above=test_above)
     s1 = [band_softmin(threshold.soft_log_indicator_from_logits(logits_t, temperature, on, big), band,
                        temperature, axis=-2).transpose(-1, -2) for on in (True, False)]
-    d2s = band_softmin(torch.cat(s1, dim=-1), band, temperature, axis=-2)
+    return torch.cat(s1, dim=-1)
+
+
+def cols_tails(d2s, w, eps):
+    """The composed path's tails: d2 of both fields side by side (..., H,
+    2W) -> the field d_out - relu(d_in - 1), d = sqrt(relu(d2) + eps)."""
     d_in = torch.sqrt(torch.clamp(d2s[..., :w], min=0) + eps)
     d_out = torch.sqrt(torch.clamp(d2s[..., w:], min=0) + eps)
     return d_out - torch.clamp(d_in - 1.0, min=0)
+
+
+def soft_field_cols(gray, band, tau, temperature, eps, test_above=True):
+    """The composed path (JAX softsdf.py:345-372) of (..., H, W) gray of any
+    value range, differentiable with respect to gray: cols_pass1, pass 2
+    along y once, on both fields side by side (..., H, 2W), then cols_tails.
+    A batch runs as one: the kernels take it in their grid (JAX runs its
+    XLA scans there, the same function)."""
+    s1 = cols_pass1(gray, band, tau, temperature, test_above)
+    return cols_tails(band_softmin(s1, band, temperature, axis=-2), gray.shape[-1], eps)
 
 
 _RT_SHIFT_T = 60.0  # the gate's shift: max(h_max - 60 T, 0)

@@ -10,7 +10,10 @@ exchange built on them.
                    for pallas_halo._ring_shift_kernel);
   exchange_row_halo_rdma  the halo'd blocks, with the multi-hop chain of
                    pallas_halo._rdma_halo_fwd_impl where the band exceeds a
-                   shard's height.
+                   shard's height, differentiable: its VJP
+                   (pallas_halo._rdma_halo_bwd) ships each halo's cotangent
+                   back round the reverse ring through the same kernels and
+                   adds it to its owner's rows.
 
 A kernel runs once per receiving shard, on that shard's device and current
 stream, and pulls its neighbours' rows through peer pointers. Before a
@@ -18,8 +21,6 @@ pull from another card the receiver's stream waits on an event recorded
 on the source's stream, and the source block is marked as used by the
 receiver's stream (``record_stream``). Peer access is enabled per pair at
 first use; a pair without it raises (nothing is staged through the host).
-Only the forward is ported: the exchange's VJP belongs to the sharded soft
-path, so a block that requires grad raises.
 
 A wrapper runs the plain version only for blocks on the CPU. For CUDA
 blocks it launches the kernels or raises. ``LAUNCHES`` counts launches.
@@ -189,10 +190,8 @@ def exchange_row_halo_rdma_parts(blocks: Sequence[torch.Tensor], band: int, fill
     """(from_up, from_down) as halo.exchange_row_halo_parts, through the
     kernels: one halo_slab where band <= H_local, else ``hops`` ring shifts
     of whole blocks, each hop's wrapped edge replaced by ``fill``, as
-    pallas_halo._rdma_halo_fwd_impl (:161-184). The forward only."""
-    if any(g.requires_grad for g in blocks):
-        raise NotImplementedError(
-            "the rdma halo's VJP belongs to the sharded soft path (ROADMAP Queue 1 item 11b)")
+    pallas_halo._rdma_halo_fwd_impl (:161-184). Not differentiable (the
+    halos are new tensors): exchange_row_halo_rdma is."""
     n, h = len(blocks), blocks[0].shape[-2]
     full = lambda g, rows: torch.full(g.shape[:-2] + (rows, g.shape[-1]), fill,  # noqa: E731
                                       dtype=g.dtype, device=g.device)
@@ -216,8 +215,75 @@ def exchange_row_halo_rdma_parts(blocks: Sequence[torch.Tensor], band: int, fill
     return ups, downs
 
 
+def _rdma_halo_vjp(cts: Sequence[torch.Tensor], band: int, h: int) -> List[torch.Tensor]:
+    """The exchange's VJP (pallas_halo._rdma_halo_bwd): each shard's
+    cotangent of its (..., h + 2 band, W) halo'd block -> that of its (...,
+    h, W) block: its own rows' part plus the halo cotangents that other
+    shards hold for its rows, shipped back round the reverse ring. One hop:
+    halo_slab on the halo'd cotangents (shard i pulls the last ``band`` rows
+    of shard i - 1's, its down halo, for its head rows, and the first of
+    shard i + 1's, its up halo, for its tail rows; 0 beyond the image).
+    Multi-hop: the hop blocks of both halos (0 where the forward read the
+    fill) ride hops ring shifts the reverse way, each hop's block added on
+    its way back to its owner."""
+    n = len(cts)
+    cts = [c.contiguous() for c in cts]
+    dgs = [c[..., band : band + h, :].clone() for c in cts]
+    if n == 1 or band < 1:
+        return dgs
+    if band <= h:
+        from_up, from_down = halo_slab(cts, band, 0)
+        for dg, u, d in zip(dgs, from_up, from_down):
+            dg[..., h - band :, :] += d  # my tail rows, from shard i + 1's up halo
+            dg[..., :band, :] += u  # my head rows, from shard i - 1's down halo
+        return dgs
+    hops = -(-band // h)
+    pad = [c.new_zeros(c.shape[:-2] + (hops * h - band, c.shape[-1])) for c in cts]
+    up_full = [torch.cat([p, c[..., :band, :]], dim=-2) for p, c in zip(pad, cts)]
+    dn_full = [torch.cat([c[..., band + h :, :], p], dim=-2) for p, c in zip(pad, cts)]
+    zero = cts[0].new_zeros(cts[0].shape[:-2] + (h, cts[0].shape[-1]))
+
+    def piece_up(i, k):  # hop k's up-halo block of shard i: shard i - k's rows
+        return up_full[i][..., (hops - k) * h : (hops - k + 1) * h, :] if i >= k else zero.to(cts[i].device)
+
+    def piece_dn(i, k):  # hop k's down-halo block of shard i: shard i + k's rows
+        return dn_full[i][..., (k - 1) * h : k * h, :] if i < n - k else zero.to(cts[i].device)
+
+    # Horner over the hops: the up-halo cotangents travel toward lower
+    # indices, the down-halo ones toward higher, one ring step per hop
+    back_up = [piece_up(i, hops).contiguous() for i in range(n)]
+    back_dn = [piece_dn(i, hops).contiguous() for i in range(n)]
+    for k in range(hops - 1, -1, -1):
+        back_dn, back_up = halo_ring_shift(back_dn, back_up)
+        back_up[n - 1] = torch.zeros_like(back_up[n - 1])  # wrapped round the ring
+        back_dn[0] = torch.zeros_like(back_dn[0])
+        if k:
+            back_up = [(b + piece_up(i, k)).contiguous() for i, b in enumerate(back_up)]
+            back_dn = [(b + piece_dn(i, k)).contiguous() for i, b in enumerate(back_dn)]
+    return [dg + u + d for dg, u, d in zip(dgs, back_up, back_dn)]
+
+
+class _RdmaHalo(torch.autograd.Function):
+    """exchange_row_halo_rdma under autograd: the forward through the
+    kernels, the backward _rdma_halo_vjp (the kernels again)."""
+
+    @staticmethod
+    def forward(ctx, band, fill, *blocks):
+        ctx.band, ctx.h = band, blocks[0].shape[-2]
+        ups, downs = exchange_row_halo_rdma_parts(blocks, band, fill)
+        return tuple(torch.cat([u, g, d], dim=-2) for u, g, d in zip(ups, blocks, downs))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, None, *_rdma_halo_vjp(cts, ctx.band, ctx.h))
+
+
 def exchange_row_halo_rdma(blocks: Sequence[torch.Tensor], band: int, fill) -> List[torch.Tensor]:
     """Drop-in for halo.exchange_row_halo through the kernels: each shard's
-    (..., H_local, W) block with ``band`` halo rows above and below."""
+    (..., H_local, W) block with ``band`` halo rows above and below,
+    differentiable with respect to the blocks."""
+    blocks = [g.contiguous() for g in blocks]
+    if torch.is_grad_enabled() and any(g.requires_grad for g in blocks):
+        return list(_RdmaHalo.apply(int(band), fill, *blocks))
     ups, downs = exchange_row_halo_rdma_parts(blocks, band, fill)
     return [torch.cat([u, g, d], dim=-2) for u, g, d in zip(ups, blocks, downs)]

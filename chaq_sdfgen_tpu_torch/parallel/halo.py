@@ -9,7 +9,12 @@ The halo of a shard reaches as many neighbours as it spans (multi-hop
 where the band exceeds a shard's height), each contributing only the rows
 inside the halo. The values are JAX's, whatever the schedule; this is
 also the plain version that the ``rdma`` kernels (parallel/cuda_halo.py)
-are held against.
+are held against. The exchange is made of slices, ``Tensor.to`` and
+``torch.cat``, so torch autograd gives its VJP: each halo row's cotangent
+is added back to the shard that owns the row, multi-hop included, and the
+fill takes none. exchange_row_halo_parts with a few edge rows is also the
+counterpart of pallas_soft_mm._edge_exchange (the declared kernels' gray
+halo and their backward's edge rows of the cotangent and the memos).
 """
 
 from __future__ import annotations

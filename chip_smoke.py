@@ -16,7 +16,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      -o out.png -s 64) on a 4096x4096 gray+alpha PNG made from a seed,
      checked against the plain pipeline on the card; SDFGenerator at 256x256
      against the NumPy oracle of the reference binary; and the launch
-     counters of both kernels over one SDFGenerator run of the main path;
+     counters of both kernels over one SDFGenerator run of the main path,
+     and of their uint16 instances over one run at spread 300;
   6. hard times with CUDA events (per call over 10 back-to-back calls, the
      median of 5 such windows, after a warm-up): each pass and
      the whole pipeline, kernels against plain versions, at 4096x4096
@@ -142,6 +143,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
      phase 24's (n,) mesh over real cards, SDFGenerator(sharding=...) and
      the CLI --shard-y n --halo-impl rdma, else one line that says the
      multi-card path was not run.
+ 26. the sharded soft tier's kernels against their plain versions on the
+     card, bit for bit, at the shapes the tier gives them: the cols conv
+     and tails pair (csrc/band_conv.cu: p2_fused_fwd, p2_fused_bwd) on
+     shard 1 of a 4000x4096 image over 4 shards (1000 rows, tier 1b; tau 2,
+     T 1, spread 64, k2 = 10), the cols conv (cols_conv) both ways on shard
+     1 of 4096x4096 at T 8 (k2 = 29); the declared kernels on halo'd blocks
+     with live windows (soft_mm_fwd/bwd, phase 8's tolerances) and F1/B1
+     with a live-row window that is not (0, H); each timed beside its plain
+     version, and cols_conv also beside F.conv2d (cuDNN, no TF32), the one
+     PyTorch call that computes its function (library_ms);
+ 27. sharded soft steps (the summed field, its gradient and an SGD update)
+     over logical shards of the card, each under ppermute and rdma, against
+     the single-device step: tier 1a on the bench's u8 noise at 4096x4096
+     on (4,) and (2, 2), 1b at 4000x4096 on (4,), the wide taps (T 8) on
+     the glyph on (4,), the adaptive tier (window, and split forced) on
+     noise in +-2000 on (4,), the composed tier at spread 128 on (4,) and
+     an (8, 1024, 1024) stack on ('data', 'y'); each tier read from the
+     launch counters; 1b also against the same body over a (1,) mesh of
+     the card (the same rows-conv products, no shard boundary: gradient
+     within 1e-6 of the scale by the knee rule); the launch counters over
+     the main path (one 1b step and one wide-tap step under rdma); times (CUDA events, as in phase 6)
+     of each step; torch.profiler over the 1a and 1b steps;
+ 28. the entry points: SDFGenerator(soft, sharding) on the glyph byte for
+     byte one device (over the cards there are, up to 4; phase 27 holds
+     the tier over 4 logical shards), SoftSDFModel(mesh=...) Adam steps
+     over 4 logical shards against one device (losses within 1e-6
+     relative, the first step's parameter gradients within 1e-6 of their
+     scale, the parameters after 3 steps within 1e-5), and the CLI
+     --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
+     glyph PNG byte for byte the unsharded SDFGenerator.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -157,6 +188,7 @@ linear-time lower envelope needs, whatever the kernel's own walk does.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -174,8 +206,8 @@ from chaq_sdfgen_tpu_torch.config import SdfConfig, ShardingConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
 from chaq_sdfgen_tpu_torch.ops import (
-    _build, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, jfa, merge, soft_fused, soft_mxu, softmin, softsdf,
-    threshold,
+    _build, band_conv, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, jfa, merge, soft_fused, soft_mxu, softmin,
+    softsdf, threshold,
 )
 from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo, sharded
 from chaq_sdfgen_tpu_torch.parallel.mesh import make_mesh
@@ -203,6 +235,16 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:336",
+    },
+    "edt_rows_u16": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:664",
+    },
+    "edt_band_bytes_u16": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:794",
     },
     "soft_mm_fwd": {
         "route": "cuda",
@@ -273,6 +315,21 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/halo.cu",
         "replaces": "chaq_sdfgen_tpu/parallel/pallas_halo.py:96",
+    },
+    "p2_fused_fwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/band_conv.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_band_conv.py:68",
+    },
+    "p2_fused_bwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/band_conv.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_band_conv.py:116",
+    },
+    "cols_conv": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/band_conv.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_band_conv.py:48",
     },
 }
 
@@ -438,7 +495,7 @@ def soft_flops(npix: int, k1: int, k2: int, forward: bool) -> float:
 
 def hard_phases(dev, noise, glyph):
     """Phases 3-7. Returns (errors, launches, glyph times, bounds)."""
-    err = {"edt_rows": 0, "edt_band_bytes": 0}
+    err = {"edt_rows": 0, "edt_band_bytes": 0, "edt_rows_u16": 0, "edt_band_bytes_u16": 0}
     inputs = {
         "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
         "glyph": threshold.hard_threshold(torch.from_numpy(glyph).to(dev)),
@@ -456,8 +513,9 @@ def hard_phases(dev, noise, glyph):
         want = cuda_edt.fused_pass2_bytes_plain(pin, pout, spread, asymmetric, band, apply_sqrt)
         e2 = max_abs_err(got, want)
         torch.cuda.synchronize()
-        err["edt_rows"] = max(err["edt_rows"], e1)
-        err["edt_band_bytes"] = max(err["edt_band_bytes"], e2)
+        u16 = "_u16" if din.dtype == torch.uint16 else ""
+        err["edt_rows" + u16] = max(err["edt_rows" + u16], e1)
+        err["edt_band_bytes" + u16] = max(err["edt_band_bytes" + u16], e2)
         log(f"check {name} {tuple(b.shape)} spread {spread}{' asym' if asymmetric else ''}: "
             f"edt_rows err {e1}, edt_band_bytes err {e2}")
         require(e1 == 0 and e2 == 0, f"kernel disagrees with its plain version on {name}")
@@ -510,12 +568,23 @@ def hard_phases(dev, noise, glyph):
         cuda_edt.LAUNCHES[k] = 0
     out = gen.generate(img_dev)
     torch.cuda.synchronize()
-    launches = {k: cuda_edt.LAUNCHES[k] for k in err}
+    launches = {k: cuda_edt.LAUNCHES[k] for k in ("edt_rows", "edt_band_bytes")}
     log(f"main path hard: SDFGenerator {SIZE}x{SIZE} launches {dict(cuda_edt.LAUNCHES)}")
-    for k, v in launches.items():
-        require(v > 0, f"kernel {k} was not launched on the main path")
     require(out.shape == (SIZE, SIZE) and out.dtype == torch.uint8, "main path output shape/dtype")
     require(bool((out.cpu().numpy() == cli_out).all()), "SDFGenerator and CLI outputs differ")
+    # the same path at spread 300, where the strips are uint16 (rows 3-4)
+    gen300 = SDFGenerator(SdfConfig(spread=300), device=dev)
+    torch.cuda.synchronize()
+    for k in cuda_edt.LAUNCHES:
+        cuda_edt.LAUNCHES[k] = 0
+    out300 = gen300.generate(img_dev)
+    torch.cuda.synchronize()
+    launches.update({k: cuda_edt.LAUNCHES[k] for k in ("edt_rows_u16", "edt_band_bytes_u16")})
+    log(f"main path hard: SDFGenerator {SIZE}x{SIZE} spread 300 launches {dict(cuda_edt.LAUNCHES)}")
+    e300 = max_abs_err(out300, cuda_edt.fused_sdf_bytes_plain(inputs["glyph"], 300))
+    require(e300 == 0, "SDFGenerator at spread 300 differs from the plain pipeline")
+    for k, v in launches.items():
+        require(v > 0, f"kernel {k} was not launched on the main path")
 
     # phase 6: times at 4096x4096 spread 64 (CUDA events, see cuda_ms)
     band = SPREAD + 2
@@ -560,7 +629,9 @@ def hard_phases(dev, noise, glyph):
     }
     for k, ms in t16.items():
         log(f"time glyph spread 300 {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
-    for k, (ms, by) in list(bounds.items()) + list(b16.items()):
+    times["glyph"].update(t16)
+    bounds.update(b16)
+    for k, (ms, by) in bounds.items():
         log(f"bound hard {k}: {ms:.4f} ms ({by})")
 
     # phase 7: device time by kernel over the main path, and the busy share
@@ -1568,33 +1639,6 @@ def read_launches() -> dict:
     return {**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_halo.LAUNCHES}
 
 
-def soft_half_bounds() -> dict:
-    """Bounds of rows 17-19 (pallas_band_conv.py: p2_fused_fwd, p2_fused_bwd,
-    cols_conv; the sharded soft path, not ported yet) at 4096² over 4
-    shards, spread 64, tau 2, T 1, gray range (0, 255), from their shapes:
-    per shard the halo'd pass-1 sums, hp2 = roundup(H_loc + 2 k2, 128)
-    rows by 4096 lanes of float32 (sharded._local_soft_mm). Bytes: each
-    operand read once, each output written once; operations: a multiply
-    and an add per tap of the cols conv, plus the tails. Shape arithmetic
-    only: no card needed."""
-    _, k2, _ = soft_mxu.range_stats(SPREAD + 2, TRAIN_TAU, TRAIN_T, U8)
-    hp2 = -(-(SIZE // SHARDS + 2 * k2) // 128) * 128
-    npix = SHARDS * hp2 * SIZE
-    conv = 2 * (2 * k2 + 1)
-    rows = {
-        # a_in, a_out in; field, d2_in, d2_out out
-        "p2_fused_fwd": bound(4 * 5 * npix, npix * (2 * conv + 22)),
-        # ct, d2_in, d2_out in; da_in, da_out out
-        "p2_fused_bwd": bound(4 * 5 * npix, npix * (2 * conv + 35)),
-        # one field in, one out
-        "cols_conv": bound(4 * 2 * npix, npix * conv),
-    }
-    for k, (ms, by) in rows.items():
-        log(f"bound {k} (not ported), {SHARDS} shards of ({hp2}, {SIZE}) float32, k2 {k2}: {ms:.4f} ms ({by}), "
-            f"{SHARDS} launches per call")
-    return rows
-
-
 def sharded_phases(dev, noise, glyph):
     """Phases 23-25. Returns (errors, launches, glyph times, bounds)."""
     err = {"brute_scan_bytes_halo": 0, "halo_slab": 0, "halo_ring_shift": 0}
@@ -1656,8 +1700,6 @@ def sharded_phases(dev, noise, glyph):
             f"plain {times[k + '_plain']:.4f}, Tensor.to {times[k + '_library']:.4f}; bound {bounds[k][0]:.5f} ms "
             f"({bounds[k][1]})")
     del b4, b16
-
-    soft_half_bounds()
 
     # phase 24: sharded EXACT and BRUTE at full width, byte for byte one device
     masks = {
@@ -1805,11 +1847,349 @@ def sharded_phases(dev, noise, glyph):
     return err, launches, times, bounds
 
 
+# ------------------------------------------------------- sharded soft phases
+
+SOFT_ROWS_1B = 4000  # 1000-row shards over 4: not a multiple of 128, tier 1b
+WIDE_T = 8.0  # tap radii 28 and 29: the wide-tap tier 1b (cols_conv)
+
+
+def shard_slab(e: torch.Tensor, k: int, i: int, h: int) -> torch.Tensor:
+    """Shard i's k-row halo'd slab (rows i h - k .. (i + 1) h + k, zero
+    beyond the image) of a whole-image array: what the halo exchange gives
+    that shard."""
+    return torch.nn.functional.pad(e, (0, 0, k, k))[..., i * h : (i + 1) * h + 2 * k, :].contiguous()
+
+
+def soft_rows_sums(gray: torch.Tensor, tau: float, t: float):
+    """Tier 1b's pass-1 sums of both fields (the rows conv of the shifted
+    occupancy), as parallel/sharded.py forms them."""
+    k1, k2, c = soft_mxu.range_stats(SPREAD + 2, tau, t, U8)
+    _, e_in, e_out = soft_mxu.occupancy(gray, tau, t, c, True)
+    return [soft_mxu.conv_rows_sym(e, k1, t) for e in (e_in, e_out)], (k1, k2, c)
+
+
+def band_conv_bounds(h: int, k: int, w: int = SIZE) -> dict:
+    """Bounds of rows 17-19 for one launch on one shard: h output rows of a
+    k-row halo'd slab, w columns, float32. Bytes: each operand read once,
+    each output written once; operations: a multiply and an add per tap and
+    field, plus the tails (22) or their VJP (35) per pixel."""
+    hx, conv = h + 2 * k, 2 * (2 * k + 1)
+    return {
+        "p2_fused_fwd": bound(4 * w * (2 * hx + 3 * h), w * h * (2 * conv + 22)),
+        "p2_fused_bwd": bound(4 * w * (3 * h + 2 * hx), w * (hx * 2 * conv + h * 35)),
+        "cols_conv": bound(4 * w * (hx + h), w * h * conv),
+    }
+
+
+def bits_equal(name: str, got, want) -> int:
+    """Elements that differ bit for bit between two (tuples of) tensors."""
+    got, want = (got, want) if isinstance(got, (tuple, list)) else ((got,), (want,))
+    n = 0
+    for a, b in zip(got, want):
+        require(a.shape == b.shape, f"{name}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+        n += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+    return n
+
+
+def soft_step(fn, g, ct=None):
+    """The training step: the summed field (weighted by ``ct``), its
+    gradient, an SGD update."""
+    x = g.detach().requires_grad_()
+    value = fn(x).sum() if ct is None else (fn(x) * ct).sum()
+    value.backward()
+    with torch.no_grad():
+        return x - TRAIN_LR * x.grad, value.detach(), x.grad
+
+
+def knee_cotangent(g: torch.Tensor, t: float) -> torch.Tensor:
+    """The summed loss's cotangent (ones) zeroed at the sigmoid-knee outputs,
+    where |d2| < 1e-3 in the single-device memos (ROADMAP Queue 3 item 1):
+    there the gate 0.5 / sqrt(d2 + eps) turns last-ulp differences of the
+    sums into percents of the gradient."""
+    k1, k2, c = soft_mxu.range_stats(SPREAD + 2, TRAIN_TAU, t, U8)
+    _, d2i, d2o = soft_mxu.soft_field_collapsed(g, k1, k2, c, TRAIN_TAU, t, EPS)
+    return ((d2i.abs() >= 1e-3) & (d2o.abs() >= 1e-3)).to(torch.float32)
+
+
+def reset_soft_launches():
+    torch.cuda.synchronize()
+    for counts in (cuda_soft_mm.LAUNCHES, band_conv.LAUNCHES, soft_fused.LAUNCHES, softmin.LAUNCHES,
+                   cuda_halo.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_soft_launches() -> dict:
+    torch.cuda.synchronize()
+    return {k: v for counts in (cuda_soft_mm.LAUNCHES, band_conv.LAUNCHES, soft_fused.LAUNCHES, softmin.LAUNCHES,
+                                cuda_halo.LAUNCHES) for k, v in counts.items() if v}
+
+
+def sharded_soft_phases(dev, noise, glyph):
+    """Phases 26-28. Returns (errors, launches, times, bounds)."""
+    err = {"p2_fused_fwd": 0, "p2_fused_bwd": 0, "cols_conv": 0}
+    rng = np.random.default_rng(SEED + 26)
+    u8 = torch.from_numpy(noise[..., 1].astype(np.float32)).to(dev)
+    alpha = torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev)
+    pm = torch.from_numpy(pm_noise((SIZE, SIZE), SEED + 27)).to(dev)
+    h4, hb = SIZE // SHARDS, SOFT_ROWS_1B // SHARDS
+    times = {}
+
+    # phase 26: rows 17-18 on shard 1 of the 4000x4096 tier-1b image
+    (a_in, a_out), (k1, k2, c) = soft_rows_sums(u8[:SOFT_ROWS_1B], TRAIN_TAU, TRAIN_T)
+    s_in, s_out = shard_slab(a_in, k2, 1, hb), shard_slab(a_out, k2, 1, hb)
+    p2_args = (k2, TRAIN_T, c, EPS)
+    fwd = band_conv.p2_fused_fwd(s_in, s_out, *p2_args)
+    err["p2_fused_fwd"] = bits_equal("p2_fused_fwd", fwd, band_conv.p2_fused_fwd_plain(s_in, s_out, *p2_args))
+    ct = torch.from_numpy(rng.standard_normal((hb, SIZE)).astype(np.float32)).to(dev)
+    bwd = band_conv.p2_fused_bwd(ct, fwd[1], fwd[2], *p2_args)
+    err["p2_fused_bwd"] = bits_equal("p2_fused_bwd", bwd, band_conv.p2_fused_bwd_plain(ct, fwd[1], fwd[2], *p2_args))
+    log(f"check p2_fused_fwd/bwd shard 1 of {SOFT_ROWS_1B}x{SIZE} over {SHARDS}, slab {tuple(s_in.shape)} k2 {k2}: "
+        f"{err['p2_fused_fwd']} / {err['p2_fused_bwd']} values differ from the plain versions; "
+        f"{int((fwd[1] >= 1e29).sum())} dead windows")
+    times["p2_fused_fwd"] = cuda_ms(lambda: band_conv.p2_fused_fwd(s_in, s_out, *p2_args))
+    times["p2_fused_fwd_plain"] = cuda_ms(lambda: band_conv.p2_fused_fwd_plain(s_in, s_out, *p2_args))
+    times["p2_fused_bwd"] = cuda_ms(lambda: band_conv.p2_fused_bwd(ct, fwd[1], fwd[2], *p2_args))
+    times["p2_fused_bwd_plain"] = cuda_ms(lambda: band_conv.p2_fused_bwd_plain(ct, fwd[1], fwd[2], *p2_args))
+    bounds = {k: v for k, v in band_conv_bounds(hb, k2).items() if k != "cols_conv"}
+    del a_in, a_out, s_in, s_out, fwd, bwd
+
+    # row 19 both ways on shard 1 of the 4096² glyph at T 8 (k2 = 29)
+    (w_in, _), (wk1, wk2, _) = soft_rows_sums(alpha, TRAIN_TAU, WIDE_T)
+    e = shard_slab(w_in, wk2, 1, h4)
+    ctw = torch.from_numpy(rng.standard_normal((h4, SIZE)).astype(np.float32)).to(dev)
+    e_f = bits_equal("cols_conv", band_conv.cols_conv(e, wk2, WIDE_T),
+                     band_conv.cols_conv_plain(e, wk2, WIDE_T, wk2, h4))
+    e_b = bits_equal("cols_conv", band_conv.cols_conv(ctw, wk2, WIDE_T, -wk2, h4 + 2 * wk2),
+                     band_conv.cols_conv_plain(ctw, wk2, WIDE_T, -wk2, h4 + 2 * wk2))
+    err["cols_conv"] = e_f + e_b
+    log(f"check cols_conv shard 1 of {SIZE}x{SIZE} T {WIDE_T} k2 {wk2}, slab {tuple(e.shape)}: forward {e_f}, "
+        f"backward {e_b} values differ from the plain version")
+    times["cols_conv"] = cuda_ms(lambda: band_conv.cols_conv(e, wk2, WIDE_T))
+    times["cols_conv_plain"] = cuda_ms(lambda: band_conv.cols_conv_plain(e, wk2, WIDE_T, wk2, h4))
+    # the library's form: a valid (2k+1)x1 cross-correlation (the taps are
+    # symmetric), float32 without TF32
+    taps = torch.tensor(soft_mxu.tap_weights(wk2, WIDE_T), dtype=torch.float32, device=dev).view(1, 1, -1, 1)
+    conv = lambda: torch.nn.functional.conv2d(e.view(1, 1, *e.shape), taps).view(h4, SIZE)  # noqa: E731
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = band_conv.cols_conv(e, wk2, WIDE_T)
+        e_lib = float((conv() - want).abs().max()) / float(want.abs().max())
+        times["cols_conv_library"] = cuda_ms(conv)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    # 59 nonnegative float32 terms summed in another order: n u = 3.5e-6
+    log(f"check cols_conv against F.conv2d (cuDNN, no TF32): max abs err {e_lib:.3e} of the scale "
+        f"{float(want.abs().max()):.4e}")
+    require(e_lib <= 1e-5, "cols_conv differs from F.conv2d")
+    bounds["cols_conv"] = band_conv_bounds(h4, wk2)["cols_conv"]
+    del w_in, e
+    for k in err:
+        lib = f", F.conv2d {times[k + '_library']:.4f} ms" if k + "_library" in times else ""
+        log(f"time {k} (one shard): {times[k]:.4f} ms, plain {times[k + '_plain']:.4f} ms{lib}; bound "
+            f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), roofline share {100 * bounds[k][0] / times[k]:.1f}%")
+    require(all(v == 0 for v in err.values()), "a cols-conv kernel differs from its plain version")
+
+    # the declared kernels on halo'd blocks: shard 0 of (4,) (its top halo
+    # beyond the image) and tile (0, 1) of (2, 2) (top and right beyond)
+    half = SIZE // 2
+    blocks = {
+        "shard 0 of (4,)": (torch.nn.functional.pad(u8[: h4 + k2], (0, 0, k2, 0)), h4, (k2, h4 + 2 * k2, 0, SIZE)),
+        "tile (0, 1) of (2, 2)": (torch.nn.functional.pad(u8[: half + k2, half - k1 :], (0, k1, k2, 0)), half,
+                                  (k2, half + 2 * k2, 0, half + k1)),
+    }
+    for name, (gext, h, win) in blocks.items():
+        gext = gext.contiguous()
+        mm = (c, k1, k2, TRAIN_TAU, TRAIN_T, EPS)
+        got = cuda_soft_mm.mm_fused_fwd(gext, *mm, row_off=k2, h_out=h, window=win)
+        want = cuda_soft_mm.mm_fused_fwd_plain(gext, *mm, row_off=k2, h_out=h, window=win)
+        dead = all(bool(torch.equal(a >= 1e29, b >= 1e29)) for a, b in zip(got[1:], want[1:]))
+        live = (want[1] < 1e29) & (want[2] < 1e29)
+        e_f = max(float((a - b).abs()[live].max()) for a, b in zip(got, want))
+        ctx = torch.from_numpy(rng.standard_normal(tuple(gext.shape)).astype(np.float32)).to(dev)
+        d2 = [torch.nn.functional.pad(m, (0, 0, k2, k2), value=1e30) for m in got[1:]]
+        local = gext[k2 : k2 + h].contiguous()
+        bwin = (0, h + 2 * k2) + win[2:]
+        db = cuda_soft_mm.mm_fused_bwd(ctx, *d2, local, *mm, row_off=k2, window=bwin)
+        dp = cuda_soft_mm.mm_fused_bwd_plain(ctx, *d2, local, *mm, row_off=k2, window=bwin)
+        rel = float((db - dp).abs().max()) / float(dp.abs().max())
+        log(f"check soft_mm_fwd/bwd on the halo'd {name} {tuple(gext.shape)} window {win}: forward err {e_f:.3e} "
+            f"(dead windows equal: {dead}), backward {rel:.3e} of scale")
+        require(dead and e_f <= 1e-4 and rel < 1e-4, f"soft_mm_fwd/bwd on the halo'd {name} differ from plain")
+    # F1 and B1 with the live-row window of shard 0 in the adaptive 'window' form
+    band = SPREAD + 2
+    gext = torch.nn.functional.pad(pm[: h4 + band], (0, 0, band, 0)).contiguous()
+    win = (band, h4 + 2 * band)
+    s1 = soft_fused.f1_pass(gext, band, TRAIN_TAU, TRAIN_T, window=win)
+    e1 = bits_equal("soft_f1", s1, soft_fused.f1_plain(gext, band, TRAIN_TAU, TRAIN_T, window=win))
+    ds1 = torch.from_numpy(rng.standard_normal(tuple(s1.shape)).astype(np.float32)).to(dev)
+    e2 = bits_equal("soft_b1", soft_fused.b1_pass(gext, s1, ds1, band, TRAIN_TAU, TRAIN_T, window=win),
+                    soft_fused.b1_plain(gext, s1, ds1, band, TRAIN_TAU, TRAIN_T, window=win))
+    log(f"check soft_f1/soft_b1 with the live rows {win} of {tuple(gext.shape)}: {e1} / {e2} values differ")
+    require(e1 == 0 and e2 == 0 and bool((s1[..., :band, :] == 1e30).all()), "F1/B1 with a window differ")
+    del gext, s1, ds1
+
+    # phase 27: sharded soft steps against one device, both halo forms
+    m4 = logical_mesh(dev, (SHARDS,))
+    m22 = logical_mesh(dev, (2, 2), ("y", "x"))
+    mdy = logical_mesh(dev, (2, 2), ("data", "y"))
+    stack = torch.stack([u8[y : y + 1024, x : x + 1024] for y in (0, 1024) for x in (0, 1024, 2048, 3072)])
+    sharded_kw = dict(tau=TRAIN_TAU, temperature=TRAIN_T, eps=EPS)
+    mm1 = lambda x: cuda_soft_mm.soft_field_mm_fused(x, band, TRAIN_TAU, TRAIN_T, EPS)  # noqa: E731
+    cases = [
+        # (label, gray, mesh, keywords, one device, forward bitwise, gradient tolerance, kernels of the tier);
+        # 1b's rows conv is a matrix product where one device sums taps one by one: its field within 1e-4 and
+        # its gradient within 1e-4 of the scale by the knee rule (knee_cotangent)
+        ("1a (4,)", u8, m4, dict(gray_range=U8), mm1, True, 0.0, ("soft_mm_fwd", "soft_mm_bwd")),
+        ("1a (2, 2)", u8, m22, dict(gray_range=U8, x_axis="x"), mm1, True, 1e-6, ("soft_mm_fwd", "soft_mm_bwd")),
+        ("1b (4,)", u8[:SOFT_ROWS_1B], m4, dict(gray_range=U8), mm1, False, 1e-4, ("p2_fused_fwd", "p2_fused_bwd")),
+        ("wide (4,)", alpha, m4, dict(gray_range=U8, temperature=WIDE_T),
+         lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=TRAIN_TAU, temperature=WIDE_T, eps=EPS, gray_range=U8),
+         False, 1e-4, ("cols_conv",)),
+        ("2 window (4,)", pm, m4, {}, lambda x: soft_fused.soft_sdf_field_fused(x, band, TRAIN_TAU, TRAIN_T, EPS),
+         True, 1e-6, ("soft_f1", "soft_f2", "soft_b2", "soft_b1")),
+        ("2 split (4,)", pm, m4, dict(fused_impl="split"),
+         lambda x: soft_fused.soft_sdf_field_fused(x, band, TRAIN_TAU, TRAIN_T, EPS), True, 1e-6,
+         ("soft_f1", "soft_f2", "soft_b2", "soft_b1")),
+        ("3 spread 128 (4,)", pm, m4, dict(spread=128),
+         lambda x: softsdf.soft_field_cols(x, 130, TRAIN_TAU, TRAIN_T, EPS), True, 1e-6,
+         ("softmin_col_fwd", "softmin_col_bwd")),
+        ("1a (8, 1024, 1024) ('data', 'y')", stack, mdy, dict(gray_range=U8, batch_axis="data"), mm1, True, 0.0,
+         ("soft_mm_fwd", "soft_mm_bwd")),
+    ]
+    # 1b's second witness: the same body over a (1,) mesh of the card, with
+    # the same rows-conv products and no shard boundary
+    witness = {"1b (4,)": logical_mesh(dev, (1,))}
+    steps = {}
+    for label, g, m, kw, single, bitwise, gtol, kernels in cases:
+        kw = {**sharded_kw, **kw}
+        spread = kw.pop("spread", SPREAD)
+        new1, v1, g1 = soft_step(single, g)
+        knee = None if bitwise else knee_cotangent(g, kw["temperature"])
+        if knee is not None:
+            gk1 = soft_step(single, g, knee)[2]
+        if label in witness:
+            fw = functools.partial(sharded.sharded_soft_sdf_field, spread=spread, mesh=witness[label], **kw)
+            field_w, (_, _, g_w), gk_w = fw(g), soft_step(fw, g), soft_step(fw, g, knee)[2]
+        for impl in ("ppermute", "rdma"):
+            fn = functools.partial(sharded.sharded_soft_sdf_field, spread=spread, mesh=m, halo=impl, **kw)
+            reset_soft_launches()
+            new, value, grad = soft_step(fn, g)
+            counts = read_soft_launches()
+            field = fn(g)
+            f_err = float((field - single(g)).abs().max())
+            g_err = float((grad - g1).abs().max()) / float(g1.abs().max())
+            u_err = float((new - new1).abs().max())
+            k_err = g_err
+            if knee is not None:
+                gk = soft_step(fn, g, knee)[2]
+                k_err = float((gk - gk1).abs().max()) / float(gk1.abs().max())
+            log(f"check sharded soft step {label} {tuple(g.shape)} {impl}: field max abs err {f_err:.3e}, gradient "
+                f"{g_err:.3e} of scale ({k_err:.3e} by the knee rule, {0 if knee is None else int((knee == 0).sum())} "
+                f"knee outputs), update {u_err:.3e}, loss {float(value):.6e} vs {float(v1):.6e}; launches {counts}")
+            require((f_err == 0.0) if bitwise else f_err <= 1e-4, f"sharded soft {label} {impl}: field")
+            require(k_err <= gtol and bool(torch.isfinite(new).all()), f"sharded soft {label} {impl}: gradient")
+            if label in witness:
+                w_f = float((field - field_w).abs().max())
+                w_g = float((grad - g_w).abs().max()) / float(g_w.abs().max())
+                w_k = float((gk - gk_w).abs().max()) / float(gk_w.abs().max())
+                log(f"check sharded soft step {label} {impl} against the (1,) mesh: field max abs err {w_f:.3e}, "
+                    f"gradient {w_g:.3e} of scale ({w_k:.3e} by the knee rule)")
+                require(w_f <= 1e-4 and max(w_g, w_k) <= 1e-6, f"sharded soft {label} {impl}: the (1,) mesh witness")
+            require(all(counts.get(k, 0) > 0 for k in kernels), f"sharded soft {label} {impl}: tier kernels {kernels}")
+            require((counts.get("halo_slab", 0) + counts.get("halo_ring_shift", 0) > 0) == (impl == "rdma"),
+                    f"sharded soft {label} {impl}: halo kernels")
+            steps[(label, impl)] = (fn, g)
+        steps[(label, "one device")] = (single, g)
+        del new1, g1, new, grad, knee
+
+    # the main path's launches: one 1b step and one wide-tap step under rdma
+    reset_soft_launches()
+    for label in ("1b (4,)", "wide (4,)"):
+        fn, g = steps[(label, "rdma")]
+        soft_step(fn, g)
+    launches = read_soft_launches()
+    log(f"main path sharded soft rdma (1b and wide-tap steps): launches {launches}")
+    for k in err:
+        require(launches.get(k, 0) > 0, f"kernel {k} was not launched on the sharded soft main path")
+    launches = {k: launches.get(k, 0) for k in err}
+
+    for (label, impl), (fn, g) in steps.items():
+        key = f"sharded_soft_step {label} {impl}"
+        times[key] = cuda_ms(lambda: soft_step(fn, g))
+        log(f"time {key}: {times[key]:.4f} ms")
+    profile_device("sharded soft step 1a (4,) rdma", lambda: soft_step(*steps[("1a (4,)", "rdma")]))
+    profile_device("sharded soft step 1b (4,) rdma", lambda: soft_step(*steps[("1b (4,)", "rdma")]))
+    del steps, stack
+
+    # phase 28: the entry points. On a card a ShardingConfig spans distinct
+    # cards (as a JAX mesh spans chips): with fewer than 4, SDFGenerator and
+    # the CLI run over the cards there are (phase 27 holds the same tier over
+    # 4 logical shards)
+    n_cards = torch.cuda.device_count()
+    n_run = SHARDS if n_cards >= SHARDS else n_cards
+    img = torch.from_numpy(glyph).to(dev)
+    soft = SoftConfig(tau=TRAIN_TAU, temperature=TRAIN_T)
+    one = SDFGenerator(SdfConfig(spread=SPREAD), soft=soft, device=dev)
+    gen = SDFGenerator(SdfConfig(spread=SPREAD), soft=soft, device=dev,
+                       sharding=ShardingConfig((n_run,), ("y",), halo_impl="rdma"))
+    reset_soft_launches()
+    e_bytes = max_abs_err(gen.generate(img), one.generate(img))
+    counts = read_soft_launches()
+    e_field = float((gen.generate_field(img) - one.generate_field(img)).abs().max())
+    log(f"main path sharded soft: SDFGenerator(soft, sharding ({n_run},) rdma) over {n_run} card(s), glyph: bytes "
+        f"max abs err {e_bytes}, field {e_field:.3e} vs one device; launches {counts}")
+    require(e_bytes == 0 and e_field == 0.0, "the sharded soft SDFGenerator differs from one device")
+    times["sharded_soft_generate"] = cuda_ms(lambda: gen.generate(img))
+    log(f"time sharded soft generate over {n_run} card(s): {times['sharded_soft_generate']:.4f} ms")
+    times["soft_generate_one_device"] = cuda_ms(lambda: one.generate(img))
+    log(f"time soft generate one device: {times['soft_generate_one_device']:.4f} ms")
+
+    img_pm = torch.from_numpy(np.stack([pm_noise((SIZE, SIZE), SEED + 28), pm_noise((SIZE, SIZE), SEED + 29)], -1))
+    img_pm = img_pm.to(dev)
+    target = torch.zeros((SIZE, SIZE), device=dev)
+    runs = []
+    for model in (SoftSDFModel(SPREAD, soft, mesh=m4), SoftSDFModel(SPREAD, soft, device=dev)):
+        opt = create_train_state(model, lr=ADAM_LR)
+        step = make_train_step(model, opt)
+        losses = [float(step(img_pm, target))]
+        grads = [p.grad.detach().clone() for p in model.parameters()]  # the first step's
+        losses += [float(step(img_pm, target)) for _ in range(2)]
+        runs.append((losses, grads, [p.detach().clone() for p in model.parameters()]))
+        times[f"soft_model_step_{'sharded' if model.mesh is not None else 'one_device'}"] = cuda_ms(
+            lambda: step(img_pm, target), 2, 3)
+    (l4, g4, p4), (l1, g1, p1) = runs
+    e_l = max(abs(a - b) / abs(b) for a, b in zip(l4, l1))
+    e_g = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(g4, g1))
+    e_p = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1.0) for a, b in zip(p4, p1))
+    log(f"main path sharded soft: SoftSDFModel(mesh (4,)) 3 Adam steps, losses {l4} vs one device {l1} (within "
+        f"{e_l:.3e} relative); first step's parameter gradients within {e_g:.3e} of their scale; parameters within "
+        f"{e_p:.3e}; step {times['soft_model_step_sharded']:.4f} ms, one device "
+        f"{times['soft_model_step_one_device']:.4f} ms")
+    # the adaptive tier ('window'): phase 27's gradient tolerance, 1e-6 of the scale
+    require(e_l <= 1e-6 and e_g <= 1e-6 and e_p <= 1e-5 and all(math.isfinite(v) for v in l4),
+            "SoftSDFModel(mesh) differs from one device")
+    del img_pm
+
+    cli_out, cli_log, _ = run_cli(glyph, ["--soft", "-s", str(SPREAD), "--shard-y", str(n_run), "--halo-impl",
+                                          "rdma"], "soft sharded")
+    want = SDFGenerator(SdfConfig(spread=SPREAD), soft=SoftConfig(), device=dev).generate(img).cpu().numpy()
+    e = int(np.abs(cli_out.astype(np.int32) - want.astype(np.int32)).max())
+    cli_launches = json.loads(next(l for l in cli_log if "kernel launches" in l).split("launches ", 1)[1])
+    log(f"main path sharded soft: CLI --soft --shard-y {n_run} --halo-impl rdma glyph ({n_cards} card(s)): max abs "
+        f"err {e} vs one device; launches soft_mm_fwd {cli_launches['soft_mm_fwd']}, halo_slab "
+        f"{cli_launches['halo_slab']}")
+    require(e == 0 and cli_launches["soft_mm_fwd"] > 0 and (n_run == 1 or cli_launches["halo_slab"] > 0),
+            "the sharded soft CLI differs from one device or skipped its kernels")
+    return err, launches, times, bounds
+
 
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
-    bounds). library_ms is the time of the halo kernels' Tensor.to form;
-    no PyTorch call computes any other kernel's function (null)."""
+    bounds). library_ms is the time of the halo kernels' Tensor.to form and
+    of cols_conv's F.conv2d; no PyTorch call computes any other kernel's
+    function (null)."""
     rows = []
     for k, spec in KERNELS.items():
         err, launches, times, bounds = next(p for p in paths if k in p[0])
@@ -1853,7 +2233,8 @@ def main() -> int:
     paths = []
     for label, phases, args in (("3-7", hard_phases, (noise, glyph)), ("8-11", soft_phases, (glyph,)),
                                 ("12-15", fused_phases, (glyph,)), ("16-19", brute_dist_phases, (noise, glyph)),
-                                ("20-22", composed_phases, (glyph,)), ("23-25", sharded_phases, (noise, glyph))):
+                                ("20-22", composed_phases, (glyph,)), ("23-25", sharded_phases, (noise, glyph)),
+                                ("26-28", sharded_soft_phases, (noise, glyph))):
         t0 = time.perf_counter()
         paths.append(phases(dev, *args))
         log(f"phases {label}: {time.perf_counter() - t0:.1f} s")

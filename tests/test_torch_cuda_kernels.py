@@ -3,8 +3,11 @@ hard path's (csrc/edt.cu) byte for byte, BRUTE's (csrc/brute.cu) byte for
 byte, the exact distance field's (edt_dist) bit for bit, the declared-range soft path's
 (csrc/soft_mm.cu) within 1e-4 (field, and dgray relative to its scale), and
 the adaptive soft kernels (csrc/soft_fused.cu) bit for bit, with the
-gradient of the whole chain within 1e-4 of the scale of autograd, and the
-composed path's column soft-min pair (csrc/softmin.cu) bit for bit. Marked ``gpu``: each
+gradient of the whole chain within 1e-4 of the scale of autograd, the
+composed path's column soft-min pair (csrc/softmin.cu) bit for bit, the
+halo kernels (csrc/halo.cu) and the sharded pipelines on logical shards of
+the card, and the sharded soft tier's cols-conv kernels (csrc/band_conv.cu)
+bit for bit with the soft tiers over logical shards. Marked ``gpu``: each
 test skips where no CUDA device is present. This file imports no JAX, so on
 a machine without it run it past the suite's conftest:
 
@@ -604,8 +607,21 @@ def test_halo_wrappers_refuse_what_kernels_do_not_take(dev):
         cuda_halo.halo_slab([g[0], g[1].t()], 2, 0.0)  # strided
     with pytest.raises(TypeError):
         cuda_halo.halo_slab([t.double() for t in g], 2, 0.0)
-    with pytest.raises(NotImplementedError):
-        cuda_halo.exchange_row_halo_rdma([t.requires_grad_() for t in g], 2, 0.0)
+    # blocks that need a gradient are taken: the rdma VJP equals the ppermute one, one hop and two
+    from chaq_sdfgen_tpu_torch.parallel import halo
+
+    rng = np.random.default_rng(9)
+    for band in (3, 12):
+        x = [torch.from_numpy(rng.standard_normal((2, 8, 8)).astype(np.float32)).to(dev) for _ in range(4)]
+        ct = [torch.from_numpy(rng.standard_normal((2, 8 + 2 * band, 8)).astype(np.float32)).to(dev)
+              for _ in range(4)]
+        grads = []
+        for exchange in (cuda_halo.exchange_row_halo_rdma, halo.exchange_row_halo):
+            xs = [t.clone().requires_grad_() for t in x]
+            sum((e * c).sum() for e, c in zip(exchange(xs, band, 0.0), ct)).backward()
+            grads.append(torch.cat([t.grad for t in xs], dim=-2))
+        torch.cuda.synchronize()
+        assert float((grads[0] - grads[1]).abs().max()) <= 1e-6 * float(grads[1].abs().max())
 
 
 @pytest.mark.parametrize("mesh_shape,names", [((4,), ("y",)), ((2, 2), ("y", "x")), ((16,), ("y",))])
@@ -664,3 +680,134 @@ def test_sharded_generator_on_distinct_cards(dev):
             gen = SDFGenerator(cfg, sharding=ShardingConfig((n,), ("y",), halo_impl=impl), device=dev)
             assert len({d.index for d in gen._mesh.devices.flat}) == n
             assert torch.equal(gen.generate(img), want)
+
+
+# --------------------------------------------------- sharded soft kernels
+
+
+@pytest.mark.parametrize("shape,k", [((3, 40, 70), 5), ((100, 130), 16), ((1, 300, 65), 29), ((70, 9), 128)])
+def test_band_conv_kernels_match_plain(dev, shape, k):
+    """Rows 17-19 (csrc/band_conv.cu) against their plain versions, bit for
+    bit: the cols conv to a halo'd slab's interior and back onto it, pass 2
+    fused forward (with and without memos) and backward."""
+    from chaq_sdfgen_tpu_torch.ops import band_conv
+
+    rng = np.random.default_rng(k)
+    *lead, h, w = shape
+    a = [torch.from_numpy((rng.random((*lead, h + 2 * k, w)) * 2).astype(np.float32)).to(dev) for _ in range(2)]
+    a[1][..., : w // 3 + 1] = 0.0  # dead windows: columns with nothing live
+    ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    t, shift = (8.0, 30.0) if k > 16 else (1.0, 3.0)
+    before = dict(band_conv.LAUNCHES)
+    got = band_conv.cols_conv(a[0], k, t)
+    assert torch.equal(got, band_conv.cols_conv_plain(a[0], k, t, k, h))
+    back = band_conv.cols_conv(ct, k, t, -k, h + 2 * k)
+    assert torch.equal(back, band_conv.cols_conv_plain(ct, k, t, -k, h + 2 * k))
+    f, d2i, d2o = band_conv.p2_fused_fwd(a[0], a[1], k, t, shift, 1e-6)
+    for x, y in zip((f, d2i, d2o), band_conv.p2_fused_fwd_plain(a[0], a[1], k, t, shift, 1e-6)):
+        assert torch.equal(x, y)
+    assert bool((d2o >= 1e29).any())
+    assert torch.equal(band_conv.p2_fused_fwd(a[0], a[1], k, t, shift, 1e-6, memos=False), f)
+    for x, y in zip(band_conv.p2_fused_bwd(ct, d2i, d2o, k, t, shift, 1e-6),
+                    band_conv.p2_fused_bwd_plain(ct, d2i, d2o, k, t, shift, 1e-6)):
+        assert x.shape == (*lead, h + 2 * k, w) and torch.equal(x, y)
+    torch.cuda.synchronize()
+    assert {n: band_conv.LAUNCHES[n] - before[n] for n in before} == {
+        "cols_conv": 2, "p2_fused_fwd": 2, "p2_fused_bwd": 1}
+
+
+def test_soft_kernels_take_halo_frames(dev):
+    """soft_mm_fwd/bwd on a halo'd frame with a live window (the forward bit
+    for bit its plain version, the backward within 1e-4 of the scale), and
+    F1/B1 with a live-row window (bit for bit)."""
+    rng = np.random.default_rng(21)
+    k1, k2, c = soft_mxu.range_stats(66, 2.0, 1.0, (0.0, 255.0))
+    g = torch.from_numpy((rng.random((2, 90 + 2 * k2, 75)) * 255).astype(np.float32)).to(dev)
+    win = (k2, 90 + k2 + 3, 4, 70)
+    f, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g, c, k1, k2, 2.0, 1.0, 1e-6, row_off=k2, h_out=90, window=win)
+    for x, y in zip((f, d2i, d2o), cuda_soft_mm.mm_fused_fwd_plain(g, c, k1, k2, 2.0, 1.0, 1e-6, row_off=k2,
+                                                                   h_out=90, window=win)):
+        assert x.shape == (2, 90, 75) and torch.equal(x, y)
+    ct = torch.from_numpy(rng.standard_normal((2, 90 + 2 * k2, 75)).astype(np.float32)).to(dev)
+    d2 = [torch.nn.functional.pad(m, (0, 0, k2, k2), value=1e30) for m in (d2i, d2o)]
+    got = cuda_soft_mm.mm_fused_bwd(ct, *d2, g[:, k2 : k2 + 90].contiguous(), c, k1, k2, 2.0, 1.0, 1e-6,
+                                    row_off=k2, window=(0, 90 + 2 * k2, 4, 70))
+    want = cuda_soft_mm.mm_fused_bwd_plain(ct, *d2, g[:, k2 : k2 + 90].contiguous(), c, k1, k2, 2.0, 1.0, 1e-6,
+                                           row_off=k2, window=(0, 90 + 2 * k2, 4, 70))
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert float(got[..., :4].abs().max()) == 0.0
+    x = torch.from_numpy((rng.random((3, 50, 40)) * 4000 - 2000).astype(np.float32)).to(dev)
+    s1 = soft_fused.f1_pass(x, 20, 1.0, 0.5, window=(6, 41))
+    assert torch.equal(s1, soft_fused.f1_plain(x, 20, 1.0, 0.5, window=(6, 41)))
+    assert bool((s1[..., :6, :] == 1e30).all())
+    ds1 = torch.from_numpy(rng.standard_normal((3, 2, 50, 40)).astype(np.float32)).to(dev)
+    dg = soft_fused.b1_pass(x, s1, ds1, 20, 1.0, 0.5, window=(6, 41))
+    assert torch.equal(dg, soft_fused.b1_plain(x, s1, ds1, 20, 1.0, 0.5, window=(6, 41)))
+    assert float(dg[..., 41:, :].abs().max()) == 0.0
+
+
+SOFT_TIERS = {  # (shape, mesh, spread, T, keyword arguments, kernel counters that must move)
+    "1a": ((512, 96), ((4,), ("y",)), 6, 1.0, dict(gray_range=(0.0, 255.0)), ("soft_mm_fwd", "soft_mm_bwd")),
+    "1a-2d": ((256, 256), ((2, 2), ("y", "x")), 6, 1.0, dict(gray_range=(0.0, 255.0), x_axis="x"),
+              ("soft_mm_fwd", "soft_mm_bwd")),
+    "1b": ((120, 96), ((4,), ("y",)), 6, 1.0, dict(gray_range=(0.0, 255.0)), ("p2_fused_fwd", "p2_fused_bwd")),
+    "1b-wide": ((120, 96), ((4,), ("y",)), 30, 8.0, dict(gray_range=(0.0, 255.0)), ("cols_conv",)),
+    "2-window": ((128, 96), ((4,), ("y",)), 6, 1.0, dict(fused_impl="window"), ("soft_f1", "soft_b1")),
+    "2-split": ((128, 96), ((4,), ("y",)), 6, 1.0, dict(fused_impl="split"), ("soft_f2", "soft_b2")),
+    "3": ((120, 96), ((4,), ("y",)), 6, 1.0, {}, ("softmin_col_fwd", "softmin_col_bwd")),
+}
+
+
+def _one_device_soft(tier, x, spread, t):
+    """The single-device twin of a sharded soft tier, on x's device."""
+    band = spread + 2
+    if tier.startswith("1a") or tier == "1b":
+        return cuda_soft_mm.soft_field_mm_fused(x, band, 2.0, t, 1e-6)
+    if tier == "1b-wide":
+        return softsdf.soft_sdf_field(x, spread, tau=2.0, temperature=t, gray_range=(0.0, 255.0))
+    if tier.startswith("2"):
+        return soft_fused.soft_sdf_field_fused(x, band, 2.0, t, 1e-6)
+    return softsdf.soft_field_cols(x, band, 2.0, t, 1e-6)
+
+
+@pytest.mark.parametrize("tier", list(SOFT_TIERS))
+@pytest.mark.parametrize("impl", ["ppermute", "rdma"])
+def test_sharded_soft_tiers_on_logical_shards(dev, tier, impl):
+    """Each soft tier over logical shards of the card against its
+    single-device twin on the card: the field bit for bit and the gradient
+    within 1e-6 of the scale (bit for bit in 1a on a 'y' mesh), but 1b
+    (its rows conv a matrix product) within 1e-4 and 1e-4 of the scale by
+    the knee rule; the tier's kernels launched."""
+    from chaq_sdfgen_tpu_torch.ops import band_conv
+    from chaq_sdfgen_tpu_torch.parallel import sharded
+
+    shape, (mshape, names), spread, t, kw, kernels = SOFT_TIERS[tier]
+    rng = np.random.default_rng(31)
+    # a smooth image in [0, 255] (bilinear noise on an 8-pixel grid): strokes and open space at every radius
+    lo = torch.from_numpy(rng.random((1, 1, shape[0] // 8 + 1, shape[1] // 8 + 1)).astype(np.float32))
+    g = torch.nn.functional.interpolate(lo, size=shape, mode="bilinear", align_corners=False)[0, 0]
+    g = ((g - 0.5) * 1020 + 127.5).clamp(0, 255).to(dev)
+    ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    if tier.startswith("1b"):  # the knee rule: no cotangent where |d2| < 1e-3 (ROADMAP Queue 3 item 1)
+        k1, k2, c = soft_mxu.range_stats(spread + 2, 2.0, t, (0.0, 255.0))
+        _, d2i, d2o = soft_mxu.soft_field_collapsed(g, k1, k2, c, 2.0, t, 1e-6)
+        ct = torch.where((d2i.abs() < 1e-3) | (d2o.abs() < 1e-3), torch.zeros((), device=dev), ct)
+    counters = {**cuda_soft_mm.LAUNCHES, **band_conv.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
+    outs = []
+    for fn in (lambda x: sharded.sharded_soft_sdf_field(x, spread, _logical(dev, mshape, names), tau=2.0,
+                                                        temperature=t, halo=impl, **kw),
+               lambda x: _one_device_soft(tier, x, spread, t)):
+        x = g.clone().requires_grad_()
+        f = fn(x)
+        f.backward(ct)
+        outs.append((f.detach(), x.grad))
+    torch.cuda.synchronize()
+    after = {**cuda_soft_mm.LAUNCHES, **band_conv.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
+    for name in kernels:
+        assert after[name] > counters[name], name
+    e_f = float((outs[0][0] - outs[1][0]).abs().max())
+    e_g = float((outs[0][1] - outs[1][1]).abs().max()) / float(outs[1][1].abs().max())
+    if tier.startswith("1b"):
+        assert e_f <= 1e-4 and e_g <= 1e-4
+    else:
+        assert e_f == 0.0 and e_g <= (0.0 if tier == "1a" else 1e-6)

@@ -130,18 +130,20 @@ def test_sdf_generator_brute_and_jfa_match_jax(kw):
 
 
 def test_sdf_generator_refuses_unported_paths():
-    """Only sharding is refused now. SDFGenerator at spread 111 (band 113,
-    past the adaptive kernels: the composed path) with an undeclared and
-    an out-of-gamut range: field within 1e-4 of the JAX SDFGenerator's
-    generate_field (its CPU composed path)."""
+    """Nothing is refused now. SDFGenerator at spread 111 (band 113, past
+    the adaptive kernels: the composed path) with an undeclared and an
+    out-of-gamut range: field within 1e-4 of the JAX SDFGenerator's
+    generate_field (its CPU composed path); with a sharding (the sharded
+    composed tier over 2 shards), the same field as without."""
     img = _image(shape=(30, 34), seed=2)
     want = np.asarray(jmodel.SDFGenerator(jcfg.SdfConfig(spread=111), soft=jcfg.SoftConfig()).generate_field(img))
     for rng in (None, (-1e9, 1e9)):
         tmodel.SDFGenerator(soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
         gen = tmodel.SDFGenerator(tcfg.SdfConfig(spread=111), soft=tcfg.SoftConfig(gray_range=rng), device="cpu")
         np.testing.assert_allclose(gen.generate_field(img).numpy(), want, atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError):  # the sharded soft path is the next slice
-        tmodel.SDFGenerator(soft=tcfg.SoftConfig(), sharding=tcfg.ShardingConfig(), device="cpu")
+    sharded = tmodel.SDFGenerator(tcfg.SdfConfig(spread=111), soft=tcfg.SoftConfig(gray_range=None),
+                                  sharding=tcfg.ShardingConfig((2,)), device="cpu")
+    np.testing.assert_array_equal(sharded.generate_field(img).numpy(), gen.generate_field(img).numpy())
     with pytest.raises(ValueError):
         tmodel.SDFGenerator(device="cpu").generate(np.zeros((4, 4, 3), np.uint8))
 

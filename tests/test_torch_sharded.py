@@ -147,8 +147,12 @@ def test_halo_kernels_plain_versions():
     assert [int(u[0, 0, 0]) for u in up] == [2, 0, 1] and [int(d[0, 0, 0]) for d in dn] == [1, 2, 0]
     with pytest.raises(ValueError):
         cuda_halo.halo_slab(g, 5, 0)  # band above the shard's height: the multi-hop chain's job
-    with pytest.raises(NotImplementedError, match="11b"):
-        cuda_halo.exchange_row_halo_rdma([torch.zeros(4, 3, requires_grad=True)] * 2, 2, 0.0)
+    # the rdma exchange is differentiable: its VJP adds each halo row's cotangent to its owner's
+    blocks = [torch.arange(12.0).view(4, 3).add(10 * i).requires_grad_() for i in range(2)]
+    ext = cuda_halo.exchange_row_halo_rdma(blocks, 2, 0.0)
+    sum(e.sum() for e in ext).backward()
+    assert blocks[0].grad.tolist() == [[1.0] * 3, [1.0] * 3, [2.0] * 3, [2.0] * 3]
+    assert blocks[1].grad.tolist() == [[2.0] * 3, [2.0] * 3, [1.0] * 3, [1.0] * 3]
     assert cuda_halo._fill_word(255, torch.uint8) == 0xFFFFFFFF
     assert cuda_halo._fill_word(7, torch.uint16) == 0x00070007
     assert cuda_halo._fill_word(-1, torch.int32) == 0xFFFFFFFF
@@ -373,8 +377,10 @@ def test_cli_shard_flags_equal_unsharded(tmp_path, input_png, flags):
 
 def test_cli_shard_refusals(tmp_path, input_png, monkeypatch, capsys):
     out = str(tmp_path / "o.png")
-    assert tcli.main(["-i", input_png, "-o", out, "--platform", "cpu", "--soft", "--shard-y", "2"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    # --soft over a 2-D mesh with an undeclared range: JAX's refusal, one line
+    assert tcli.main(["-i", input_png, "-o", out, "--platform", "cpu", "--soft", "--shard-y", "2", "--shard-x", "2",
+                      "--gray-range", "-1000000000", "1000000000"]) == 1
+    assert "requires the fused-mm tier" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "card")
@@ -399,9 +405,16 @@ def test_sharded_refusals():
         sharded.sharded_brute_sdf_bytes(b, 5, _tmesh((8,)))
     with pytest.raises(ValueError, match="halo"):
         sharded.sharded_hard_sdf_bytes(b, 5, _tmesh((2,)), halo="nccl")
-    with pytest.raises(NotImplementedError, match="11b"):
-        sharded.sharded_soft_sdf_field(b.float(), 5, _tmesh((2,)))
-    with pytest.raises(NotImplementedError, match="11b"):
-        SDFGenerator(soft=SoftConfig(), sharding=ShardingConfig((2,)), device="cpu")
+    # the sharded soft field is ported: its only refusal is JAX's, a 2-D mesh outside the declared tier
+    gray = b.float() * 255
+    assert torch.equal(sharded.sharded_soft_sdf_field(gray, 5, _tmesh((2,))),
+                       sharded.sharded_soft_sdf_field(gray, 5, _tmesh((1,))))
+    with pytest.raises(NotImplementedError, match="fused-mm tier"):
+        sharded.sharded_soft_sdf_field(gray, 5, _tmesh((2, 2), ("y", "x")), x_axis="x")
+    gen = SDFGenerator(soft=SoftConfig(), sharding=ShardingConfig((2,)), device="cpu")
+    img = np.stack([np.full((32, 24), 255, np.uint8), (b.numpy() * 255).astype(np.uint8)], -1)
+    np.testing.assert_allclose(gen.generate_field(img).numpy(),
+                               SDFGenerator(soft=SoftConfig(), device="cpu").generate_field(img).numpy(),
+                               atol=1e-5, rtol=0)
     with pytest.raises(ValueError, match="not the mesh's first card"):
         SDFGenerator(sharding=ShardingConfig((2,)), device="cuda:1")

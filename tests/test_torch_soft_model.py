@@ -180,8 +180,21 @@ def test_create_train_state_is_optax_adam():
 
 
 def test_mesh_and_no_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tsm.SoftSDFModel(SPREAD, SoftConfig(), mesh=object(), device="cpu")
+    """With a mesh the parameters live on its first device and the field
+    is the sharded one (2 shards of 12 rows: the composed tier, the field
+    of one device's composed path bit for bit); with no card and no device
+    the model refuses to start."""
+    from chaq_sdfgen_tpu_torch.parallel.mesh import make_mesh
+
+    img2ch, _ = _batch()
+    tm = tsm.SoftSDFModel(SPREAD, SoftConfig(tau=TAU, temperature=T), mesh=make_mesh((2,), devices="cpu"))
+    assert tm.log_tau.device == torch.device("cpu")
+    x = torch.from_numpy(img2ch[0])
+    with torch.no_grad():
+        gray = (x * torch.softmax(tm.channel_mix, 0)).sum(-1) - tm.threshold_bias
+        want = softsdf.soft_field_cols((gray - 127.5) / torch.exp(tm.log_tau) * TAU + 127.5, SPREAD + 2, TAU, T,
+                                       1e-6)
+    assert torch.equal(tm(x).detach(), want)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsm.SoftSDFModel(SPREAD, SoftConfig())

@@ -153,12 +153,10 @@ def load() -> ctypes.CDLL:
             getattr(lib, entry).argtypes = [vp] * 5 + conv_frame + [f32, f32, f32, vp]
             getattr(lib, entry).restype = i32
         ll = ctypes.c_longlong
-        # (src_up, src_dn, up, dn, n_img, rows, src_rows, row_bytes, fill_word, stream)
-        lib.chaq_halo_slab.argtypes = [vp, vp, vp, vp, ll, i32, i32, ll, ctypes.c_uint, vp]
-        lib.chaq_halo_slab.restype = i32
-        # (src_up, src_dn, up, dn, n_img, rows, row_bytes, stream)
-        lib.chaq_halo_ring_shift.argtypes = [vp, vp, vp, vp, ll, i32, ll, vp]
-        lib.chaq_halo_ring_shift.restype = i32
+        # (jobs, n_jobs, n_img, row_bytes, stream): jobs packed as parallel/cuda_halo.py packs them
+        for entry in ("chaq_halo_slab", "chaq_halo_ring_shift"):
+            getattr(lib, entry).argtypes = [ctypes.c_char_p, i32, ll, ll, vp]
+            getattr(lib, entry).restype = i32
         lib.chaq_enable_peer_access.argtypes = [i32, i32]
         lib.chaq_enable_peer_access.restype = i32
         _lib = lib

@@ -244,24 +244,22 @@ class _MmFusedChain(torch.autograd.Function):
     block with a k2-row gray halo of its neighbours ([k2 | block | k2],
     live in its window), the field of its own rows. Backward: each shard
     pulls its neighbours' k2 edge rows of the cotangent (fill 0) and of both
-    memos (fill 1e30) and writes the complete dgray of its own rows (the
-    contributions through the neighbours' outputs included), so the halo
-    inputs take no cotangent and each pixel's gradient sums its taps in the
-    single-device order."""
+    memos (fill 1e30), the three in one exchange, and writes the complete
+    dgray of its own rows (the contributions through the neighbours'
+    outputs included), so the halo inputs take no cotangent and each
+    pixel's gradient sums its taps in the single-device order."""
 
     @staticmethod
-    def forward(ctx, params, parts, windows, *blocks):
+    def forward(ctx, params, frames, windows, *blocks):
         shift, k1, k2, tau, temperature, eps, test_above = params
         h = blocks[0].shape[-2]
-        ups, downs = parts(blocks, k2, 0.0)
         memos = any(ctx.needs_input_grad[3:])
         outs, saved = [], []
-        for g, u, d, win in zip(blocks, ups, downs, windows):
-            res = mm_fused_fwd(torch.cat([u, g, d], dim=-2), *params, memos=memos, row_off=k2, h_out=h,
-                               window=win)
+        for g, gext, win in zip(blocks, frames([blocks], k2, [0.0])[0], windows):
+            res = mm_fused_fwd(gext, *params, memos=memos, row_off=k2, h_out=h, window=win)
             outs.append(res[0] if memos else res)
             saved += [g, res[1], res[2]] if memos else []
-        ctx.params, ctx.parts, ctx.windows = params, parts, windows
+        ctx.params, ctx.frames, ctx.windows = params, frames, windows
         ctx.save_for_backward(*saved)
         return tuple(outs)
 
@@ -271,10 +269,7 @@ class _MmFusedChain(torch.autograd.Function):
         saved = ctx.saved_tensors
         grays, d2is, d2os = saved[0::3], saved[1::3], saved[2::3]
         cts = [c.to(torch.float32).contiguous() for c in cts]
-        ext = []
-        for blocks, fill in ((cts, 0.0), (d2is, soft_mxu.PAD_D2), (d2os, soft_mxu.PAD_D2)):
-            ups, downs = ctx.parts(list(blocks), k2, fill)
-            ext.append([torch.cat([u, b, d], dim=-2) for u, b, d in zip(ups, blocks, downs)])
+        ext = ctx.frames([cts, d2is, d2os], k2, [0.0, soft_mxu.PAD_D2, soft_mxu.PAD_D2])
         # every row of the frame is live: beyond the image the cotangent is 0
         # and the memos 1e30 (no tap); the columns keep the forward's window
         dgrays = [mm_fused_bwd(c, di, do, g, *ctx.params, row_off=k2,
@@ -283,20 +278,22 @@ class _MmFusedChain(torch.autograd.Function):
         return (None, None, None, *dgrays)
 
 
-def sharded_mm_fused(blocks, parts, windows, k1, k2, shift, tau, temperature, eps, test_above=True):
+def sharded_mm_fused(blocks, frames, windows, k1, k2, shift, tau, temperature, eps, test_above=True):
     """The declared-range field of each shard of a chain along 'y' (a list
     of (..., H_local, W) float32 blocks in chain order) through the two
     kernels, differentiable with respect to every block (the sharded tier's
-    pallas_soft_mm.sharded_local_mm_fused(_2d)). ``parts(blocks, rows,
-    fill)`` is the halo exchange's (from_up, from_down) form; ``windows``
-    each shard's live (ylo, yhi, xlo, xhi) in its [k2 | block | k2] frame
-    (parallel/halo.live_span: the image's rows and, for a 2-D tile with its
-    column halo, columns). Bitwise the single-device field on the shards'
-    rows, and its gradient too."""
+    pallas_soft_mm.sharded_local_mm_fused(_2d)). ``frames(arrays, rows,
+    fills)`` is the halo exchange's form for several chains
+    (halo.exchange_row_halo_many or cuda_halo.exchange_row_halo_rdma_many):
+    each chain's [rows | block | rows] frames, each with its fill;
+    ``windows`` each shard's live (ylo, yhi, xlo, xhi) in its [k2 | block |
+    k2] frame (sharded._live_span: the image's rows and, for a 2-D tile
+    with its column halo, columns). Bitwise the single-device field on the
+    shards' rows, and its gradient too."""
     _check_taps("sharded_mm_fused", k1, k2)
     blocks = [b.to(torch.float32).contiguous() for b in blocks]
     params = (float(shift), int(k1), int(k2), float(tau), float(temperature), float(eps), bool(test_above))
-    return list(_MmFusedChain.apply(params, parts, tuple(tuple(w) for w in windows), *blocks))
+    return list(_MmFusedChain.apply(params, frames, tuple(tuple(w) for w in windows), *blocks))
 
 
 def soft_field_mm_rt_ok(shape, band) -> bool:

@@ -12,9 +12,10 @@ also the plain version that the ``rdma`` kernels (parallel/cuda_halo.py)
 are held against. The exchange is made of slices, ``Tensor.to`` and
 ``torch.cat``, so torch autograd gives its VJP: each halo row's cotangent
 is added back to the shard that owns the row, multi-hop included, and the
-fill takes none. exchange_row_halo_parts with a few edge rows is also the
-counterpart of pallas_soft_mm._edge_exchange (the declared kernels' gray
-halo and their backward's edge rows of the cotangent and the memos).
+fill takes none. exchange_row_halo and exchange_row_halo_many with a few
+edge rows are also the counterpart of pallas_soft_mm._edge_exchange (the
+declared kernels' gray halo and their backward's edge rows of the
+cotangent and the memos).
 """
 
 from __future__ import annotations
@@ -64,6 +65,11 @@ def exchange_row_halo(blocks: Sequence[torch.Tensor], band: int, fill) -> List[t
     """Each shard's block with its halos attached: (..., H_local + 2 band, W)."""
     ups, downs = exchange_row_halo_parts(blocks, band, fill)
     return [torch.cat([u, g, d], dim=-2) for u, g, d in zip(ups, blocks, downs)]
+
+
+def exchange_row_halo_many(arrays: Sequence[Sequence[torch.Tensor]], band: int, fills: Sequence) -> List[List[torch.Tensor]]:
+    """exchange_row_halo of several chains, each with its fill."""
+    return [exchange_row_halo(blocks, band, fill) for blocks, fill in zip(arrays, fills)]
 
 
 def exchange_col_halo(blocks: Sequence[torch.Tensor], band: int, fill) -> List[torch.Tensor]:

@@ -5,8 +5,9 @@ tile mesh and, for EXACT and BRUTE, a 'data' batch axis.
 Rows stay whole per 'y' shard, so the row passes are local; the column
 passes read a halo of neighbouring shards' rows, exchanged by
 ``halo="ppermute"`` (parallel/halo.py, ``Tensor.to`` copies) or
-``halo="rdma"`` (parallel/cuda_halo.py, kernels that pull through peer
-pointers), and then run the single-device kernels on the halo'd strips:
+``halo="rdma"`` (parallel/cuda_halo.py, one kernel launch per exchange
+and device that pulls through peer pointers and writes the halo'd frames
+in place), and then run the single-device kernels on the halo'd strips:
 the bytes are those of the single-device pipeline. On a 2-D mesh the row
 pass reads a column halo of tri-state codes (code 2, seeding neither
 polarity, beyond the image) and is cropped to the tile.
@@ -25,7 +26,7 @@ device.
 The soft field (sharded_soft_sdf_field) is differentiable with respect to
 the image: the shards, the halos and the join are autograd operations, the
 ppermute halo by torch autograd and the rdma halo by its own VJP (the
-kernels again, round the reverse ring), so each halo row's cotangent comes
+kernel again, round the reverse ring), so each halo row's cotangent comes
 back to the shard that owns the row. It runs the JAX function's tiers, in
 its order and on its conditions as it evaluates them on its accelerator:
   1. a declared gray range in the gamut (use_mm):
@@ -88,14 +89,15 @@ class XShardingRefused(NotImplementedError):
     NotImplementedError, sharded.py:731-736, 773-777)."""
 
 
-def _halo_fn(impl: str, parts: bool = False):
+def _halo_fn(impl: str, many: bool = False):
     """The row-halo exchange of ShardingConfig.halo_impl: 'ppermute' or
-    'rdma'. Both give the same blocks. ``parts``: its (from_up, from_down)
-    form, not differentiable."""
+    'rdma'. Both give the same frames. ``many``: the form that takes
+    several chains, each with its fill (one launch for all under rdma),
+    not differentiable."""
     if impl == "ppermute":
-        return halo.exchange_row_halo_parts if parts else halo.exchange_row_halo
+        return halo.exchange_row_halo_many if many else halo.exchange_row_halo
     if impl == "rdma":
-        return cuda_halo.exchange_row_halo_rdma_parts if parts else cuda_halo.exchange_row_halo_rdma
+        return cuda_halo.exchange_row_halo_rdma_many if many else cuda_halo.exchange_row_halo_rdma
     raise ValueError(f"unknown halo implementation {impl!r} (ppermute or rdma)")
 
 
@@ -284,7 +286,7 @@ def _mm_fused_ok(h_loc: int, w_loc: int, k1: int, k2: int, two_d: bool) -> bool:
             and (not two_d or w_loc % 128 == 0))
 
 
-def _soft_mm_fused(blocks, mesh, y_axis, x_axis, parts, stats, tau, temperature, eps, test_above):
+def _soft_mm_fused(blocks, mesh, y_axis, x_axis, frames, stats, tau, temperature, eps, test_above):
     """Tier 1a: the declared kernels on every chain along 'y', each shard
     with a k2-row gray halo (cuda_soft_mm.sharded_mm_fused); on a 2-D mesh
     each tile first takes k1 columns of its 'x' neighbours (fill 0, dead),
@@ -300,7 +302,7 @@ def _soft_mm_fused(blocks, mesh, y_axis, x_axis, parts, stats, tau, temperature,
     for line in lines(mesh, y_axis):
         cols = _live_span(line[0][kx], mesh.size(x_axis), w_loc, ext) if ext else (0, w_loc)
         windows = [_live_span(i, n, h, k2) + cols for i in range(n)]
-        fields = cuda_soft_mm.sharded_mm_fused([blocks[i] for i in line], parts, windows, k1, k2, shift, tau,
+        fields = cuda_soft_mm.sharded_mm_fused([blocks[i] for i in line], frames, windows, k1, k2, shift, tau,
                                                temperature, eps, test_above)
         for i, f in zip(line, fields):
             out[i] = f[..., ext : ext + w_loc] if ext else f
@@ -429,7 +431,7 @@ def sharded_soft_sdf_field(
     blocks = shard(g, mesh, spec)
     kw = dict(tau=tau, temperature=temperature, eps=eps, test_above=test_above)
     if mm_fused:
-        out = _soft_mm_fused(blocks, mesh, y_axis, x_axis, _halo_fn(halo, parts=True), stats, **kw)
+        out = _soft_mm_fused(blocks, mesh, y_axis, x_axis, _halo_fn(halo, many=True), stats, **kw)
     elif use_mm:
         out = _soft_mm_local(blocks, mesh, y_axis, exchange, stats, **kw)
     elif use_fused:

@@ -120,12 +120,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
      plain versions per step (the three launches each way), the composed
      step on both noises and its plain twin, the SoftSDFModel step and
      the wide-tap step; then torch.profiler over the composed step;
- 23. the halo kernels (csrc/halo.cu: halo_slab, halo_ring_shift) against
-     their plain versions bit for bit, in uint8, uint16, int32 and
-     float32: 4 logical shards of a 4096-wide image at bands 66 and 72
-     (one hop, the edge fills), 8 shards of 64 rows at band 150 (3 hops);
-     each timed (per exchange: one launch per shard) beside its plain
-     version and its Tensor.to form (library_ms);
+ 23. the halo kernel's two launchers (csrc/halo.cu: halo_slab,
+     halo_ring_shift) against their plain versions bit for bit, and the
+     halo'd frames it writes in place against the ppermute form, in uint8,
+     uint16, int32 and float32: 4 logical shards of a 4096-wide image at
+     bands 66 and 72 (one hop, the edge fills), 8 shards of 64 rows at
+     band 150 (3 hops); each timed per exchange (one launch) beside its
+     plain version and its Tensor.to form (library_ms), the frames beside
+     halo.exchange_row_halo with their own bytes bound; then the host-time
+     split of one exchange of each and of their Tensor.to forms (wall,
+     _build.launch, the ctypes launch calls, device time);
  24. the sharded EXACT and BRUTE pipelines (parallel/sharded.py) at 4096²,
      spread 64, on the glyph and the noise, over a (4,) 'y' mesh and a
      (2, 2) ('y', 'x') mesh of logical shards of the card, each under
@@ -136,8 +140,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
      against their plain versions; brute_scan_bytes_halo bit for bit
      against its plain version on shard 1's halo'd planes; the launch
      counters over the rdma main path (the halo kernels and the halo scan
-     must launch), the ppermute one (no halo kernel) and one device (no
-     sharded kernel); times of the 4-shard runs against one device;
+     must launch, the halo kernel once per exchange, or hop, and device:
+     halo_slab 3 times, halo_ring_shift 4), the ppermute one (no halo
+     kernel) and one device (no sharded kernel); times of the 4-shard runs
+     against one device;
  25. sharded JFA over both meshes at 1024² bit for bit against
      jfa_distance, and one 4096² sharded JFA time; with 2 or more cards,
      phase 24's (n,) mesh over real cards, SDFGenerator(sharding=...) and
@@ -163,8 +169,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      launch counters; 1b also against the same body over a (1,) mesh of
      the card (the same rows-conv products, no shard boundary: gradient
      within 1e-6 of the scale by the knee rule); the launch counters over
-     the main path (one 1b step and one wide-tap step under rdma); times (CUDA events, as in phase 6)
-     of each step; torch.profiler over the 1a and 1b steps;
+     the main path (one 1b step and one wide-tap step under rdma); times
+     (CUDA events, as in phase 6) of each step, each rdma step beside its
+     ppermute twin; torch.profiler over the 1a and 1b steps;
  28. the entry points: SDFGenerator(soft, sharding) on the glyph byte for
      byte one device (over the cards there are, up to 4; phase 27 holds
      the tier over 4 logical shards), SoftSDFModel(mesh=...) Adam steps
@@ -1627,6 +1634,92 @@ def to_slabs(blocks, band):
             + [b[..., :band, :].to(g.device, copy=True) for b, g in zip(blocks[1:], blocks[:-1])])
 
 
+def host_split(label: str, fn, entries=(), reps: int = 50) -> None:
+    """Where one call of ``fn`` (one halo exchange) spends its time, the card
+    idle before each call: the host's wall time of the call, the part of it
+    inside _build.launch and, within that, inside the launchers' ctypes
+    calls (``entries``: the CUDA launch itself), and the device time that
+    torch.profiler traces for the call; then ``reps`` calls back to back,
+    the host's time and the time to the card's end. Microseconds per call,
+    the mean of ``reps`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lib = _build.load()
+    spent = {"launch": 0.0, "ctypes": 0.0, "launches": 0}
+    real_launch, real_entries = _build.launch, {e: getattr(lib, e) for e in entries}
+
+    def timed_launch(*args):
+        t = time.perf_counter()
+        real_launch(*args)
+        spent["launch"] += time.perf_counter() - t
+
+    def timed_entry(entry):
+        def call(*args):
+            t = time.perf_counter()
+            rc = entry(*args)
+            spent["ctypes"] += time.perf_counter() - t
+            spent["launches"] += 1
+            return rc
+        return call
+
+    fn()
+    torch.cuda.synchronize()
+    _build.launch = timed_launch
+    for e, f in real_entries.items():
+        setattr(lib, e, timed_entry(f))
+    try:
+        wall = 0.0
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            wall += time.perf_counter() - t
+        torch.cuda.synchronize()
+        iso = dict(spent)
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        b2b_host = time.perf_counter() - t
+        torch.cuda.synchronize()
+        b2b_end = time.perf_counter() - t
+    finally:
+        _build.launch = real_launch
+        for e, f in real_entries.items():
+            setattr(lib, e, f)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages() if e.self_device_time_total > 0)
+    split = {k: 1e6 * iso[k] / reps for k in ("launch", "ctypes")}
+    split.update(wall=1e6 * wall / reps, device=device / reps, launches=iso["launches"] / reps,
+                 b2b_host=1e6 * b2b_host / reps, b2b_end=1e6 * b2b_end / reps)
+    log(f"host split {label}: wall {split['wall']:.1f} us per exchange, of which _build.launch {split['launch']:.1f} "
+        f"({split['launches']:g} launches), the ctypes launch calls {split['ctypes']:.1f}, the wrapper's own "
+        f"{split['wall'] - split['launch']:.1f}; device {split['device']:.1f} us (torch.profiler); back to back "
+        f"without a sync: host {split['b2b_host']:.1f} us per exchange, {split['b2b_end']:.1f} to the card's end")
+
+
+def halo_host_splits(dev) -> None:
+    """The host-time split of one exchange of each halo kernel and of its
+    Tensor.to form, at phase 23's timing shapes (4x(1024, 4096) u8 at band
+    66; 16x(64, 1024) u8 for the ring step)."""
+    rng = np.random.default_rng(SEED + 23)
+    b4 = [torch.from_numpy(rng.integers(0, 256, size=(SIZE // SHARDS, SIZE), dtype=np.uint8)).to(dev)
+          for _ in range(SHARDS)]
+    b16 = [torch.from_numpy(rng.integers(0, 256, size=(64, 1024), dtype=np.uint8)).to(dev) for _ in range(16)]
+    band = SPREAD + 2
+    host_split("halo_slab 4x(1024, 4096) u8 band 66", lambda: cuda_halo.halo_slab(b4, band, 255),
+               ("chaq_halo_slab",))
+    host_split("halo_slab's Tensor.to form", lambda: to_slabs(b4, band))
+    host_split("halo_ring_shift 16x(64, 1024) u8", lambda: cuda_halo.halo_ring_shift(b16, b16),
+               ("chaq_halo_ring_shift",))
+    host_split("halo_ring_shift's Tensor.to form", lambda: [b.to(dev, copy=True) for b in b16 + b16])
+    host_split("rdma frames 4x(1024, 4096) u8 band 66", lambda: cuda_halo.exchange_row_halo_rdma(b4, band, 255),
+               ("chaq_halo_slab",))
+    host_split("ppermute frames (halo.exchange_row_halo)", lambda: halo.exchange_row_halo(b4, band, 255))
+
+
 def reset_launches():
     torch.cuda.synchronize()
     for counts in (cuda_edt.LAUNCHES, cuda_brute.LAUNCHES, cuda_halo.LAUNCHES):
@@ -1657,6 +1750,10 @@ def sharded_phases(dev, noise, glyph):
                                 sum(cuda_halo.halo_slab_plain(blocks, band, fill), []))
             err["halo_slab"] = max(err["halo_slab"], e)
             log(f"check halo_slab {dtype} {SHARDS}x({h4}, {SIZE}) band {band} fill {fill}: {e} bytes differ")
+            e = differing_bytes(cuda_halo.exchange_row_halo_rdma(blocks, band, fill),
+                                halo.exchange_row_halo(blocks, band, fill))
+            err["halo_slab"] = max(err["halo_slab"], e)
+            log(f"check rdma frames {dtype} {SHARDS}x({h4}, {SIZE}) band {band} vs ppermute: {e} bytes differ")
         e = differing_bytes(sum(cuda_halo.halo_ring_shift(blocks, blocks[::-1]), []),
                             sum(cuda_halo.halo_ring_shift_plain(blocks, blocks[::-1]), []))
         err["halo_ring_shift"] = max(err["halo_ring_shift"], e)
@@ -1677,29 +1774,48 @@ def sharded_phases(dev, noise, glyph):
     require(err["halo_slab"] == 0 and err["halo_ring_shift"] == 0, "a halo kernel differs from its plain version")
 
     # the shapes the main path gives them: a 4096-wide u8 strip over 4 shards
-    # at band 66 (halo_slab), and 1024-wide 64-row shards (the ring shift of
-    # the 16-shard multi-hop run)
+    # at band 66 (halo_slab, and the frames of the sharded pipelines), and
+    # 1024-wide 64-row shards (the ring shift of the 16-shard multi-hop run)
     band = SPREAD + 2
     b4 = rand_blocks(SHARDS, h4, torch.uint8)
+    exchanges = {
+        "halo_slab": lambda: cuda_halo.halo_slab(b4, band, 255),
+        "halo_ring_shift": lambda: cuda_halo.halo_ring_shift(b16, b16),
+        "halo_frames": lambda: cuda_halo.exchange_row_halo_rdma(b4, band, 255),
+    }
+    per_exchange = {}
+    for k, fn in exchanges.items():
+        reset_launches()
+        fn()
+        per_exchange[k] = sum(read_launches()[name] for name in ("halo_slab", "halo_ring_shift"))
     times = {
-        "halo_slab": cuda_ms(lambda: cuda_halo.halo_slab(b4, band, 255)),
+        "halo_slab": cuda_ms(exchanges["halo_slab"]),
         "halo_slab_plain": cuda_ms(lambda: cuda_halo.halo_slab_plain(b4, band, 255)),
         "halo_slab_library": cuda_ms(lambda: to_slabs(b4, band)),
-        "halo_ring_shift": cuda_ms(lambda: cuda_halo.halo_ring_shift(b16, b16)),
+        "halo_ring_shift": cuda_ms(exchanges["halo_ring_shift"]),
         "halo_ring_shift_plain": cuda_ms(lambda: cuda_halo.halo_ring_shift_plain(b16, b16)),
         "halo_ring_shift_library": cuda_ms(lambda: [b.to(dev, copy=True) for b in b16 + b16]),
+        "halo_frames": cuda_ms(exchanges["halo_frames"]),
+        "halo_frames_ppermute": cuda_ms(lambda: halo.exchange_row_halo(b4, band, 255)),
     }
     bounds = {
         # each neighbour's halo rows read once, each shard's two slabs written
         # once: the first shard's up and the last one's down are fill, not read
         "halo_slab": bound(((2 * SHARDS - 2) + 2 * SHARDS) * band * SIZE, 0),
         "halo_ring_shift": bound(2 * 16 * 2 * 64 * 1024, 0),
+        # the frames written once, each shard's centre rows and its
+        # neighbours' halo rows read once
+        "halo_frames": bound((SHARDS * (h4 + 2 * band) + SHARDS * h4 + (2 * SHARDS - 2) * band) * SIZE, 0),
     }
-    for k in ("halo_slab", "halo_ring_shift"):
-        log(f"time {k}: {times[k]:.4f} ms per exchange ({len(b4) if k == 'halo_slab' else 16} launches), "
-            f"plain {times[k + '_plain']:.4f}, Tensor.to {times[k + '_library']:.4f}; bound {bounds[k][0]:.5f} ms "
-            f"({bounds[k][1]})")
+    for k, lib in (("halo_slab", "_library"), ("halo_ring_shift", "_library"), ("halo_frames", "_ppermute")):
+        plain = f", plain {times[k + '_plain']:.4f}" if k + "_plain" in times else ""
+        log(f"time {k}: {times[k]:.4f} ms per exchange ({per_exchange[k]} launch(es)){plain}, "
+            f"{'Tensor.to' if lib == '_library' else 'halo.exchange_row_halo'} {times[k + lib]:.4f}; bound "
+            f"{bounds[k][0]:.5f} ms ({bounds[k][1]})")
+    require(per_exchange == {"halo_slab": 1, "halo_ring_shift": 1, "halo_frames": 1},
+            f"a halo exchange over logical shards of one card took other than one launch: {per_exchange}")
     del b4, b16
+    halo_host_splits(dev)
 
     # phase 24: sharded EXACT and BRUTE at full width, byte for byte one device
     masks = {
@@ -1781,6 +1897,10 @@ def sharded_phases(dev, noise, glyph):
     log(f"main path sharded rdma: launches {launches}")
     for k in err:
         require(launches[k] > 0, f"kernel {k} was not launched on the sharded rdma path")
+    # one launch per exchange and device: EXACT's two exchanges and BRUTE's
+    # one over 4 shards; EXACT's two over 16 shards, 2 hops each
+    require(launches["halo_slab"] == 3 and launches["halo_ring_shift"] == 4,
+            "the rdma exchanges took other than one launch per exchange (and hop) and device")
     reset_launches()
     sharded.sharded_hard_sdf_bytes(g, SPREAD, m4)
     sharded.sharded_brute_sdf_bytes(g, SPREAD, m4)
@@ -2100,6 +2220,9 @@ def sharded_soft_phases(dev, noise, glyph):
             require(all(counts.get(k, 0) > 0 for k in kernels), f"sharded soft {label} {impl}: tier kernels {kernels}")
             require((counts.get("halo_slab", 0) + counts.get("halo_ring_shift", 0) > 0) == (impl == "rdma"),
                     f"sharded soft {label} {impl}: halo kernels")
+            # 1a over one chain: one exchange forward, one for the cotangent and both memos backward
+            require(label != "1a (4,)" or impl != "rdma" or counts.get("halo_slab") == 2,
+                    "sharded soft 1a (4,) rdma: other than two halo_slab launches a step")
             steps[(label, impl)] = (fn, g)
         steps[(label, "one device")] = (single, g)
         del new1, g1, new, grad, knee
@@ -2119,6 +2242,10 @@ def sharded_soft_phases(dev, noise, glyph):
         key = f"sharded_soft_step {label} {impl}"
         times[key] = cuda_ms(lambda: soft_step(fn, g))
         log(f"time {key}: {times[key]:.4f} ms")
+    for label in dict.fromkeys(label for label, _ in steps):
+        pp, rd = times[f"sharded_soft_step {label} ppermute"], times[f"sharded_soft_step {label} rdma"]
+        log(f"time sharded soft step {label}: rdma {rd:.4f} ms beside ppermute {pp:.4f} ms ({rd / pp:.3f}x), "
+            f"one device {times[f'sharded_soft_step {label} one device']:.4f} ms")
     profile_device("sharded soft step 1a (4,) rdma", lambda: soft_step(*steps[("1a (4,)", "rdma")]))
     profile_device("sharded soft step 1b (4,) rdma", lambda: soft_step(*steps[("1b (4,)", "rdma")]))
     del steps, stack

@@ -585,7 +585,7 @@ def test_halo_kernels_match_plain(dev, dtype, n, h, w, band):
     if band <= h:
         got = cuda_halo.halo_slab(blocks, band, fill)
         want = cuda_halo.halo_slab_plain(blocks, band, fill)
-        assert cuda_halo.LAUNCHES["halo_slab"] == before["halo_slab"] + n
+        assert cuda_halo.LAUNCHES["halo_slab"] == before["halo_slab"] + 1  # one launch per exchange and device
         for a, b_ in zip(got[0] + got[1], want[0] + want[1]):
             assert torch.equal(a, b_)
     up, dn = cuda_halo.halo_ring_shift(blocks, blocks[::-1])
@@ -595,6 +595,66 @@ def test_halo_kernels_match_plain(dev, dtype, n, h, w, band):
     plain = halo.exchange_row_halo(blocks, band, fill)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b_) for a, b_ in zip(ext, plain))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int32, torch.float32])
+@pytest.mark.parametrize("n,h,w,band", [(4, 32, 4096, 5), (4, 16, 33, 16), (3, 8, 130, 1), (8, 8, 96, 17),
+                                        (4, 6, 50, 14), (1, 8, 64, 3)])
+def test_halo_frames_match_ppermute(dev, dtype, n, h, w, band):
+    """The frames written in place, bit for bit the ppermute form: one
+    halo_slab launch where the band fits in a shard, else one
+    halo_ring_shift launch per hop; plane stacks of (2, 4, h, W) too."""
+    from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo
+
+    rng = np.random.default_rng(n * h + band + w)
+    fill = {torch.uint8: 255, torch.uint16: 65535, torch.int32: -1, torch.float32: -7.25}[dtype]
+    for shape in ((2, h, w), (2, 4, h, w)):
+        blocks = [torch.from_numpy(rng.integers(0, 60000, size=shape)).to(dtype).to(dev) for _ in range(n)]
+        before = dict(cuda_halo.LAUNCHES)
+        got = cuda_halo.exchange_row_halo_rdma(blocks, band, fill)
+        hops = -(-band // h)
+        assert cuda_halo.LAUNCHES["halo_slab"] == before["halo_slab"] + (hops == 1)
+        assert cuda_halo.LAUNCHES["halo_ring_shift"] == before["halo_ring_shift"] + (hops if hops > 1 else 0)
+        want = halo.exchange_row_halo(blocks, band, fill)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+
+
+def test_halo_table_longer_than_a_launch(dev):
+    """32 shards' frames: 96 jobs, two launches of at most 64."""
+    from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo
+
+    rng = np.random.default_rng(32)
+    blocks = [torch.from_numpy(rng.integers(0, 255, size=(8, 40), dtype=np.uint8)).to(dev) for _ in range(32)]
+    before = cuda_halo.LAUNCHES["halo_slab"]
+    got = cuda_halo.exchange_row_halo_rdma(blocks, 3, 7)
+    assert cuda_halo.LAUNCHES["halo_slab"] == before + 2
+    want = halo.exchange_row_halo(blocks, 3, 7)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+
+
+def test_tier_1a_backward_exchanges_three_arrays_in_one_launch(dev):
+    """The declared chain's backward: the cotangent and both memos in one
+    halo_slab launch, the gradient bit for bit the ppermute form's."""
+    from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo
+
+    rng = np.random.default_rng(1)
+    k1, k2, shift = soft_mxu.range_stats(66, 2.0, 1.0, (0.0, 255.0))
+    gray = torch.from_numpy(rng.integers(0, 256, size=(512, 96)).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal((128, 96)).astype(np.float32)).to(dev)
+    windows = [(max(0, k2 - i * 128), min(128 + 2 * k2, k2 + (4 - i) * 128), 0, 96) for i in range(4)]
+    grads = []
+    for frames in (cuda_halo.exchange_row_halo_rdma_many, halo.exchange_row_halo_many):
+        blocks = [b.clone().requires_grad_() for b in gray.split(128)]
+        fields = cuda_soft_mm.sharded_mm_fused(blocks, frames, windows, k1, k2, shift, 2.0, 1.0, 1e-6)
+        loss = sum((f * ct).sum() for f in fields)
+        before = cuda_halo.LAUNCHES["halo_slab"]
+        loss.backward()
+        assert cuda_halo.LAUNCHES["halo_slab"] == before + (frames is cuda_halo.exchange_row_halo_rdma_many)
+        grads.append(torch.cat([b.grad for b in blocks]))
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_halo_wrappers_refuse_what_kernels_do_not_take(dev):

@@ -140,9 +140,9 @@ def load() -> ctypes.CDLL:
                               ("chaq_soft_b1", 4)):
             getattr(lib, entry).argtypes = [vp] * n_ptrs + fused_tail
             getattr(lib, entry).restype = i32
-        # (n, h, w, band, T, 1/T, stream)
-        col_tail = [i32, i32, i32, i32, f32, f32, vp]
-        for entry, n_ptrs in (("chaq_softmin_fwd", 2), ("chaq_softmin_bwd", 4)):
+        # (n, nf, npos, nlanes, band, axis, implicit, pitch, col, T, 1/T, impl, stream)
+        col_tail = [i32] * 9 + [f32, f32, i32, vp]
+        for entry, n_ptrs in (("chaq_softmin_fwd", 3), ("chaq_softmin_bwd", 6)):
             getattr(lib, entry).argtypes = [vp] * n_ptrs + col_tail
             getattr(lib, entry).restype = i32
         # (n, h_in, h_out, w, k, row_off, taps, [T, eps, shift,] stream)

@@ -17,9 +17,10 @@ soft_sdf_field dispatches as the JAX package does on its accelerator
   3. otherwise, for band <= 112 and at least 2 rows, a runtime gate on the
      input's largest height picks the kernels of item 1 with a runtime shift
      or the four adaptive kernels of ops/soft_fused.py;
-  4. everything else takes the composed path: band_softmin three times, the
-     column soft-min kernels of ops/softmin.py (pass 1 per field on the
-     transposed heights, pass 2 once on both fields side by side).
+  4. everything else takes the composed path: the soft-min kernels of
+     ops/softmin.py twice each way (pass 1 along x on both fields' heights in
+     one launch, written into the two halves of S1; pass 2 along y on S1),
+     with implicit sentinels: no pad, transpose or cat around them.
 Each runs its kernels on CUDA and their plain versions on the CPU.
 
 The streaming scan below (_band_softmin_fwd_impl, _BandSoftmin,
@@ -95,27 +96,36 @@ class _BandSoftmin(torch.autograd.Function):
 
 
 def _pad_axis(g: torch.Tensor, band: int, axis: int) -> torch.Tensor:
-    """``band`` sentinel heights on both sides of ``axis``."""
+    """``band`` sentinel heights on both sides of ``axis`` (the scan
+    oracle's extension; the kernels read the sentinels implicitly)."""
     pad = [0, 0] * g.dim()
     pad[2 * (g.dim() - 1 - axis)] = pad[2 * (g.dim() - 1 - axis) + 1] = band
     return torch.nn.functional.pad(g, pad, value=_PAD_HEIGHT)
 
 
+def _softmin_along(g: torch.Tensor, band: int, temperature: float, axis: int, implicit: bool) -> torch.Tensor:
+    """The kernels of ops/softmin.py take the last two axes as they lie;
+    another axis is moved to -2 and back, as the JAX package's 2-D path
+    transposes."""
+    axis = axis % g.dim()
+    if axis >= g.dim() - 2:
+        return softmin.band_softmin_fields(g, band, temperature, axis - g.dim(), implicit)
+    return softmin.band_softmin_fields(g.movedim(axis, -2), band, temperature, -2, implicit).movedim(-2, axis)
+
+
 def band_softmin_ext(gext: torch.Tensor, band: int, temperature: float, axis: int = -2) -> torch.Tensor:
     """band_softmin on a pre-extended input (``band`` extra entries on each
-    side of ``axis``). Output is 2 band shorter along ``axis``. The column
-    soft-min kernels of ops/softmin.py (their plain versions on the CPU),
-    under autograd; another axis is moved to -2 and back, as the JAX
-    package's 2-D path transposes."""
-    return softmin.band_softmin_col(gext.movedim(axis, -2), band, temperature).movedim(-2, axis)
+    side of ``axis``). Output is 2 band shorter along ``axis``. The soft-min
+    kernels of ops/softmin.py (their plain versions on the CPU), under
+    autograd."""
+    return _softmin_along(gext, band, temperature, axis, False)
 
 
 def band_softmin(g: torch.Tensor, band: int, temperature: float, axis: int = -2) -> torch.Tensor:
     """S(p) = -T log sum_{|d| <= band} exp(-(d^2 + g(p+d))/T) along
     ``axis``; out-of-range taps read the sentinel height 1e30 and contribute
-    nothing."""
-    axis = axis % g.dim()
-    return band_softmin_ext(_pad_axis(g, band, axis), band, temperature, axis)
+    nothing (the kernels read them implicitly: nothing is padded)."""
+    return _softmin_along(g, band, temperature, axis, True)
 
 
 def band_softmin_scan(g: torch.Tensor, band: int, temperature: float, axis: int = -2) -> torch.Tensor:
@@ -154,15 +164,15 @@ def soft_sdf_field_composed(
 
 def cols_pass1(gray, band, tau, temperature, test_above=True):
     """Pass 1 of the composed path: (..., H, W) gray -> S1 of both fields
-    side by side, (..., H, 2W): the heights of the transposed image, clipped
-    at big_sentinel(band) = (band + 1)^2 as the JAX composed path clips
-    them, and their soft-min along x per field."""
+    side by side, (..., H, 2W): the heights, clipped at big_sentinel(band) =
+    (band + 1)^2 as the JAX composed path clips them, and their soft-min
+    along x, both fields in one launch each way, each written into (and its
+    cotangent read from) its half of S1."""
     g = gray.to(torch.float32)
     big = big_sentinel(band)
-    logits_t = threshold.soft_logits(g.transpose(-1, -2).contiguous(), tau=tau, test_above=test_above)
-    s1 = [band_softmin(threshold.soft_log_indicator_from_logits(logits_t, temperature, on, big), band,
-                       temperature, axis=-2).transpose(-1, -2) for on in (True, False)]
-    return torch.cat(s1, dim=-1)
+    logits = threshold.soft_logits(g, tau=tau, test_above=test_above)
+    heights = [threshold.soft_log_indicator_from_logits(logits, temperature, on, big) for on in (True, False)]
+    return softmin.band_softmin_fields(heights, band, temperature, axis=-1, implicit=True)
 
 
 def cols_tails(d2s, w, eps):

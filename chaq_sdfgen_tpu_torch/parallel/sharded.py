@@ -56,7 +56,7 @@ its order and on its conditions as it evaluates them on its accelerator:
      ('split'); JAX exchanges roundup(band, 8) rows for sublane alignment,
      the port the band rows the taps read. No runtime gate here, as in JAX;
   3. everything else: the composed scan. The heights, their soft-min along x
-     (the column soft-min kernels on the transposed heights, ops/softmin.py),
+     (ops/softmin.py's kernels along x, both fields in one launch),
      a band-row halo of S1 (fill 1e30), the soft-min along y, the tails.
 The 128-row, 128-column and 8-row conditions are TPU geometry (strips,
 lanes, sublanes): the port's kernels take any shape. They are kept all the

@@ -96,17 +96,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
      version and the three pipelines;
  19. where the BRUTE pipeline's and signed_distance_field_exact's device
      time goes: torch.profiler, as in phase 7;
- 20. the composed path's column soft-min kernels (csrc/softmin.cu:
-     softmin_col_fwd, softmin_col_bwd) against their plain versions on the
-     card, tolerance 0 (float32 bits), on the strips the composed path
-     gives them (pass 1 per field, pass 2 on both): 4096x4096 at band 130
+ 20. the composed path's soft-min kernels (csrc/softmin.cu: softmin_col_fwd,
+     softmin_col_bwd) against their plain versions on the card, tolerance 0
+     (float32 bits): the explicit column form on the strips the composed
+     path gave them before (pass 1 per field on the transposed, padded
+     heights, pass 2 on both fields side by side): 4096x4096 at band 130
      on noise in [0, 255), noise in +-2000 and the glyph's alpha mapped to
      +-2040; 2048x2048 at band 258; bands 0, 1 and 113; 1x4096, 4096x1,
-     139x131 and a batch of 3; an all-1e30 strip (finite, above 1e29);
+     139x131 and a batch of 3; then, on the same inputs, the forms the
+     composed path runs now (check_forms): pass 1 along x on both fields'
+     heights with implicit sentinels, written at a column offset into S1 and
+     its VJP reading the halves in place, pass 2 along y with implicit
+     sentinels, and pass 1 against the column form + torch.cat; the
+     global-load instance on the 4096x4096 pm2000 strips and at band 1000 on
+     2048x2048 (past the staged strip's shared memory); an all-1e30 strip
+     (finite, above 1e29);
  21. the composed path through its entry points at 4096x4096, spread 128:
      3 training steps of soft_sdf_field without gray_range on the bench's
-     noise and on noise in +-2000 (the counters must show 3 + 3 column
-     soft-mins per step and no other soft kernel), one 1x4096 row, 3 Adam
+     noise and on noise in +-2000 (the counters must show 2 + 2 soft-mins
+     per step and no other soft kernel), one 1x4096 row, 3 Adam
      steps of SoftSDFModel(spread=128) and the CLI --soft -s 128
      --gray-range -1000000000 1000000000 on the glyph PNG, each held
      against its plain twin (the same entry point with the plain versions
@@ -116,10 +124,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      weights from S ~ 1e3); and the declared wide-tap step (tau 2, T 8:
      tap radii 28, 29) on the glyph, which must launch no kernel, its
      1024x1024 corner against soft_mxu.soft_field_collapsed;
- 22. composed times (CUDA events, as in phase 6): both kernels and their
-     plain versions per step (the three launches each way), the composed
-     step on both noises and its plain twin, the SoftSDFModel step and
-     the wide-tap step; then torch.profiler over the composed step;
+ 22. composed times (CUDA events, as in phase 6): both kernels per step on
+     noise in +-2000 and on the glyph in +-2040 (softmin_step_times: the
+     forms the path runs, 2 launches each way, their plain versions, and
+     the column form it ran before, 3 launches each way; bounds and live
+     taps), the composed step on both noises and its plain twin, the
+     SoftSDFModel step and the wide-tap step; then torch.profiler over the
+     composed step. `python3 chip_smoke.py --composed-turn` runs phase 22's
+     measurements alone (composed_turn), on this tree or its parent;
  23. the halo kernel's two launchers (csrc/halo.cu: halo_slab,
      halo_ring_shift) against their plain versions bit for bit, and the
      halo'd frames it writes in place against the ppermute form, in uint8,
@@ -1365,6 +1377,55 @@ def col_taps(gext: torch.Tensor, s: torch.Tensor, band: int, t: float) -> tuple:
     return int(fwd), int(bwd)
 
 
+def composed_heights(gray: torch.Tensor, band: int, tau: float, t: float) -> tuple:
+    """Both fields' heights of ``gray`` as the composed path forms them
+    (ops/softsdf.cols_pass1), untransposed."""
+    big = edt.big_sentinel(band)
+    logits = threshold.soft_logits(gray, tau)
+    return tuple(threshold.soft_log_indicator_from_logits(logits, t, on, big) for on in (True, False))
+
+
+def check_forms(label, gray, band, tau, t, gen, impl="auto") -> dict:
+    """The forms the composed path runs, each kernel against its plain
+    version on the card, bit for bit: pass 1 along x on both fields'
+    heights with implicit sentinels, written at a column offset into S1 (a
+    pitch wider than 2W) and its VJP reading the halves in place; pass 2
+    along y with implicit sentinels on S1. Pass 1 is also held against the
+    explicit column form on the transposed, padded heights and torch.cat
+    (composed_strips), bit for bit. Returns each kernel's max abs error."""
+    fields = composed_heights(gray, band, tau, t)
+    rows, w = gray.shape[-2:]
+    shape = tuple(gray.shape[:-2]) + (rows, 2 * w + 3)
+    out, outp = torch.zeros(shape, device=gray.device), torch.zeros(shape, device=gray.device)
+    x1 = dict(axis=-1, implicit=True)
+    softmin.softmin_col_fwd(fields, band, t, out=out, out_col=1, impl=impl, **x1)
+    softmin.softmin_col_fwd_plain(fields, band, t, out=outp, out_col=1, **x1)
+    ct = torch.randn(shape, generator=gen, device=gray.device)
+    dg = softmin.softmin_col_bwd(fields, outp, ct, band, t, s_col=1, impl=impl, **x1)
+    dgp = softmin.softmin_col_bwd_plain(fields, outp, ct, band, t, s_col=1, **x1)
+    s1 = outp[..., 1:1 + 2 * w].contiguous()
+    s2 = softmin.softmin_col_fwd(s1, band, t, implicit=True, impl=impl)
+    s2p = softmin.softmin_col_fwd_plain(s1, band, t, implicit=True)
+    ct2 = torch.randn(s2p.shape, generator=gen, device=gray.device)
+    dg2 = softmin.softmin_col_bwd(s1, s2p, ct2, band, t, implicit=True, impl=impl)
+    dg2p = softmin.softmin_col_bwd_plain(s1, s2p, ct2, band, t, implicit=True)
+    torch.cuda.synchronize()
+    bits = {"pass 1 along x fwd": bits_err(out, outp),
+            "pass 1 along x bwd": max(bits_err(a, b) for a, b in zip(dg, dgp)),
+            "pass 2 implicit fwd": bits_err(s2, s2p), "pass 2 implicit bwd": bits_err(dg2, dg2p)}
+    if band <= 300:  # the column form's plain pass costs band-long loops on the transposed strips
+        old = [softmin.softmin_col_fwd_plain(gext, band, t).transpose(-1, -2)
+               for _, gext in composed_strips(gray, band, tau, t)[:2]]
+        bits["pass 1 vs the column form + cat"] = bits_err(s1, torch.cat(old, -1))
+    log(f"check composed forms {label} band {band} T {t} impl {impl}: "
+        + ", ".join(f"{k} {v} values differ" for k, v in bits.items())
+        + f"; finite {bool(torch.isfinite(s2).all())}")
+    require(not any(bits.values()) and bool(torch.isfinite(s2).all()) and bool(torch.isfinite(dg2).all()),
+            f"a soft-min form differs from its plain version on {label}")
+    return {"softmin_col_fwd": max(abs_err(out, outp), abs_err(s2, s2p)),
+            "softmin_col_bwd": max(max(abs_err(a, b) for a, b in zip(dg, dgp)), abs_err(dg2, dg2p))}
+
+
 def composed_phases(dev, glyph):
     """Phases 20-22. Returns (errors, launches, times, bounds)."""
     err = {k: 0.0 for k in softmin.LAUNCHES}
@@ -1408,6 +1469,19 @@ def composed_phases(dev, glyph):
         for label, gext in composed_strips(g, band, 1.0, 0.5):
             check(f"pm2000 {shape} {label}", gext, band, 0.5)
         check(f"heights {shape}", torch.nn.functional.pad(g.abs(), (0, 0, band, band), value=1e30), band, t)
+    # the forms the composed path runs (pass 1 along x on both fields' heights, written into the
+    # halves of S1; pass 2 along y, both with implicit sentinels) and the global-load instance
+    forms = [(f"{name} {SIZE}x{SIZE}", g, band, tau, t, "auto") for name, g in big.items()]
+    forms += [("pm2000 4096x4096 global-load instance", big["pm2000"], band, tau, t, "global"),
+              ("pm2000 2048x2048", small, 258, 1.0, 0.5, "auto"),
+              ("pm2000 2048x2048 band 1000 (past the staged strip along y)", small, 1000, 1.0, 0.5, "auto")]
+    forms += [("pm2000 512x512", big["pm2000"][:512, :512].contiguous(), b, tau, t, "auto") for b in (0, 1, 113)]
+    for shape in ((1, SIZE), (SIZE, 1), (139, 131), (3, 256, 256)):
+        g = torch.from_numpy(pm_noise(shape, int(rng.integers(1 << 30)))).to(dev)
+        forms.append((f"pm2000 {shape}", g, band, 1.0, 0.5, "auto"))
+    for label, g, b, tau_, t_, impl in forms:
+        for k, e in check_forms(label, g, b, tau_, t_, gen, impl).items():
+            err[k] = max(err[k], e)
     sat = softmin.softmin_col_fwd(torch.full((64 + 2 * band, 256), 1e30, device=dev), band, 0.5)
     log(f"check composed all-1e30 strip: finite {bool(torch.isfinite(sat).all())}, min {float(sat.min()):.3e}")
     require(bool(torch.isfinite(sat).all()) and bool((sat > 1e29).all()), "the all-1e30 strip left (1e29, inf)")
@@ -1458,15 +1532,15 @@ def composed_phases(dev, glyph):
     launches = None
     for name in ("noise", "pm2000"):
         c = held(f"training {name} {SIZE}x{SIZE} spread {COMPOSED_SPREAD}", composed_step, big[name])
-        require(c["softmin_col_fwd"] == 9 and c["softmin_col_bwd"] == 9
+        require(c["softmin_col_fwd"] == 6 and c["softmin_col_bwd"] == 6
                 and not any(v for k, v in c.items() if not k.startswith("softmin")),
-                f"the composed step on {name} did not launch 3 + 3 column soft-mins and nothing else")
+                f"the composed step on {name} did not launch 2 + 2 soft-mins and nothing else")
         if name == "pm2000":
             launches = {k: c[k] for k in softmin.LAUNCHES}
     row = torch.from_numpy(pm_noise((1, SIZE), SEED + 14)).to(dev)
     c = held(f"one row (1, {SIZE}) spread {SPREAD}",
              step_with(lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=tau, temperature=t)), row)
-    require(c["softmin_col_fwd"] == 9 and c["softmin_col_bwd"] == 9, "the one-row step did not run 3 + 3")
+    require(c["softmin_col_fwd"] == 6 and c["softmin_col_bwd"] == 6, "the one-row step did not run 2 + 2")
 
     # the glyph's 1024x1024 corner, blurred (5x5 box) so that its stroke edges hold gradients, in
     # +-2040: the kernels' chain against the independent scan oracle
@@ -1510,7 +1584,7 @@ def composed_phases(dev, glyph):
     c = counts()
     log(f"main path composed: SoftSDFModel {tuple(img.shape)} 3 Adam steps, losses {losses}, launches "
         f"{ {k: v for k, v in c.items() if v} }")
-    require(all(math.isfinite(v) for v in losses) and c["softmin_col_fwd"] == 9 and c["softmin_col_bwd"] == 9
+    require(all(math.isfinite(v) for v in losses) and c["softmin_col_fwd"] == 6 and c["softmin_col_bwd"] == 6
             and not any(v for k, v in c.items() if not k.startswith("softmin")),
             "SoftSDFModel past band 112 did not run the column soft-mins alone")
 
@@ -1559,19 +1633,9 @@ def composed_phases(dev, glyph):
         f"loss rel err {rel_v:.3e}, gradient {rel_g:.3e} of scale")
     require(field_err <= 1e-4 and rel_g < 1e-4, "the wide-tap step differs from its plain twin")
 
-    # phase 22: times with CUDA events, per step (its 3 launches each way)
-    g = big["pm2000"]
-    strips = composed_strips(g, band, tau, t)
-    fwd_in = [(gext, band, t) for _, gext in strips]
-    s_out = [softmin.softmin_col_fwd(*a) for a in fwd_in]
-    ones = [torch.ones_like(s) for s in s_out]
-    bwd_in = [(gext, s, ct, band, t) for (gext, _, _), s, ct in zip(fwd_in, s_out, ones)]
-    times = {
-        "softmin_col_fwd": cuda_ms(lambda: [softmin.softmin_col_fwd(*a) for a in fwd_in]),
-        "softmin_col_fwd_plain": cuda_ms(lambda: [softmin.softmin_col_fwd_plain(*a) for a in fwd_in], 2, 3),
-        "softmin_col_bwd": cuda_ms(lambda: [softmin.softmin_col_bwd(*a) for a in bwd_in]),
-        "softmin_col_bwd_plain": cuda_ms(lambda: [softmin.softmin_col_bwd_plain(*a) for a in bwd_in], 2, 3),
-    }
+    # phase 22: times with CUDA events, per step (its 2 launches each way), on pm2000 and the glyph
+    times, bounds = softmin_step_times(big["pm2000"], band, tau, t, "pm2000")
+    softmin_step_times(big["glyph+-2040"], band, tau, t, "glyph+-2040")
     for name in ("pm2000", "noise"):
         times[f"composed_step_{name}"] = cuda_ms(lambda: composed_step(big[name]))
         with plain_softmin():
@@ -1581,29 +1645,103 @@ def composed_phases(dev, glyph):
     times["wide_step_plain_1024"] = cuda_ms(lambda: step_with(
         lambda x: soft_mxu.soft_field_collapsed(x, k1, k2, c_shift, tau, WIDE_T, EPS)[0])(wcorner), 2, 3)
     times["wide_step_1024"] = cuda_ms(lambda: wide_step(wcorner))
-    for k, ms in times.items():
-        log(f"time composed {k}: {ms:.4f} ms")
+    for k in ("composed_step_pm2000", "composed_step_pm2000_plain", "composed_step_noise",
+              "composed_step_noise_plain", "soft_model_step", "wide_step", "wide_step_plain_1024", "wide_step_1024"):
+        log(f"time composed {k}: {times[k]:.4f} ms")
+    profile_device("composed step, pm2000", lambda: composed_step(big["pm2000"]))
+    return err, launches, times, bounds
 
-    nbytes = {"softmin_col_fwd": 0, "softmin_col_bwd": 0}
+
+def softmin_step_times(g: torch.Tensor, band: int, tau: float, t: float, label: str) -> tuple:
+    """Both kernels per composed step on ``g`` (CUDA events): the forms the
+    composed path runs (pass 1 along x on both fields into S1, pass 2 along
+    y; 2 launches each way) and their plain versions, and the column form it
+    ran before (3 explicit strips, composed_strips: 3 launches each way), and
+    the forms through the global-load instance; the
+    bound of each (bytes: inputs read once, outputs written once; operations:
+    5 per live forward tap, 6 per live backward tap) and the live taps.
+    Prints each; returns (times, bounds). On a tree without the forms (the
+    parent of the redesign) only the column form is timed."""
+    strips = composed_strips(g, band, tau, t)
+    fwd_in = [(gext, band, t) for _, gext in strips]
+    s_out = [softmin.softmin_col_fwd(*a) for a in fwd_in]
+    bwd_in = [(gext, s, torch.ones_like(s), band, t) for (gext, _, _), s in zip(fwd_in, s_out)]
+    times = {
+        "softmin_col_fwd_column_form": cuda_ms(lambda: [softmin.softmin_col_fwd(*a) for a in fwd_in]),
+        "softmin_col_bwd_column_form": cuda_ms(lambda: [softmin.softmin_col_bwd(*a) for a in bwd_in]),
+    }
     taps = {"softmin_col_fwd": 0, "softmin_col_bwd": 0}
+    col_bytes = {"softmin_col_fwd": 0, "softmin_col_bwd": 0}
     for (gext, _, _), s in zip(fwd_in, s_out):
-        nbytes["softmin_col_fwd"] += 4 * (gext.numel() + s.numel())
-        nbytes["softmin_col_bwd"] += 4 * 2 * (gext.numel() + s.numel())
+        col_bytes["softmin_col_fwd"] += 4 * (gext.numel() + s.numel())
+        col_bytes["softmin_col_bwd"] += 4 * 2 * (gext.numel() + s.numel())
         tf, tb = col_taps(gext, s, band, t)
         taps["softmin_col_fwd"] += tf
         taps["softmin_col_bwd"] += tb
-    npix = SIZE * SIZE
+    ops = {"softmin_col_fwd": 5 * taps["softmin_col_fwd"], "softmin_col_bwd": 6 * taps["softmin_col_bwd"]}
+    bounds = {f"{k}_column_form": bound(col_bytes[k], ops[k]) for k in taps}
+    if hasattr(softmin, "band_softmin_fields"):
+        fields = composed_heights(g, band, tau, t)
+        x1 = dict(axis=-1, implicit=True)
+        s1 = softmin.softmin_col_fwd(fields, band, t, **x1)
+        s2 = softmin.softmin_col_fwd(s1, band, t, implicit=True)
+        ct1, ct2 = torch.ones_like(s1), torch.ones_like(s2)
+
+        def fwd(f, **kw):
+            return lambda: (f(fields, band, t, out=s1, **x1, **kw), f(s1, band, t, implicit=True, **kw))
+
+        def bwd(f, **kw):
+            return lambda: (f(fields, s1, ct1, band, t, **x1, **kw), f(s1, s2, ct2, band, t, implicit=True, **kw))
+
+        times["softmin_col_fwd"] = cuda_ms(fwd(softmin.softmin_col_fwd))
+        times["softmin_col_fwd_plain"] = cuda_ms(fwd(softmin.softmin_col_fwd_plain), 2, 3)
+        times["softmin_col_fwd_global"] = cuda_ms(fwd(softmin.softmin_col_fwd, impl="global"))
+        times["softmin_col_bwd"] = cuda_ms(bwd(softmin.softmin_col_bwd))
+        times["softmin_col_bwd_plain"] = cuda_ms(bwd(softmin.softmin_col_bwd_plain), 2, 3)
+        times["softmin_col_bwd_global"] = cuda_ms(bwd(softmin.softmin_col_bwd, impl="global"))
+        nbytes = 4 * (sum(f.numel() for f in fields) + 2 * s1.numel() + s2.numel())
+        bounds["softmin_col_fwd"] = bound(nbytes, ops["softmin_col_fwd"])
+        bounds["softmin_col_bwd"] = bound(2 * nbytes, ops["softmin_col_bwd"])
+    npix = g.numel()
     for k, n in taps.items():
-        log(f"bound inputs {k}: {n} live taps per step ({n / (4 * npix):.2f} per pixel and pass)")
-    bounds = {
-        "softmin_col_fwd": bound(nbytes["softmin_col_fwd"], 5 * taps["softmin_col_fwd"]),
-        "softmin_col_bwd": bound(nbytes["softmin_col_bwd"], 6 * taps["softmin_col_bwd"]),
-    }
+        log(f"bound inputs {k} {label}: {n} live taps per step ({n / (4 * npix):.2f} per pixel and pass)")
+    for k, ms in times.items():
+        log(f"time composed {k} {label}: {ms:.4f} ms per step")
     for k, (b_ms, by) in bounds.items():
-        log(f"bound composed {k}: {b_ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
+        log(f"bound composed {k} {label}: {b_ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
             f"roofline share {100 * b_ms / times[k]:.1f}%")
-    profile_device("composed step, pm2000", lambda: composed_step(big["pm2000"]))
-    return err, launches, times, bounds
+    return times, bounds
+
+
+def composed_turn(dev, glyph) -> None:
+    """Phase 22's measurements alone, on any tree that has the composed path
+    (this one or its parent, for turns in one call): both kernels per step
+    on pm2000 and the glyph in +-2040, the composed step on pm2000, the
+    SoftSDFModel(spread=128) step, and the composed step's profile."""
+    band, tau, t = COMPOSED_SPREAD + 2, TRAIN_TAU, TRAIN_T
+    inputs = {
+        "pm2000": torch.from_numpy(pm_noise((SIZE, SIZE), SEED + 12)).to(dev),
+        "glyph+-2040": torch.from_numpy(glyph[..., 1].astype(np.float32) / 255 * 4080 - 2040).to(dev),
+    }
+    for name, g in inputs.items():
+        softmin_step_times(g, band, tau, t, name)
+
+    def composed_step(g):
+        x = g.detach().requires_grad_()
+        value = softsdf.soft_sdf_field(x, COMPOSED_SPREAD, tau=tau, temperature=t).sum()
+        value.backward()
+        with torch.no_grad():
+            return x - TRAIN_LR * x.grad
+
+    log(f"time composed composed_step_pm2000: {cuda_ms(lambda: composed_step(inputs['pm2000'])):.4f} ms")
+    img = torch.from_numpy(np.stack([pm_noise((SIZE, SIZE), SEED + 15), pm_noise((SIZE, SIZE), SEED + 16)],
+                                    -1)).to(dev)
+    d_in, d_out = edt.dual_edt_banded(img[..., 1] > 127, band)
+    target = merge.signed_merge(d_out, d_in)
+    model = SoftSDFModel(COMPOSED_SPREAD, SoftConfig(tau=tau, temperature=t), device=dev)
+    train = make_train_step(model, create_train_state(model, img, lr=ADAM_LR))
+    log(f"time composed soft_model_step: {cuda_ms(lambda: train(img, target), 5, 3):.4f} ms")
+    profile_device("composed step, pm2000", lambda: composed_step(inputs["pm2000"]))
 
 
 # ------------------------------------------------------------ sharded phases
@@ -2357,6 +2495,9 @@ def main() -> int:
 
     noise = noise_image(SIZE, SEED)
     glyph = glyph_image(SIZE, SEED + 1)
+    if sys.argv[1:] == ["--composed-turn"]:
+        composed_turn(dev, glyph)
+        return 0
     paths = []
     for label, phases, args in (("3-7", hard_phases, (noise, glyph)), ("8-11", soft_phases, (glyph,)),
                                 ("12-15", fused_phases, (glyph,)), ("16-19", brute_dist_phases, (noise, glyph)),

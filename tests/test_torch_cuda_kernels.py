@@ -458,12 +458,105 @@ def test_softmin_saturated_strip(dev):
     assert bool(torch.isfinite(out).all()) and bool((out > 1e29).all())
 
 
+def _form_case(dev, shape, band, axis, implicit, seed, nf=1):
+    """nf fields (heights in [0, 2000), pre-extended along the axis with
+    1e30 unless implicit) and a cotangent of one field's S."""
+    rng = np.random.default_rng(seed)
+    ext = 0 if implicit else 2 * band
+    gshape = list(shape)
+    gshape[axis] += ext
+    fields = []
+    for _ in range(nf):
+        h = rng.random(shape).astype(np.float32) * 2000
+        pad = [(0, 0)] * len(shape)
+        pad[axis] = (0, 0) if implicit else (band, band)
+        fields.append(torch.from_numpy(np.pad(h, pad, constant_values=np.float32(1e30))).to(dev))
+    return fields
+
+
+@pytest.mark.parametrize("shape", [(1, 17), (17, 1), (139, 131), (3, 64, 80), (1, 300), (70, 33)])
+@pytest.mark.parametrize("band,t", [(0, 1.0), (1, 0.5), (40, 1.0), (130, 0.5)])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("implicit", [False, True])
+@pytest.mark.parametrize("impl", ["auto", "global"])
+def test_softmin_forms_match_plain(dev, shape, band, t, axis, implicit, impl):
+    """Each form (along y or x, explicit or implicit sentinels) of both
+    kernels, staged strip and global-load instance, against the plain
+    version on the same inputs, bit for bit; one launch each."""
+    (g,) = _form_case(dev, shape, band, axis, implicit, band + len(shape))
+    kw = dict(axis=axis, implicit=implicit)
+    s = _counted_col("softmin_col_fwd", lambda: softmin.softmin_col_fwd(g, band, t, impl=impl, **kw))
+    sp = softmin.softmin_col_fwd_plain(g, band, t, **kw)
+    ct = torch.randn(sp.shape, generator=torch.Generator(device=dev).manual_seed(band), device=dev)
+    dg = _counted_col("softmin_col_bwd", lambda: softmin.softmin_col_bwd(g, sp, ct, band, t, impl=impl, **kw))
+    dgp = softmin.softmin_col_bwd_plain(g, sp, ct, band, t, **kw)
+    torch.cuda.synchronize()
+    assert dg.shape == g.shape
+    assert torch.equal(s, sp) and torch.equal(dg, dgp)
+
+
+@pytest.mark.parametrize("axis,shape", [(-2, (1500, 4096)), (-1, (2100, 1500))])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_softmin_long_strips(dev, axis, shape, implicit):
+    """Shapes whose strips run long enough for the staged rings to wrap,
+    against the plain version, bit for bit."""
+    (g,) = _form_case(dev, shape, 130, axis, implicit, 11)
+    kw = dict(axis=axis, implicit=implicit)
+    s = softmin.softmin_col_fwd(g, 130, 1.0, **kw)
+    sp = softmin.softmin_col_fwd_plain(g, 130, 1.0, **kw)
+    ct = torch.randn(sp.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    dg = softmin.softmin_col_bwd(g, sp, ct, 130, 1.0, **kw)
+    dgp = softmin.softmin_col_bwd_plain(g, sp, ct, 130, 1.0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sp) and torch.equal(dg, dgp)
+
+
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_softmin_two_fields_in_place(dev, axis, implicit):
+    """Two fields in one launch each way, written at a column offset of a
+    wider output and read back from there, against the plain version."""
+    band, t = 37, 1.0
+    fields = _form_case(dev, (2, 90, 75), band, axis, implicit, 3, nf=2)
+    width = softmin.softmin_col_fwd_plain(fields[0], band, t, axis=axis, implicit=implicit).shape[-1]
+    out = torch.full((2, 90, 5 + 2 * width + 3), 7.0, device=dev)
+    want = out.clone()
+    kw = dict(axis=axis, implicit=implicit)
+    _counted_col("softmin_col_fwd", lambda: softmin.softmin_col_fwd(tuple(fields), band, t, out=out, out_col=5, **kw))
+    softmin.softmin_col_fwd_plain(tuple(fields), band, t, out=want, out_col=5, **kw)
+    ct = torch.randn(out.shape, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    dg = _counted_col("softmin_col_bwd",
+                      lambda: softmin.softmin_col_bwd(tuple(fields), want, ct, band, t, s_col=5, **kw))
+    dgp = softmin.softmin_col_bwd_plain(tuple(fields), want, ct, band, t, s_col=5, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert all(torch.equal(a, b) for a, b in zip(dg, dgp))
+
+
+@pytest.mark.parametrize("axis,band", [(-2, 722), (-1, 1922)])
+def test_softmin_past_the_staged_limit(dev, axis, band):
+    """Past the staged instance's shared memory (band 721 along y, 1921 along
+    x): the global-load instance, bit for bit; asking for the staged
+    instance there raises."""
+    assert not softmin.staged_fits(band, axis) and softmin.staged_fits(band - 4, axis)
+    (g,) = _form_case(dev, (1600, 40) if axis == -2 else (40, 4100), band, axis, True, 5)
+    s = softmin.softmin_col_fwd(g, band, 1.0, axis=axis, implicit=True)
+    sp = softmin.softmin_col_fwd_plain(g, band, 1.0, axis=axis, implicit=True)
+    ct = torch.ones_like(sp)
+    dg = softmin.softmin_col_bwd(g, sp, ct, band, 1.0, axis=axis, implicit=True)
+    dgp = softmin.softmin_col_bwd_plain(g, sp, ct, band, 1.0, axis=axis, implicit=True)
+    torch.cuda.synchronize()
+    assert torch.equal(s, sp) and torch.equal(dg, dgp)
+    with pytest.raises(ValueError):
+        softmin.softmin_col_fwd(g, band, 1.0, axis=axis, implicit=True, impl="staged")
+
+
 @pytest.mark.parametrize("shape,spread", [((300, 200), 111), ((1, 500), 64), ((2, 40, 60), 128)])
 def test_composed_path_launches_three_each_way(dev, shape, spread, monkeypatch):
-    """soft_sdf_field past the adaptive kernels' geometry: 3 forward and 3
-    backward launches, no other soft kernel; the field and gradient equal
-    the same path with the plain versions in the kernels' place, bit for
-    bit."""
+    """soft_sdf_field past the adaptive kernels' geometry: 2 forward and 2
+    backward launches (pass 1 on both fields in one launch, pass 2), no
+    other soft kernel; the field and gradient equal the same path with the
+    plain versions in the kernels' place, bit for bit."""
     g, ct = _fused_case(dev, shape, "pm2000", spread)
     x = g.clone().requires_grad_()
     before = {**cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
@@ -471,7 +564,7 @@ def test_composed_path_launches_three_each_way(dev, shape, spread, monkeypatch):
     (field * ct).sum().backward()
     after = {**cuda_soft_mm.LAUNCHES, **soft_fused.LAUNCHES, **softmin.LAUNCHES}
     grew = {k: after[k] - before[k] for k in after}
-    assert grew == {k: 3 if k.startswith("softmin") else 0 for k in grew}
+    assert grew == {k: 2 if k.startswith("softmin") else 0 for k in grew}
     monkeypatch.setattr(softmin, "softmin_col_fwd", softmin.softmin_col_fwd_plain)
     monkeypatch.setattr(softmin, "softmin_col_bwd", softmin.softmin_col_bwd_plain)
     y = g.clone().requires_grad_()

@@ -222,14 +222,14 @@ def _counting(monkeypatch):
 ])
 def test_dispatch_takes_jax_order(monkeypatch, shape, spread, rng_, tau, t, path):
     """The dispatch order of JAX softsdf.py:218-372; the composed path
-    runs the column soft-min three times each way (pass 1 per field, pass 2
-    once)."""
+    runs the soft-min twice each way (pass 1 on both fields in one call,
+    pass 2 once)."""
     calls = _counting(monkeypatch)
     x = torch.from_numpy(_disc(shape[-2:], 3)).expand(shape).contiguous().requires_grad_()
     softsdf.soft_sdf_field(x, spread, tau=tau, temperature=t, gray_range=rng_).sum().backward()
     paths = [c for c in calls if not c.startswith("softmin_col")]
     assert paths == [path]
-    cols = 3 if path == "soft_field_cols" else 0
+    cols = 2 if path == "soft_field_cols" else 0
     assert calls.count("softmin_col_fwd") == calls.count("softmin_col_bwd") == cols
 
 

@@ -39,15 +39,43 @@
 //   neighbouring columns of each plane.
 //
 // brute_scan_bytes_halo<T> replaces pallas_brute.py:_brute_kernel_halo_entry
-//   (brute_sdf_bytes_pallas_halo, a shard of parallel/sharded.py). The same
-//   per-pixel walk (the device function brute_pixel, shared with
-//   brute_scan_bytes, as the TPU entry is a thin wrapper around the same
+//   (brute_sdf_bytes_pallas_halo, a shard of parallel/sharded.py): the same
+//   per-pixel minimum and tail (as the TPU entry is a thin wrapper around
 //   _brute_kernel_impl, pallas_brute.py:570-574) on planes that carry the
-//   neighbouring shards' rows: (2, 4, N, H_loc + 2 hr, W), the shard's own
-//   rows from row_off = hr on. The sign comes from the shard's own codes
-//   (N, H_loc, W), and only its H_loc rows are written. With hr >= spread
-//   the walk never leaves the planes. Bound: bytes, as brute_scan_bytes.
-//
+//   neighbouring shards' rows, a frame (2, 4, N, hs, W) with the shard's
+//   own rows from row_off on. The sign comes from the shard's own codes
+//   (N, H_loc, W), and only its H_loc rows are written. With row_off 0 and
+//   hs = H_loc it is the one-device scan. Bound: bytes, as brute_scan_bytes.
+//   What held the per-pixel walk (brute_pixel) back on sparse content: its
+//   only stop is dy^2 >= best, and far from any seed of the other polarity
+//   every row distance is clipped at spread + 1, so the walk runs all
+//   spread rows each way, two dependent plane loads a tap, and ends not
+//   found; the four rows of a 64 x 4 block fetched the same taps again.
+//   Design (brute_scan_halo_staged; PERF.md row 16): a block owns 32
+//   columns (one per lane) and 128 output rows (16 warps), and stages its
+//   window of the frame, rows [y0 - spread, y0 + 128 + spread) within
+//   [0, hs) widened to whole 16-row segments of the frame, into shared
+//   memory once: all eight planes of its columns, through 16-byte cp.async
+//   copies where the rows allow (W sizeof(T) a multiple of 16), each byte
+//   read once per block. With the rows it keeps the least of the four
+//   plane values per segment, column and polarity: every tap in a segment
+//   is at least a^2 + m^2 (a the distance of its nearest row, m that least
+//   value; dx >= min(L1, L2, R1, R2), which is min(L1, R1) on pass-A
+//   planes, and the bound holds on any planes). A pixel walks the segments
+//   outward, one above and one below a step, skips a segment where a^2 +
+//   m^2 >= best, walks a live one's rows near to far, and ends a side once
+//   a^2 >= best. The result is an integer minimum, so the order of the
+//   taps does not matter, and a skipped tap cannot lower it: byte for byte
+//   the per-pixel walk. Far from strokes a pixel is done after its own row
+//   and a test per segment. On dense content the walk was short already:
+//   there the staging (two window rows per output row) and the segment
+//   pass are extra work, and the per-pixel walk stays ahead (PERF.md).
+//   Where the largest window (min(hs, 128 + 2 spread + 30) rows of 256
+//   elements, up to 181 KB for uint8 at spread 253) exceeds a block's 227
+//   KB, as uint16 frames of more than ~440 rows do, the launcher takes the
+//   per-pixel walk from device memory (brute_scan_bytes_halo_kernel),
+//   which brute_scan_bytes also runs.
+
 // Exact numbers: the float tail is explicit _rn intrinsics in the plain
 // version's order (ops/brute.py, ops/merge.py). Build without
 // --use_fast_math.
@@ -56,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include "refined_sqrt.cuh"
+#include "staged.cuh"
 
 namespace {
 
@@ -180,6 +209,21 @@ brute_rows_kernel(const uint8_t* __restrict__ codes, T* __restrict__ out, int n,
 constexpr int kScanTx = 64;
 constexpr int kScanTy = 4;
 
+// The OpenCL tail (sdf.cl:206-223) of a pixel whose search found the squared
+// distance best.
+__device__ __forceinline__ uint8_t opencl_tail(int best, bool val, int spread, float s_min, float s_max,
+                                               int invert) {
+  const bool found = best <= spread * spread;
+  const float d = refined_sqrt_f32(__int2float_rn(best));
+  const bool decider = (invert != 0) != val;
+  const float big = (float)(2 * spread + 4);
+  const float dist = found ? (decider ? d : -__fadd_rn(d, -1.0f)) : (decider ? big : -big);
+  const float v = fmaxf(fminf(dist, s_max), s_min);
+  const float remap = __fadd_rn(
+      __fdiv_rn(__fmul_rn(__fsub_rn(v, s_min), 255.0f), __fsub_rn(s_max, s_min)), 0.0f);
+  return (uint8_t)(int)remap;
+}
+
 // One output pixel of the scan. val: the pixel's value (it searches the
 // seeds of the other polarity, sdf.cl:201); l1: its column of that
 // polarity's L1 plane, the L2, R1 and R2 planes `plane` elements apart;
@@ -208,17 +252,7 @@ __device__ __forceinline__ uint8_t brute_pixel(bool val, const T* __restrict__ l
     if (ys - a >= 0) best = min(best, tap(ys - a, a));
     if (ys + a < hs) best = min(best, tap(ys + a, a));
   }
-
-  // OpenCL tail (sdf.cl:206-223)
-  const bool found = best <= spread * spread;
-  const float d = refined_sqrt_f32(__int2float_rn(best));
-  const bool decider = (invert != 0) != val;
-  const float big = (float)(2 * spread + 4);
-  const float dist = found ? (decider ? d : -__fadd_rn(d, -1.0f)) : (decider ? big : -big);
-  const float v = fmaxf(fminf(dist, s_max), s_min);
-  const float remap = __fadd_rn(
-      __fdiv_rn(__fmul_rn(__fsub_rn(v, s_min), 255.0f), __fsub_rn(s_max, s_min)), 0.0f);
-  return (uint8_t)(int)remap;
+  return opencl_tail(best, val, spread, s_min, s_max, invert);
 }
 
 // grid (ceil(W/64), ceil(H/4), N); block (64, 4): one thread per pixel.
@@ -254,6 +288,209 @@ brute_scan_bytes_halo_kernel(const uint8_t* __restrict__ codes, const T* __restr
   const bool val = codes[pix] != 0;
   const T* l1 = strips + (val ? 4 : 0) * plane + (size_t)blockIdx.z * hs * w + x;
   out[pix] = brute_pixel(val, l1, plane, w, y + row_off, hs, spread, s_min, s_max, invert);
+}
+
+// ------------------------------------------------------- halo scan, staged
+
+constexpr int kHaloLanes = 32;   // columns per block, one per lane
+constexpr int kHaloWarps = 16;
+constexpr int kHaloThreads = kHaloWarps * kHaloLanes;
+constexpr int kHaloRows = 128;   // output rows per block
+constexpr int kHaloSeg = 16;     // window rows per segment minimum
+constexpr int kRowElems = 8 * kHaloLanes;  // a window row: the eight planes' 32 columns
+constexpr int kMaxSmem = 232448; // a block's shared memory on sm_90
+
+__device__ __forceinline__ uint32_t vmin_packed(uint32_t a, uint32_t b, int elem_bytes) {
+  return elem_bytes == 1 ? __vminu4(a, b) : __vminu2(a, b);
+}
+
+// grid (ceil(W/32), ceil(H_loc/128), N); block 512: 32 columns (one per lane)
+// and 128 output rows (warp w takes rows w, w + 16, ...) of one image. The
+// block stages its window of the frame, rows [y0 + row_off - spread, y1 +
+// row_off + spread) within [0, hs) widened to whole 16-row segments of the
+// frame, all eight planes of its 32 columns, then the least of the four
+// planes per segment, column and polarity; then each pixel walks the
+// segments outward on both sides, skipping those that cannot lower its
+// minimum. vec: 16-byte copies (rows of W sizeof(T) bytes a multiple of 16,
+// the planes 16-byte aligned); else element by element.
+template <typename T>
+__global__ void __launch_bounds__(kHaloThreads)
+brute_scan_halo_staged(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
+                       uint8_t* __restrict__ out, int n, int h, int hs, int w, int row_off,
+                       int spread, float s_min, float s_max, int invert, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tx = threadIdx.x % kHaloLanes, wp = threadIdx.x / kHaloLanes;
+  const int x0 = blockIdx.x * kHaloLanes, x = x0 + tx;
+  const int y0 = blockIdx.y * kHaloRows, y1 = min(y0 + kHaloRows, h);
+  const size_t plane = (size_t)n * hs * w;
+  const int wlo = max(0, y0 + row_off - spread) / kHaloSeg * kHaloSeg;
+  const int whi = min(hs, (y1 + row_off + spread + kHaloSeg - 1) / kHaloSeg * kHaloSeg);
+  const int nrows = whi - wlo, nseg = (nrows + kHaloSeg - 1) / kHaloSeg;
+  T* win = (T*)smem_raw;                                // window row r, plane k: win + (r * 8 + k) * 32
+  int* segm = (int*)(win + (size_t)nrows * kRowElems);  // segment s, polarity p: segm + (s * 2 + p) * 32
+
+  // this lane's pixel values (bit i: row y0 + wp + 16 i), loaded together
+  constexpr int kPerLane = kHaloRows / kHaloWarps;
+  static_assert(kPerLane <= 32, "a lane's values fit one word");
+  uint32_t vals = 0;
+  if (x < w) {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int y = y0 + wp + kHaloWarps * i;
+      if (y < y1 && codes[((size_t)blockIdx.z * h + y) * w + x] != 0) vals |= 1u << i;
+    }
+  }
+
+  // stage: plane k of window row r, columns x0 .. x0 + 31 (columns past W
+  // are never read)
+  const T* base = strips + (size_t)blockIdx.z * hs * w + x0;
+  if (vec) {
+    constexpr int kVec = 16 / sizeof(T), kCopies = kRowElems / kVec;  // copies per window row
+    for (int e = threadIdx.x; e < nrows * kCopies; e += kHaloThreads) {
+      const int r = e / kCopies, k = (e % kCopies) / (kHaloLanes / kVec), c = (e % (kHaloLanes / kVec)) * kVec;
+      if (x0 + c < w) cp_async16(win + (r * 8 + k) * kHaloLanes + c, base + k * plane + (size_t)(wlo + r) * w + c);
+    }
+    cp_commit();
+    cp_wait_all();
+  } else {
+    for (int e = threadIdx.x; e < nrows * kRowElems; e += kHaloThreads) {
+      const int r = e / kRowElems, k = (e / kHaloLanes) % 8, c = e % kHaloLanes;
+      if (x0 + c < w) win[e] = base[k * plane + (size_t)(wlo + r) * w + c];
+    }
+  }
+  __syncthreads();
+
+  // segment minima: a thread takes 32 bits of columns of one segment and
+  // polarity, the least over its rows and four planes
+  {
+    constexpr int kPer = 4 / sizeof(T), kWords = kHaloLanes / kPer;  // columns per word, words per plane row
+    const uint32_t* win32 = (const uint32_t*)win;
+    for (int e = threadIdx.x; e < nseg * 2 * kWords; e += kHaloThreads) {
+      const int s = e / (2 * kWords), p = (e / kWords) % 2, q = e % kWords;
+      const int r_end = min((s + 1) * kHaloSeg, nrows);
+      uint32_t m = 0xffffffffu;
+      for (int r = s * kHaloSeg; r < r_end; ++r) {
+        const uint32_t* row = win32 + (r * 8 + 4 * p) * kWords + q;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) m = vmin_packed(m, row[k * kWords], (int)sizeof(T));
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+        segm[(s * 2 + p) * kHaloLanes + q * kPer + i] = (int)((m >> (8 * sizeof(T) * i)) & ((1u << (8 * sizeof(T))) - 1));
+    }
+  }
+  __syncthreads();
+  if (x >= w) return;
+
+  for (int i = 0, y = y0 + wp; y < y1; ++i, y += kHaloWarps) {
+    const size_t pix = ((size_t)blockIdx.z * h + y) * w + x;
+    const bool val = (vals >> i) & 1u;
+    // the pixel searches the seeds of the other polarity (sdf.cl:201)
+    const T* col = win + (val ? 4 : 0) * kHaloLanes + tx;  // window row r, plane k: col[(r * 8 + k) * 32]
+    const int* sm = segm + (val ? kHaloLanes : 0) + tx;   // segment s at sm[s * 64]
+    // brute_pixel's tap: the diagonal |dx| == |dy| = a is never a candidate,
+    // so a side whose nearest seed sits there takes its second
+    auto tap = [&](int r, int a) -> int {
+      const T* q = col + r * kRowElems;
+      const int l1 = q[0], r1 = q[2 * kHaloLanes];
+      const int dl = l1 != a ? l1 : (int)q[kHaloLanes];
+      const int dr = r1 != a ? r1 : (int)q[3 * kHaloLanes];
+      const int dx = min(dl, dr);
+      return dx * dx + a * a;
+    };
+    const int c = y + row_off - wlo;  // the pixel's window row
+    int best = tap(c, 0);
+    // rows within spread of the pixel and inside the frame: [lo, hi]
+    const int lo = max(c - spread, 0), hi = min(c + spread, nrows - 1);
+    // the segments outward, one above and one below per step. Every tap of a
+    // segment is at least a^2 + m^2 (a its nearest row's distance, m its least
+    // plane value: dx >= min(L1, L2, R1, R2)); a segment where that cannot
+    // lower best is skipped, and a side ends where a^2 alone cannot
+    int su = c / kHaloSeg, sd = su;
+    bool up = best > 1 && c > lo, dn = best > 1 && c < hi;  // no row at a >= 1 lowers best <= 1
+    while (up || dn) {
+      if (up) {
+        const int top = max(su * kHaloSeg, lo), bot = min(su * kHaloSeg + kHaloSeg - 1, c - 1);
+        if (bot >= top) {
+          const int a0 = c - bot, m = sm[su * 2 * kHaloLanes];
+          if (a0 * a0 >= best) {
+            up = false;
+          } else if (a0 * a0 + m * m < best) {
+            for (int r = bot; r >= top; --r) {
+              const int a = c - r;
+              if (a * a >= best) {
+                up = false;
+                break;
+              }
+              best = min(best, tap(r, a));
+            }
+          }
+        }
+        up = up && su * kHaloSeg > lo;
+        --su;
+      }
+      if (dn) {
+        const int top = max(sd * kHaloSeg, c + 1), bot = min(sd * kHaloSeg + kHaloSeg - 1, hi);
+        if (bot >= top) {
+          const int a0 = top - c, m = sm[sd * 2 * kHaloLanes];
+          if (a0 * a0 >= best) {
+            dn = false;
+          } else if (a0 * a0 + m * m < best) {
+            for (int r = top; r <= bot; ++r) {
+              const int a = r - c;
+              if (a * a >= best) {
+                dn = false;
+                break;
+              }
+              best = min(best, tap(r, a));
+            }
+          }
+        }
+        dn = dn && sd * kHaloSeg + kHaloSeg - 1 < hi;
+        ++sd;
+      }
+    }
+    out[pix] = opencl_tail(best, val, spread, s_min, s_max, invert);
+  }
+}
+
+// The staged scan's shared memory for windows of up to `rows` rows.
+template <typename T>
+size_t halo_staged_smem(int rows) {
+  return (size_t)rows * kRowElems * sizeof(T) + (size_t)((rows + kHaloSeg - 1) / kHaloSeg) * 2 * kHaloLanes * sizeof(int);
+}
+
+// The halo scan: the staged kernel where its largest window fits a block's
+// shared memory, else the per-pixel walk from device memory.
+template <typename T>
+int halo_scan(const uint8_t* codes, const T* strips, uint8_t* out, int n, int h, int hs, int w,
+              int row_off, int spread, float s_min, float s_max, int invert, cudaStream_t s) {
+  const int rows = kHaloRows + 2 * spread + 2 * (kHaloSeg - 1);  // a window's most rows
+  const size_t smem = halo_staged_smem<T>(hs < rows ? hs : rows);
+  if (smem <= (size_t)kMaxSmem) {
+    static size_t allowed[64] = {};  // per device: the dynamic shared memory the kernel may take
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (smem > 48 * 1024 && (dev >= 64 || smem > allowed[dev])) {
+      const cudaError_t e = cudaFuncSetAttribute(brute_scan_halo_staged<T>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < 64) allowed[dev] = smem;
+    }
+    const int vec = (w * (int)sizeof(T)) % 16 == 0 && (size_t)strips % 16 == 0;
+    const dim3 grid((unsigned)((w + kHaloLanes - 1) / kHaloLanes),
+                    (unsigned)((h + kHaloRows - 1) / kHaloRows), (unsigned)n);
+    brute_scan_halo_staged<T><<<grid, kHaloThreads, smem, s>>>(codes, strips, out, n, h, hs, w, row_off,
+                                                               spread, s_min, s_max, invert, vec);
+  } else {
+    const dim3 block(kScanTx, kScanTy);
+    const dim3 grid((unsigned)((w + kScanTx - 1) / kScanTx),
+                    (unsigned)((h + kScanTy - 1) / kScanTy), (unsigned)n);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    brute_scan_bytes_halo_kernel<T><<<grid, block, 0, s>>>(codes, strips, out, n, h, hs, w, row_off,
+                                                           spread, s_min, s_max, invert);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -314,21 +551,14 @@ extern "C" int chaq_brute_scan_bytes_halo(const void* codes, const void* strips,
       row_off + h > hs) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(kScanTx, kScanTy);
-  const dim3 grid((unsigned)((w + kScanTx - 1) / kScanTx),
-                  (unsigned)((h + kScanTy - 1) / kScanTy), (unsigned)n);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (elem_bytes == 1 && spread + 1 <= 255) {
-    brute_scan_bytes_halo_kernel<uint8_t><<<grid, block, 0, s>>>(
-        (const uint8_t*)codes, (const uint8_t*)strips, (uint8_t*)out, n, h, hs, w, row_off,
-        spread, s_min, s_max, invert);
-  } else if (elem_bytes == 2) {
-    brute_scan_bytes_halo_kernel<uint16_t><<<grid, block, 0, s>>>(
-        (const uint8_t*)codes, (const uint16_t*)strips, (uint8_t*)out, n, h, hs, w, row_off,
-        spread, s_min, s_max, invert);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return halo_scan<uint8_t>((const uint8_t*)codes, (const uint8_t*)strips, (uint8_t*)out, n, h, hs, w,
+                              row_off, spread, s_min, s_max, invert, s);
   }
-  return (int)cudaGetLastError();
+  if (elem_bytes == 2) {
+    return halo_scan<uint16_t>((const uint8_t*)codes, (const uint16_t*)strips, (uint8_t*)out, n, h, hs,
+                               w, row_off, spread, s_min, s_max, invert, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -34,11 +34,39 @@
 // dense content, up to 2 band + 1 far from any seed); the bytes are 12 (F1),
 // 20 (F2), 28 (B2) and 24 (B1) per pixel. Design: F1 and B1 run along rows,
 // one block per 256-pixel row segment, which stages its two fields' values
-// over the segment and a band-wide halo in shared memory; F2 and B2 run
-// along columns, one block per 32-column x 64-row tile, which stages the
-// tile's column window (64 + 2 band rows) one field at a time. One thread per
-// output pixel (8 per thread in the column kernels). Float32 on CUDA cores.
+// over the segment and a band-wide halo in shared memory; F2 runs along
+// columns, one block per 32-column x 64-row tile, which stages the tile's
+// column window (64 + 2 band rows) one field at a time. One thread per
+// output pixel (8 per thread in F2). Float32 on CUDA cores.
 //
+// B2 is a staged strip (PERF.md row 10), as the column soft-min of
+// softmin.cu. What held its first design back: one window-wide max of d2 set
+// every pixel's reach (one large memo anywhere in a 32 x (64 + 2 band) tile
+// made all its pixels loop over 2 band + 1 taps for ~8 that pass the cut),
+// the tails' VJP (an IEEE sqrt and divide) was recomputed for each of the
+// (64 + 2 band) / 64 tiles that hold a row, and two windows of 50-74 KB left
+// 3-4 blocks an SM, each staging, reducing and waiting one field at a time.
+// Now a block owns 32 columns (one per lane) of ONE field and walks a strip
+// of rows (4 blocks per SM slot over the card), 32 rows a chunk, 4 per warp:
+//   * d2 and ct arrive through cp.async into a ring of 16-row segments; the
+//     next chunk's segments load while this chunk computes, so each input row
+//     is read once per strip ((strip + 2 band) / strip times in all);
+//   * when a segment lands, every warp takes 4 of its rows: g = tail_vjp(ct,
+//     d2) replaces ct, computed once per staged element, and the rows' max of
+//     d2 goes into the segment's per-lane max (atomicMax on an
+//     order-preserving int form of the float);
+//   * a warp's reach comes from the segments its 4 + 2 band taps cover (a
+//     float32 estimate corrected to the loop's integer), and past a reach of
+//     16 each segment whose max leaves every one of its taps below the cut is
+//     skipped: its nearest tap's exponent, formed from the max, bounds all of
+//     its taps' (rounding is monotone), so only taps that fail the cut go; a
+//     warp takes one path (every tap, or segment by segment), not both;
+//   * the ring takes (2 band + 31) / 16 + 3 segments of 2 x 16 x 32 floats:
+//     54 KB at band 66 (4 blocks of 8 warps an SM), 74 KB at band 112 (3),
+//     at most 64 registers a thread; S1 targets (loaded for a warp's rows
+//     together) and dS1 stores are coalesced along the row.
+// The sum runs d ascending over the taps that pass, as _weight_sum adds them.
+
 // Halo-extended blocks (the sharded tier). F1 and B1 take a live-row window
 // [ylo, yhi): a row outside it is beyond the image (an edge shard's halo),
 // so F1 writes the clipped height 1e30 as its S1, which F2's cut drops like
@@ -55,6 +83,8 @@
 
 #include <cuda_runtime.h>
 
+#include "staged.cuh"
+
 namespace {
 
 constexpr int kMaxBand = 112;      // pallas_soft_fused.fused_geometry_ok: band <= 128 - 16
@@ -62,10 +92,17 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowTile = 256;      // F1/B1: output pixels per block, one per thread
 constexpr int kRowSpan = kRowTile + 2 * kMaxBand;
-constexpr int kColTile = 32;       // F2/B2: columns per block
+constexpr int kColTile = 32;       // F2: columns per block
 constexpr int kColStep = kThreads / kColTile;  // 8 row lanes
-constexpr int kColRows = 64;       // F2/B2: output rows per block
+constexpr int kColRows = 64;       // F2: output rows per block
 constexpr int kColPer = kColRows / kColStep;   // outputs per thread
+constexpr int kLanes = 32;         // B2: columns per block, one per lane
+constexpr int kB2Warps = 8;        // B2: warps per block
+constexpr int kB2Threads = kB2Warps * kLanes;
+constexpr int kSeg = 16;           // B2: ring rows per segment
+constexpr int kB2Per = 4;          // B2: rows per warp and chunk
+constexpr int kB2Chunk = kB2Warps * kB2Per;  // B2: rows per chunk
+constexpr int kShort = 16;         // B2: a reach up to this runs every tap, no segment tests
 constexpr float kCut = 27.0f;      // pallas_soft_fused._UNDERFLOW
 constexpr float kPadH = 1e30f;     // height clip (pallas_soft_fused._PAD_H)
 constexpr float kInf = __builtin_huge_valf();
@@ -75,6 +112,14 @@ struct Soft {
   float scale;  // (+-1) x 1/tau rounded once: l = (g - 127.5) * scale
   float t, inv_t, eps;
   int ylo, yhi;  // F1/B1: the live rows
+};
+
+struct B2Geo {
+  int h, w, band;
+  float t, inv_t, eps;
+  int col_blocks;  // blocks per field across the columns
+  int q_segs;      // ring segments
+  int strip;       // output rows per block
 };
 
 __device__ __forceinline__ float logit(float g, float scale) {
@@ -290,41 +335,151 @@ __global__ void __launch_bounds__(kThreads) soft_f2_kernel(const float* s1, floa
   }
 }
 
-__global__ void __launch_bounds__(kThreads) soft_b2_kernel(const float* ct, const float* d2,
-                                                           const float* s1, float* ds1, Soft p) {
-  extern __shared__ float win[];
-  __shared__ float red[kWarps];
-  const int tx = threadIdx.x % kColTile, ty = threadIdx.x / kColTile;
-  const int x = blockIdx.x * kColTile + tx, y0 = blockIdx.y * kColRows;
-  const int rows = kColRows + 2 * p.band;
-  float* vd = win;                     // d2 memo window, -inf outside the image
-  float* vg = win + rows * kColTile;   // tails' VJP window, 0 outside
-  const size_t plane = (size_t)p.h * p.w;
-  for (int f = 0; f < 2; ++f) {
-    const size_t fp = ((size_t)blockIdx.z * 2 + f) * plane;
-    float hi = -kInf;
-    for (int r = ty; r < rows; r += kColStep) {
-      const int y = y0 - p.band + r;
-      float v = -kInf, g = 0.0f;
-      if (x < p.w && y >= 0 && y < p.h) {
-        const size_t o = (size_t)y * p.w + x;
-        v = d2[fp + o];
-        g = tail_vjp(ct[(size_t)blockIdx.z * plane + o], v, f == 0, p.eps);
-      }
-      vd[r * kColTile + tx] = v;
-      vg[r * kColTile + tx] = g;
-      hi = fmaxf(hi, v);
-    }
-    hi = block_reduce<true>(hi, red);
+// ------------------------------------------------------------ B2, staged
+
+// A block owns 32 columns (one per lane) of one field of one image and walks
+// a strip of rows, 32 output rows a chunk: warp w takes rows o0 + 4 w .. + 3,
+// one column per lane. Ring position u holds source row u - band (-inf and a
+// zero g outside the image); output o's tap d sits at u = o + band + d. Ring
+// position u lives in ring row u mod P, P = 16 q_segs: segment j holds
+// u in [16 j, 16 j + 16) and never straddles the ring's end. The d2 memo and
+// ct arrive through cp.async; when a segment lands, one pass turns its ct into
+// g = tail_vjp(ct, d2) in place and keeps its maximum of d2 per lane. The
+// next chunk's segments load while this chunk computes.
+__device__ __forceinline__ float b2_z(float v, int d, float target, float inv_t) {
+  return __fmul_rn(__fsub_rn(__fsub_rn(v, (float)(d * d)), target), inv_t);
+}
+
+// A float as an int whose order is the floats' (NaN as -inf, as fmaxf drops
+// it), so that atomicMax on shared memory takes a segment's max; and back.
+__device__ __forceinline__ int max_key(float v) {
+  const int i = __float_as_int(v == v ? v : -kInf);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+__device__ __forceinline__ float key_value(int k) { return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff); }
+
+__global__ void __launch_bounds__(kB2Threads, 4) soft_b2_kernel(const float* ct, const float* d2,
+                                                                const float* s1, float* ds1, B2Geo p) {
+  extern __shared__ float smem[];
+  const int Q = p.q_segs, P = Q * kSeg;
+  float* rd = smem;                // P x 32: d2
+  float* rg = rd + P * kLanes;     // P x 32: ct as it lands, then g
+  int* segb = (int*)(rg + P * kLanes);  // Q x 32: each segment's max of d2 (max_key)
+  const int tx = threadIdx.x % kLanes, w = threadIdx.x / kLanes;
+  const int f = blockIdx.x / p.col_blocks;
+  const int x0 = (blockIdx.x % p.col_blocks) * kLanes, x = x0 + tx;
+  const int band = p.band, h = p.h, W = p.w;
+  const float t = p.t, inv_t = p.inv_t, eps = p.eps;
+  const size_t plane = (size_t)h * W;
+  const size_t fp = ((size_t)blockIdx.z * 2 + f) * plane;
+  const float* src_d = d2 + fp;
+  const float* src_ct = ct + (size_t)blockIdx.z * plane;
+  const float* tgt = s1 + fp;
+  float* out = ds1 + fp;
+
+  const int o_start = blockIdx.y * p.strip;
+  const int o_end = min(o_start + p.strip, h);
+  const int span = 2 * band + kB2Chunk - 1;  // a chunk's taps: ring positions [o0, o0 + span]
+
+  // segment j into ring segment slot js: 16 rows of 32 columns, coalesced
+  auto load = [&](int j, int js) {
 #pragma unroll
-    for (int i = 0; i < kColPer; ++i) {
-      const int r = ty + i * kColStep, y = y0 + r;
-      if (x >= p.w || y >= p.h) continue;
-      const size_t o = fp + (size_t)y * p.w + x;
-      const int k = (r + p.band) * kColTile + tx;
-      ds1[o] = weight_sum(&vd[k], &vg[k], kColTile, p.band, hi, s1[o], p.inv_t);
+    for (int e = threadIdx.x; e < kSeg * kLanes; e += kB2Threads) {
+      const int l = e % kLanes, r = e / kLanes;
+      const int q = j * kSeg + r - band, k = (js * kSeg + r) * kLanes + l;
+      if (x0 + l < W && q >= 0 && q < h) {
+        const size_t o = (size_t)q * W + x0 + l;
+        cp_async4(rd + k, src_d + o);
+        cp_async4(rg + k, src_ct + o);
+      } else {
+        rd[k] = -kInf;
+        rg[k] = 0.0f;
+      }
+      if (r == 0) segb[js * kLanes + l] = max_key(-kInf);
     }
-    __syncthreads();  // the windows are refilled for the next field
+  };
+
+  // segment j sits in slot j mod Q: the chunk's first segment jb in slot jbs,
+  // segment jb + k (k < Q) in wrapq(jbs + k)
+  auto wrapq = [=](int v) { return v >= Q ? v - Q : v; };
+  int issued = o_start / kSeg - 1, bounded = issued;
+  int jbs = (o_start / kSeg) % Q, ljs = jbs;  // ljs: the slot of the next segment to load
+  while (issued < (o_start + span) / kSeg) load(++issued, ljs), ljs = wrapq(ljs + 1);
+  cp_commit();
+  const float* dl = rd + tx;
+  const float* gl = rg + tx;
+  const int* sl = segb + tx;
+  for (int o0 = o_start; o0 < o_end; o0 += kB2Chunk, jbs = wrapq(jbs + kB2Chunk / kSeg)) {
+    const int need = (o0 + span) / kSeg, jb = o0 / kSeg;
+    cp_wait_all();
+    __syncthreads();  // this chunk's segments are in; the last chunk's taps are read
+    const int pre = o0 + kB2Chunk < o_end ? (o0 + kB2Chunk + span) / kSeg : need;
+    while (issued < pre) load(++issued, ljs), ljs = wrapq(ljs + 1);
+    cp_commit();
+    // the segments that landed, a quarter (4 rows) per warp and step: g in
+    // place of ct, and each segment's max of d2
+    for (int k = w; k < (need - bounded) * 4; k += kB2Warps) {
+      const int js = wrapq(jbs + bounded + 1 + k / 4 - jb);
+      float* cd = rd + (js * kSeg + (k % 4) * 4) * kLanes + tx;
+      float* cg = rg + (js * kSeg + (k % 4) * 4) * kLanes + tx;
+      float b = -kInf;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = cd[i * kLanes];
+        // a tap at -inf fails the cut: its g is never read
+        cg[i * kLanes] = v == -kInf ? 0.0f : tail_vjp(cg[i * kLanes], v, f == 0, eps);
+        b = fmaxf(b, v);
+      }
+      atomicMax(segb + js * kLanes + tx, max_key(b));
+    }
+    bounded = need;
+    __syncthreads();
+    const int ow = o0 + kB2Per * w;  // this warp's first row
+    if (ow >= o_end || x >= W) continue;
+    const int nw = min(kB2Per, o_end - ow);
+    float targets[kB2Per];  // S1 at the warp's rows, loaded together
+#pragma unroll
+    for (int i = 0; i < kB2Per; ++i) targets[i] = i < nw ? tgt[(size_t)(ow + i) * W + x] : 0.0f;
+    float bnd = -kInf;  // over the segments this warp's taps cover
+    for (int j = ow / kSeg, js = wrapq(jbs + j - jb); j <= (ow + kB2Per - 1 + 2 * band) / kSeg;
+         ++j, js = wrapq(js + 1))
+      bnd = fmaxf(bnd, key_value(sl[js * kLanes]));
+    // ring row of output o's tap 0: jbs * 16 + (o - o0) + band, wrapped once
+    const int cb = jbs * kSeg + band - o0;
+#pragma unroll
+    for (int i = 0; i < kB2Per; ++i) {
+      if (i >= nw) break;
+      const int o = ow + i;
+      const int c = cb + o >= P ? cb + o - P : cb + o;
+      const float target = targets[i];
+      const int reach = reach_of([=](int r) { return b2_z(bnd, r, target, inv_t) >= -kCut; },
+                                 sqrtf(fmaxf(__fadd_rn(__fsub_rn(bnd, target), kCut * t), 0.0f)), band);
+      float acc = 0.0f;
+      auto taps = [&](int d, int dend, int row) {
+        for (; d <= dend; ++d, row += kLanes) {
+          const float z = b2_z(dl[row], d, target, inv_t);
+          if (z >= -kCut) acc = __fadd_rn(acc, __fmul_rn(expf(z), gl[row]));
+        }
+      };
+      // the warp takes one path: lanes apart on two paths would run both
+      if (__all_sync(__activemask(), reach <= kShort && c >= reach && c + reach < P)) {
+        // short reaches that do not wrap: every tap in order
+        taps(-reach, reach, (c - reach) * kLanes);
+      } else {
+        // d ascending, one segment at a time (its taps are consecutive ring
+        // rows); a segment whose max leaves every one of its taps below the
+        // cut is skipped
+        for (int d = -reach; d <= reach;) {
+          const int u = o + band + d, j = u / kSeg, dend = min(reach, (j + 1) * kSeg - 1 - o - band);
+          const int dm = d > 0 ? d : (dend < 0 ? -dend : 0);
+          const int js = wrapq(jbs + j - jb);
+          if (b2_z(key_value(sl[js * kLanes]), dm, target, inv_t) >= -kCut)
+            taps(d, dend, (js * kSeg + u % kSeg) * kLanes);
+          d = dend + 1;
+        }
+      }
+      out[(size_t)o * W + x] = acc;
+    }
   }
 }
 
@@ -346,8 +501,8 @@ dim3 col_grid(const Soft& p) {
               (unsigned)p.n);
 }
 
-size_t col_smem(int band, int windows) {
-  return sizeof(float) * (size_t)windows * (kColRows + 2 * band) * kColTile;
+size_t col_smem(int band) {
+  return sizeof(float) * (size_t)(kColRows + 2 * band) * kColTile;
 }
 
 }  // namespace
@@ -372,7 +527,7 @@ extern "C" int chaq_soft_f2(const void* s1, void* field, void* d2, int n, int h,
   Soft p;
   const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
-  soft_f2_kernel<<<col_grid(p), kThreads, col_smem(band, 1), (cudaStream_t)stream>>>(
+  soft_f2_kernel<<<col_grid(p), kThreads, col_smem(band), (cudaStream_t)stream>>>(
       (const float*)s1, (float*)field, (float*)d2, p);
   return (int)cudaGetLastError();
 }
@@ -383,12 +538,28 @@ extern "C" int chaq_soft_b2(const void* ct, const void* d2, const void* s1, void
   Soft p;
   int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
-  // two windows exceed 48 KB from band 65 on: allow the dynamic size first
-  rc = (int)cudaFuncSetAttribute(soft_b2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)col_smem(kMaxBand, 2));
-  if (rc != 0) return rc;
-  soft_b2_kernel<<<col_grid(p), kThreads, col_smem(band, 2), (cudaStream_t)stream>>>(
-      (const float*)ct, (const float*)d2, (const float*)s1, (float*)ds1, p);
+  B2Geo g{h, w, band, t, inv_t, eps, (w + kLanes - 1) / kLanes, 0, 0};
+  // a chunk's window and the next chunk's segments: at most 74 KB (band 112)
+  g.q_segs = (2 * band + kB2Chunk - 1) / kSeg + 1 + kB2Chunk / kSeg;
+  const int smem = (int)sizeof(float) * g.q_segs * (2 * kSeg * kLanes + kLanes);
+  if (smem > 48 * 1024) {
+    rc = (int)cudaFuncSetAttribute(soft_b2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != 0) return rc;
+  }
+  int dev = 0, sms = 132, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, soft_b2_kernel, kB2Threads, smem);
+  // strips of whole chunks, about four blocks per SM slot in all: the strips'
+  // halo rows stay a small share, and blocks that meet strokes (long tap
+  // loops) do not leave a last wave to a few SMs
+  const long long cols = 2LL * g.col_blocks * n, chunks = (h + kB2Chunk - 1) / kB2Chunk;
+  long long strips = (4LL * sms * (per_sm > 0 ? per_sm : 1) + cols - 1) / cols;
+  strips = strips < 1 ? 1 : (strips > chunks ? chunks : strips);
+  g.strip = (int)(((chunks + strips - 1) / strips) * kB2Chunk);
+  const dim3 grid((unsigned)(2 * g.col_blocks), (unsigned)((h + g.strip - 1) / g.strip), (unsigned)n);
+  soft_b2_kernel<<<grid, kB2Threads, smem, (cudaStream_t)stream>>>(
+      (const float*)ct, (const float*)d2, (const float*)s1, (float*)ds1, g);
   return (int)cudaGetLastError();
 }
 

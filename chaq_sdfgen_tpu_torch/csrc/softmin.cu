@@ -78,6 +78,8 @@
 
 #include <cuda_runtime.h>
 
+#include "staged.cuh"
+
 namespace {
 
 constexpr int kLanes = 32;                // lanes per block, one per thread of a warp
@@ -127,17 +129,6 @@ __device__ __forceinline__ long long at(int axis, int lane, long long pos, int p
   return axis == 0 ? pos * pitch + col + lane : (long long)lane * pitch + col + pos;
 }
 
-// The largest r in [0, band] with ok(r), ok falling in r (true up to some r,
-// false past it), as "r = 0; while (r < band && ok(r + 1)) ++r" finds it: a
-// float32 estimate, then a step or two to the exact integer.
-template <class Ok>
-__device__ __forceinline__ int reach_of(Ok ok, float estimate, int band) {
-  int r = estimate >= (float)band ? band : (int)fmaxf(estimate, 0.0f);
-  while (r > 0 && !ok(r)) --r;
-  while (r < band && ok(r + 1)) ++r;
-  return r;
-}
-
 // The exponents, as the plain versions form them.
 __device__ __forceinline__ float fwd_z(float m, float v, int d, float inv_t) {
   return __fmul_rn(__fsub_rn(__fsub_rn(m, v), (float)(d * d)), inv_t);
@@ -172,13 +163,6 @@ __device__ __forceinline__ int bwd_reach(float hi, float target, int band, float
   return reach_of([=](int r) { return bwd_z(hi, r, target, inv_t) >= -kCut; },
                   sqrtf(fmaxf(__fadd_rn(__fsub_rn(hi, target), kCut * t), 0.0f)), band);
 }
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 // ---------------------------------------------------------- staged cols (y)
 

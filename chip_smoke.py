@@ -72,7 +72,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
  14. adaptive times (CUDA events, as in phase 6): each of the four kernels
      and its plain version, the gated training step on the bench's noise,
      the adaptive step forced on it, the out-of-gamut step and the
-     SoftSDFModel step;
+     SoftSDFModel step; soft_b2 also on the glyph in +-2040, with its taps
+     a pixel and field on each input (b2_loop_taps: live, the staged
+     loop, the tile-bound loop of the design before it);
  15. where the adaptive steps' device time goes: torch.profiler over the
      forced adaptive step and the gated out-of-gamut step;
  16. the BRUTE kernels (csrc/brute.cu: brute_rows, brute_scan_bytes) and the
@@ -93,7 +95,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      its plain version;
  18. BRUTE, JFA and exact-distance times (CUDA events, as in phase 6) at
      4096x4096 spread 64 on both inputs: each kernel against its plain
-     version and the three pipelines;
+     version and the three pipelines; edt_dist on both strips of the
+     signed field (its two launches); the staged halo scan
+     (brute_scan_bytes_halo) at row_off 0 on the whole image beside
+     brute_scan_bytes, byte for byte equal to it, with the taps a pixel of
+     both walks (a measurement: the one-device path stays on
+     brute_scan_bytes);
  19. where the BRUTE pipeline's and signed_distance_field_exact's device
      time goes: torch.profiler, as in phase 7;
  20. the composed path's soft-min kernels (csrc/softmin.cu: softmin_col_fwd,
@@ -149,8 +156,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      each byte for byte the single-device pipeline; checked, not timed:
      EXACT at spread 300 (uint16 strips), 1024² over 16 shards at spread
      100 (multi-hop, both halo forms), the int32 strips (spread 65600)
-     against their plain versions; brute_scan_bytes_halo bit for bit
-     against its plain version on shard 1's halo'd planes; the launch
+     against their plain versions; brute_scan_bytes_halo byte for byte
+     against its plain version and the one-device bytes on every shard's
+     frame of both inputs, at spread 64 (uint8, the staged kernel) and 300
+     (uint16, past its shared memory: the per-pixel walk), each shard
+     timed, their sum and the four back to back; the launch
      counters over the rdma main path (the halo kernels and the halo scan
      must launch, the halo kernel once per exchange, or hop, and device:
      halo_slab 3 times, halo_ring_shift 4), the ppermute one (no halo
@@ -192,6 +202,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      scale, the parameters after 3 steps within 1e-5), and the CLI
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
      glyph PNG byte for byte the unsharded SDFGenerator.
+`python3 chip_smoke.py --kernel-turn` times rows 10 and 16 and what they
+serve alone (kernel_turn), on this tree or its parent.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -911,6 +923,62 @@ def weight_taps(v: torch.Tensor, target: torch.Tensor, band: int, t: float, dim:
     return int(cnt)
 
 
+def b2_loop_taps(d2: torch.Tensor, s1: torch.Tensor, band: int, t: float) -> dict:
+    """soft_b2's taps on one image's memos and S1 (2, H, W), summed over
+    pixels and fields: ``live`` (inside the cut), ``loop`` (the staged
+    kernel's tap loop: the whole reach where every lane of the warp has a
+    reach of at most 16, else the taps of the segments it does not skip) and ``tile_loop``
+    (the loop of the design before it, 2 reach + 1 with the reach from one
+    max of d2 over a 32-column x (64 + 2 band)-row tile). The torch form of
+    tests/test_torch_skip_bounds.py's mirror."""
+    inv_t = float(np.float32(1.0 / t))
+    h, w = d2.shape[-2:]
+    dev, ninf = d2.device, float("-inf")
+    o = torch.arange(h, device=dev)
+    out = {"live": 0, "loop": 0, "tile_loop": 0}
+    for f in range(2):
+        v, tgt = d2[f], s1[f]
+        n_seg = -(-(h + 2 * band) // 16)
+        ring = torch.full((n_seg * 16, w), ninf, device=dev)
+        ring[band : band + h] = v
+        segmax = ring.view(n_seg, 16, w).amax(1)
+        g0 = (o // 4) * 4
+        bnd = torch.full((h, w), ninf, device=dev)
+        for k in range((3 + 2 * band) // 16 + 2):
+            j = g0 // 16 + k
+            ok = (j <= (g0 + 3 + 2 * band) // 16)[:, None]
+            bnd = torch.where(ok, torch.maximum(bnd, segmax[j.clamp(max=n_seg - 1)]), bnd)
+        reach = torch.zeros((h, w), dtype=torch.int64, device=dev)
+        for r in range(1, band + 1):
+            reach += ((bnd - float(r * r)) - tgt) * inv_t >= -27.0
+        seg_steps = torch.zeros_like(reach)
+        vp = torch.nn.functional.pad(v, (0, 0, band, band), value=ninf)
+        for d in range(-band, band + 1):
+            out["live"] += int(((((vp[band + d : band + d + h] - float(d * d)) - tgt) * inv_t) >= -27.0).sum())
+            j = (o + band + d) // 16
+            lo = torch.maximum((j * 16 - o - band)[:, None], -reach)
+            hi = torch.minimum((j * 16 + 15 - o - band)[:, None], reach)
+            dm = torch.where((lo <= 0) & (hi >= 0), 0, torch.minimum(lo.abs(), hi.abs()))
+            seg_live = ((segmax[j] - (dm * dm).float()) - tgt) * inv_t >= -27.0
+            seg_steps += (abs(d) <= reach) & seg_live
+        # a warp (a row of 32 columns) runs every tap only where all its lanes' reaches are short
+        cols = -(-w // 32) * 32
+        short = torch.nn.functional.pad((reach <= 16).to(torch.uint8), (0, cols - w), value=1)
+        short = short.view(h, -1, 32).amin(2).repeat_interleave(32, 1)[:, :w].bool()
+        out["loop"] += int(torch.where(short, 2 * reach + 1, seg_steps).sum())
+        ty, tx = -(-h // 64), -(-w // 32)
+        hi_tile = torch.empty((ty, tx), device=dev)
+        vx = torch.nn.functional.pad(v, (0, tx * 32 - w), value=ninf)
+        for i in range(ty):
+            hi_tile[i] = vx[max(0, 64 * i - band) : 64 * i + 64 + band].view(-1, tx, 32).amax((0, 2))
+        hi_px = hi_tile.repeat_interleave(64, 0)[:h].repeat_interleave(32, 1)[:, :w]
+        old = torch.zeros_like(reach)
+        for r in range(1, band + 1):
+            old += ((hi_px - float(r * r)) - tgt) * inv_t >= -27.0
+        out["tile_loop"] += int((2 * old + 1).sum())
+    return out
+
+
 def fused_bounds(g, band, tau, t, npix):
     """The four kernels' bounds on these inputs: bytes (each input read once,
     each output written once: 12, 20, 28, 24 per pixel) and float
@@ -938,6 +1006,24 @@ def fused_bounds(g, band, tau, t, npix):
     for k, n in taps.items():
         log(f"bound inputs {k}: {n} live taps ({n / (2 * npix):.2f} per pixel and field)")
     return {k: bound(nbytes[k] * npix, flops[k]) for k in nbytes}
+
+
+def b2_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool = True) -> None:
+    """soft_b2 on each input (CUDA events; a summed loss's cotangent) and,
+    with ``count``, its taps a pixel and field (b2_loop_taps): live, the
+    staged loop and the tile-bound loop of the design before it."""
+    for name, g in inputs.items():
+        s1 = soft_fused.f1_pass(g, band, tau, t)
+        _, d2 = soft_fused.f2_pass(s1, band, t, EPS)
+        ones = torch.ones_like(g)
+        ms = cuda_ms(lambda: soft_fused.b2_pass(ones, d2, s1, band, t, EPS))
+        line = f"time adaptive {name} soft_b2: {ms:.4f} ms"
+        if count:
+            per = {k: v / (2 * g.numel()) for k, v in b2_loop_taps(d2, s1, band, t).items()}
+            line += (f"; taps a pixel and field: live {per['live']:.3f}, staged loop {per['loop']:.3f}, "
+                     f"tile-bound loop {per['tile_loop']:.3f}")
+        log(line)
+        del s1, d2, ones
 
 
 def fused_phases(dev, glyph):
@@ -1113,6 +1199,7 @@ def fused_phases(dev, glyph):
         del s1, d2, ds1, ones
     ms = cuda_ms(lambda: train(img, target), 5, 3)
     log(f"time adaptive SoftSDFModel step {tuple(img.shape)}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+    b2_times_and_taps(big, band, tau, t)
 
     npix = SIZE * SIZE
     bounds = fused_bounds(big["pm2000"], band, tau, t, npix)
@@ -1141,6 +1228,86 @@ def walk_taps(dist: torch.Tensor, reach: int) -> int:
     own row and two rows per step before that (at most ``reach`` steps)."""
     steps = torch.clamp(torch.ceil(dist.to(torch.float64)) - 1, 0, reach)
     return int((1 + 2 * steps).sum())
+
+
+def staged_walk_taps(b: torch.Tensor, frame: torch.Tensor, spread: int, row_off: int) -> int:
+    """Rows read by brute_scan_bytes_halo's staged walk over all pixels of
+    one (H, W) mask on its frame (2, 4, Hs, W): each pixel's own row, then
+    the frame's 16-row segments outward within the spread, skipping one
+    whose least plane value m gives a^2 + m^2 >= best and ending a side at
+    a^2 >= best. The torch form of tests/test_torch_skip_bounds.py's
+    mirror."""
+    h, w = b.shape
+    hs = frame.shape[-2]
+    planes = frame.to(torch.int32)
+    pol = b.to(torch.bool)
+    n_seg = -(-hs // 16)
+    least = torch.full((2, n_seg * 16, w), 1 << 30, dtype=torch.int32, device=b.device)
+    least[:, :hs] = planes.amin(1)
+    segm = least.view(2, n_seg, 16, w).amin(2)
+    c = (torch.arange(h, device=b.device) + row_off)[:, None].expand(h, w)
+
+    def tap(r, a):
+        r = r.clamp(0, hs - 1)
+        p = [torch.where(pol, planes[1, k].gather(0, r), planes[0, k].gather(0, r)) for k in range(4)]
+        dl = torch.where(p[0] != a, p[0], p[1])
+        dr = torch.where(p[2] != a, p[2], p[3])
+        return torch.minimum(dl, dr) ** 2 + a * a
+
+    def seg_min(s):
+        s = s.clamp(0, n_seg - 1)
+        return torch.where(pol, segm[1].gather(0, s), segm[0].gather(0, s))
+
+    best = tap(c, torch.zeros_like(c))
+    taps = torch.ones_like(c)
+    lo, hi = (c - spread).clamp(min=0), (c + spread).clamp(max=hs - 1)
+    su, sd = c // 16, c // 16
+    up, dn = (best > 1) & (c > lo), (best > 1) & (c < hi)
+    while bool((up | dn).any()):
+        for side in ("up", "dn"):
+            on, s = (up, su) if side == "up" else (dn, sd)
+            if side == "up":
+                top, bot = torch.maximum(s * 16, lo), torch.minimum(s * 16 + 15, c - 1)
+                a0 = c - bot
+            else:
+                top, bot = torch.maximum(s * 16, c + 1), torch.minimum(s * 16 + 15, hi)
+                a0 = top - c
+            m = seg_min(s)
+            rows = on & (bot >= top)
+            stop = rows & (a0 * a0 >= best)
+            on = on & ~stop
+            live = rows & ~stop & (a0 * a0 + m * m < best)
+            for i in range(16):
+                if not bool(live.any()):
+                    break
+                r = bot - i if side == "up" else top + i
+                act = live & ((r >= top) if side == "up" else (r <= bot))
+                a = (c - r).abs()
+                brk = act & (a * a >= best)
+                on, live, act = on & ~brk, live & ~brk, act & ~brk
+                best = torch.where(act, torch.minimum(best, tap(r, a)), best)
+                taps += act
+            if side == "up":
+                up, su = on & (s * 16 > lo), su - 1
+            else:
+                dn, sd = on & (s * 16 + 15 < hi), sd + 1
+    return int(taps.sum())
+
+
+def shard_frames(planes: torch.Tensor, spread: int, shards: int) -> list:
+    """The halo'd frames of sharded BRUTE's scan (parallel/sharded.py): per
+    shard of rows, its planes with ``spread`` rows of each neighbour, the
+    fill spread + 1 beyond the image, the shard's rows from row ``spread``
+    on. planes: (2, 4, H, W)."""
+    h = planes.shape[-2] // shards
+    frames = []
+    for i in range(shards):
+        ext = torch.full(planes.shape[:-2] + (h + 2 * spread, planes.shape[-1]), spread + 1,
+                         dtype=planes.dtype, device=planes.device)
+        lo, hi = max(0, i * h - spread), min(planes.shape[-2], (i + 1) * h + spread)
+        ext[..., lo - (i * h - spread) : hi - (i * h - spread), :] = planes[..., lo:hi, :]
+        frames.append(ext)
+    return frames
 
 
 def brute_dist_phases(dev, noise, glyph):
@@ -1274,14 +1441,19 @@ def brute_dist_phases(dev, noise, glyph):
         img = torch.from_numpy(noise if name == "noise" else glyph).to(dev)
         strips = cuda_brute.seed_strips(b, SPREAD)
         sat = cuda_edt.dist_sat(SIZE)
-        din, _ = cuda_edt.row_distances_u8(b, sat - 1)
+        din, dout = cuda_edt.row_distances_u8(b, sat - 1)
         t = {
             "brute_rows": cuda_ms(lambda: cuda_brute.seed_strips(b, SPREAD)),
             "brute_rows_plain": cuda_ms(lambda: cuda_brute.seed_strips_plain(b, SPREAD), 2, 3),
             "brute_scan_bytes": cuda_ms(lambda: cuda_brute.brute_scan_bytes(b, strips, SPREAD)),
             "brute_scan_bytes_plain": cuda_ms(lambda: cuda_brute.brute_scan_bytes_plain(b, strips, SPREAD), 2, 3),
+            # the staged halo scan on the whole image (row_off 0): a measurement, not the path
+            "brute_scan_halo_row_off_0": cuda_ms(lambda: cuda_brute.brute_scan_bytes_halo(b, strips, SPREAD, 0)),
             "edt_dist": cuda_ms(lambda: cuda_edt.exact_dist(din, sat)),
             "edt_dist_plain": cuda_ms(lambda: cuda_edt.exact_dist_plain(din, sat), 2, 3),
+            # the signed field's second launch, on the "out" strip, and the two together
+            "edt_dist_out": cuda_ms(lambda: cuda_edt.exact_dist(dout, sat)),
+            "edt_dist_both": cuda_ms(lambda: (cuda_edt.exact_dist(din, sat), cuda_edt.exact_dist(dout, sat))),
             "brute_pipeline": cuda_ms(lambda: gen.generate(img)),
             "brute_pipeline_plain": cuda_ms(
                 lambda: cuda_brute.brute_sdf_bytes_plain(threshold.hard_threshold(img), SPREAD), 2, 3),
@@ -1293,6 +1465,13 @@ def brute_dist_phases(dev, noise, glyph):
         times[name] = t
         for k, ms in t.items():
             log(f"time {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+        e = max_abs_err(cuda_brute.brute_scan_bytes_halo(b, strips, SPREAD, 0),
+                        cuda_brute.brute_scan_bytes(b, strips, SPREAD))
+        old_taps = walk_taps(brute.triangle_d2(b, strips, SPREAD).double().sqrt(), SPREAD)
+        new_taps = staged_walk_taps(b, strips, SPREAD, 0)
+        log(f"check brute_scan_bytes_halo row_off 0 {name}: {e} bytes differ from brute_scan_bytes; taps a pixel: "
+            f"staged walk {new_taps / b.numel():.3f}, per-pixel walk {old_taps / b.numel():.3f}")
+        require(e == 0, f"the staged halo scan at row_off 0 differs from brute_scan_bytes on {name}")
 
     # bounds on the glyph input; the walks' taps are logged, not counted in the bounds
     npix = SIZE * SIZE
@@ -1744,6 +1923,61 @@ def composed_turn(dev, glyph) -> None:
     profile_device("composed step, pm2000", lambda: composed_step(inputs["pm2000"]))
 
 
+def kernel_turn(dev, noise, glyph) -> None:
+    """Rows 10 and 16 and what they serve, alone, on any tree that has both
+    kernels (this one or its parent, for turns in one call): soft_b2 on the
+    bench's noise, pm2000 and the glyph in +-2040, the forced and gated
+    adaptive steps and SoftSDFModel's step; brute_scan_bytes_halo on each
+    shard of the glyph and the noise over 4 shards and at row_off 0 on the
+    whole image beside brute_scan_bytes, and sharded BRUTE over (4,)."""
+    band, tau, t = SPREAD + 2, TRAIN_TAU, TRAIN_T
+    rng = np.random.default_rng(SEED + 5)
+    inputs = {
+        "noise": torch.from_numpy((rng.random((SIZE, SIZE)) * 255).astype(np.float32)).to(dev),
+        "pm2000": torch.from_numpy(pm_noise((SIZE, SIZE), SEED + 6)).to(dev),
+        "glyph+-2040": torch.from_numpy(glyph[..., 1].astype(np.float32) / 255 * 4080 - 2040).to(dev),
+    }
+    b2_times_and_taps(inputs, band, tau, t, count=False)
+
+    def step_with(field_fn):
+        def step(g):
+            x = g.detach().requires_grad_()
+            value = field_fn(x).sum()
+            value.backward()
+            with torch.no_grad():
+                return x - TRAIN_LR * x.grad
+        return step
+
+    gated_step = step_with(lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=tau, temperature=t))
+    forced_step = step_with(lambda x: soft_fused.soft_sdf_field_fused(x, band, tau, t, EPS))
+    for name in ("pm2000", "noise"):
+        log(f"time adaptive {name} forced_step: {cuda_ms(lambda: forced_step(inputs[name])):.4f} ms")
+        log(f"time adaptive {name} gated_step: {cuda_ms(lambda: gated_step(inputs[name])):.4f} ms")
+    img = torch.from_numpy(np.stack([pm_noise((SIZE, SIZE), SEED + 7), pm_noise((SIZE, SIZE), SEED + 8)], -1)).to(dev)
+    d_in, d_out = edt.dual_edt_banded(img[..., 1] > 127, band)
+    target = merge.signed_merge(d_out, d_in)
+    model = SoftSDFModel(SPREAD, SoftConfig(tau=tau, temperature=t), device=dev)
+    train = make_train_step(model, create_train_state(model, img, lr=ADAM_LR))
+    log(f"time adaptive SoftSDFModel step: {cuda_ms(lambda: train(img, target), 5, 3):.4f} ms")
+    del inputs, img, target, d_in, d_out
+
+    masks = {
+        "glyph": threshold.hard_threshold(torch.from_numpy(glyph).to(dev)),
+        "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
+    }
+    halo_scan_shard_times(masks, count=False)
+    m4 = logical_mesh(dev, (SHARDS,))
+    for name, b in masks.items():
+        strips = cuda_brute.seed_strips(b, SPREAD)
+        log(f"time {name} brute_scan_bytes: {cuda_ms(lambda: cuda_brute.brute_scan_bytes(b, strips, SPREAD)):.4f} ms; "
+            f"brute_scan_bytes_halo row_off 0: "
+            f"{cuda_ms(lambda: cuda_brute.brute_scan_bytes_halo(b, strips, SPREAD, 0)):.4f} ms")
+        for impl in ("ppermute", "rdma"):
+            ms = cuda_ms(lambda: sharded.sharded_brute_sdf_bytes(b, SPREAD, m4, halo=impl))
+            log(f"time {name} sharded_brute_{impl} (4,): {ms:.4f} ms")
+        log(f"time {name} brute_one_device: {cuda_ms(lambda: cuda_brute.brute_sdf_bytes(b, SPREAD)):.4f} ms")
+
+
 # ------------------------------------------------------------ sharded phases
 
 SHARDS = 4
@@ -1868,6 +2102,30 @@ def reset_launches():
 def read_launches() -> dict:
     torch.cuda.synchronize()
     return {**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_halo.LAUNCHES}
+
+
+def halo_scan_shard_times(masks: dict, count: bool = True) -> dict:
+    """brute_scan_bytes_halo on each shard's frame of each (4096, 4096) mask
+    over 4 shards at spread 64 (CUDA events, as in phase 6), their sum and
+    the four back to back, with ``count`` the staged walk's taps a pixel;
+    returns {name: [ms per shard]}."""
+    out = {}
+    h4 = SIZE // SHARDS
+    for name, b in masks.items():
+        frames = shard_frames(cuda_brute.seed_strips(b, SPREAD), SPREAD, SHARDS)
+        locals_ = [b[i * h4 : (i + 1) * h4].contiguous() for i in range(SHARDS)]
+        calls = [functools.partial(cuda_brute.brute_scan_bytes_halo, lb, ext, SPREAD, SPREAD)
+                 for lb, ext in zip(locals_, frames)]
+        out[name] = [cuda_ms(fn) for fn in calls]
+        all4 = cuda_ms(lambda: [fn() for fn in calls])
+        line = (f"time halo scan {name} shards " + ", ".join(f"{ms:.4f}" for ms in out[name])
+                + f" ms, sum {sum(out[name]):.4f} ms, the four back to back {all4:.4f} ms")
+        if count:
+            taps = sum(staged_walk_taps(lb, ext, SPREAD, SPREAD) for lb, ext in zip(locals_, frames))
+            line += f"; staged walk {taps / b.numel():.3f} taps a pixel"
+        log(line)
+        del frames, locals_, calls
+    return out
 
 
 def sharded_phases(dev, noise, glyph):
@@ -2004,16 +2262,22 @@ def sharded_phases(dev, noise, glyph):
             f"{e} bytes differ")
         require(e == 0, "halo_slab differs from its plain version on BRUTE's plane stacks")
         del stacks
-        ext = planes[..., h4 - SPREAD : 2 * h4 + SPREAD, :].contiguous()
-        local = b[h4 : 2 * h4].contiguous()
-        got = cuda_brute.brute_scan_bytes_halo(local, ext, SPREAD, SPREAD)
-        e = max_abs_err(got, cuda_brute.brute_scan_bytes_halo_plain(local, ext, SPREAD, SPREAD))
-        e2 = max_abs_err(got, cuda_brute.brute_sdf_bytes(b, SPREAD)[h4 : 2 * h4])
-        err["brute_scan_bytes_halo"] = max(err["brute_scan_bytes_halo"], e)
-        log(f"check brute_scan_bytes_halo {name} shard 1 of 4, planes {tuple(ext.shape)}: err {e} vs plain, "
-            f"{e2} vs one device")
-        require(e == 0 and e2 == 0, "brute_scan_bytes_halo differs from its plain version")
-    del planes, ext
+        # every shard's frame, uint8 planes at spread 64 and uint16 at 300
+        # (past the staged kernel's shared memory: the per-pixel walk)
+        for spread in (SPREAD, 300):
+            planes = cuda_brute.seed_strips(b, spread)
+            one = cuda_brute.brute_sdf_bytes(b, spread)
+            for i, ext in enumerate(shard_frames(planes, spread, SHARDS)):
+                local = b[i * h4 : (i + 1) * h4].contiguous()
+                got = cuda_brute.brute_scan_bytes_halo(local, ext, spread, spread)
+                e = max_abs_err(got, cuda_brute.brute_scan_bytes_halo_plain(local, ext, spread, spread))
+                e2 = max_abs_err(got, one[i * h4 : (i + 1) * h4])
+                err["brute_scan_bytes_halo"] = max(err["brute_scan_bytes_halo"], e, e2)
+                log(f"check brute_scan_bytes_halo {name} spread {spread} shard {i} of {SHARDS}, planes "
+                    f"{tuple(ext.shape)} {ext.dtype}: err {e} vs plain, {e2} vs one device")
+                require(e == 0 and e2 == 0, "brute_scan_bytes_halo differs from its plain version or one device")
+            del planes, one
+    del ext
 
     # the int32 strips (band above 65534) against their plain versions
     din, dout = cuda_edt.row_distances_u8(corner, 65602)
@@ -2059,9 +2323,10 @@ def sharded_phases(dev, noise, glyph):
         times[f"sharded_brute_{impl}"] = cuda_ms(lambda: sharded.sharded_brute_sdf_bytes(g, SPREAD, m4, halo=impl))
     times["exact_one_device"] = cuda_ms(lambda: cuda_edt.fused_sdf_bytes(g, SPREAD))
     times["brute_one_device"] = cuda_ms(lambda: cuda_brute.brute_sdf_bytes(g, SPREAD))
+    shard_times = halo_scan_shard_times(masks)
+    times["brute_scan_bytes_halo"] = shard_times["glyph"][1]
     local = g[h4 : 2 * h4].contiguous()
-    ext = cuda_brute.seed_strips(g, SPREAD)[..., h4 - SPREAD : 2 * h4 + SPREAD, :].contiguous()
-    times["brute_scan_bytes_halo"] = cuda_ms(lambda: cuda_brute.brute_scan_bytes_halo(local, ext, SPREAD, SPREAD))
+    ext = shard_frames(cuda_brute.seed_strips(g, SPREAD), SPREAD, SHARDS)[1]
     times["brute_scan_bytes_halo_plain"] = cuda_ms(
         lambda: cuda_brute.brute_scan_bytes_halo_plain(local, ext, SPREAD, SPREAD), 2, 3)
     npix = h4 * SIZE
@@ -2497,6 +2762,9 @@ def main() -> int:
     glyph = glyph_image(SIZE, SEED + 1)
     if sys.argv[1:] == ["--composed-turn"]:
         composed_turn(dev, glyph)
+        return 0
+    if sys.argv[1:] == ["--kernel-turn"]:
+        kernel_turn(dev, noise, glyph)
         return 0
     paths = []
     for label, phases, args in (("3-7", hard_phases, (noise, glyph)), ("8-11", soft_phases, (glyph,)),

@@ -353,6 +353,43 @@ def test_soft_fused_kernels_match_plain(dev, shape, band, tau, temperature, test
     assert torch.equal(soft_fused.f2_pass(s1p, band, temperature, 1e-6, memos=False), field)
 
 
+def _stroke_gray(shape, seed):
+    """Strokes in +-2040: windows that mix strokes and empty space."""
+    rng = np.random.default_rng(seed)
+    m = np.zeros(shape, np.float32)
+    for _ in range(max(1, m.size // 40000)):
+        y, x = rng.integers(0, shape[-2]), rng.integers(0, shape[-1])
+        m[..., y : y + int(rng.integers(2, 9)), x : x + int(rng.integers(4, 60))] = 1.0
+    return m * 4080 - 2040
+
+
+@pytest.mark.parametrize("band,tau,temperature,kind", [(66, 2.0, 1.0, "pm2000"), (112, 1.0, 0.5, "u8"),
+                                                       (112, 2.0, 1.0, "strokes"), (66, 1.0, 8.0, "strokes")])
+def test_soft_b2_long_strips_and_halo_blocks_match_plain(dev, band, tau, temperature, kind):
+    """soft_b2 where a block's strip outruns its ring (a (2, 1536, 2048)
+    batch: the ring wraps within each strip), and on tier 2's halo'd S1
+    block (pass2_ext: 1e30 rows beyond the image, a zero cotangent on the
+    halo rows), bit for bit its plain version."""
+    shape = (2, 1536, 2048)
+    if kind == "strokes":
+        g = torch.from_numpy(_stroke_gray(shape, band)).to(dev)
+        ct = torch.from_numpy(np.random.default_rng(1).standard_normal(shape).astype(np.float32)).to(dev)
+    else:
+        g, ct = _fused_case(dev, shape, kind, band)
+    s1 = soft_fused.f1_plain(g, band, tau, temperature)
+    _, d2 = soft_fused.f2_plain(s1, band, temperature, 1e-6)
+    got = _counted("soft_b2", lambda: soft_fused.b2_pass(ct, d2, s1, band, temperature, 1e-6))
+    assert torch.equal(got, soft_fused.b2_plain(ct, d2, s1, band, temperature, 1e-6))
+    # shard 0 of 3 over y: its S1 with a halo of band rows, 1e30 above the image
+    h = shape[-2] // 3
+    s1ext = torch.cat([torch.full_like(s1[..., :band, :], soft_fused.PAD_H), s1[..., : h + band, :]], dim=-2)
+    _, d2e = soft_fused.f2_plain(s1ext, band, temperature, 1e-6)
+    cte = torch.nn.functional.pad(ct[..., :h, :], (0, 0, band, band)).contiguous()
+    got = _counted("soft_b2", lambda: soft_fused.b2_pass(cte, d2e, s1ext.contiguous(), band, temperature, 1e-6))
+    torch.cuda.synchronize()
+    assert torch.equal(got, soft_fused.b2_plain(cte, d2e, s1ext, band, temperature, 1e-6))
+
+
 @pytest.mark.parametrize("shape", FUSED_SHAPES)
 @pytest.mark.parametrize("band,tau,temperature,test_above,kind", FUSED_PARAMS)
 def test_soft_fused_chain_matches_autograd_of_plain(dev, shape, band, tau, temperature, test_above, kind):
@@ -647,14 +684,19 @@ def test_edt_int32_strips_match_plain(dev):
 @pytest.mark.parametrize("spread,n,hs_extra,asymmetric,invert", [(5, 1, (5, 5), False, False),
                                                                  (64, 2, (64, 64), True, True),
                                                                  (40, 1, (0, 40), False, True),
-                                                                 (254, 1, (254, 7), False, False)])
+                                                                 (254, 1, (254, 7), False, False),
+                                                                 (300, 1, (100, 50), False, False),
+                                                                 (300, 2, (300, 300), True, False)])
 def test_brute_scan_bytes_halo_matches_plain(dev, spread, n, hs_extra, asymmetric, invert):
     """Row 16 on planes that are not pass-A output at all (the scan is
-    defined on any), with halo rows above and below the shard."""
+    defined on any), with halo rows above and below the shard; at spread 300
+    uint16 frames, of 198 rows (the staged kernel) and of 648 (past its
+    shared memory: the per-pixel walk)."""
     h, w = 48, 150
     top, bottom = hs_extra
     rng = np.random.default_rng(spread)
-    strips = torch.from_numpy(rng.integers(0, spread + 2, size=(2, 4, n, top + h + bottom, w), dtype=np.uint8))
+    dtype = np.uint8 if cuda_brute.strip_dtype(spread) == torch.uint8 else np.uint16
+    strips = torch.from_numpy(rng.integers(0, spread + 2, size=(2, 4, n, top + h + bottom, w), dtype=dtype))
     b = _codes((n, h, w), spread, density=0.4)
     strips, b = strips.to(dev), b.to(dev)
     before = cuda_brute.LAUNCHES["brute_scan_bytes_halo"]
@@ -663,6 +705,40 @@ def test_brute_scan_bytes_halo_matches_plain(dev, spread, n, hs_extra, asymmetri
     want = cuda_brute.brute_scan_bytes_halo_plain(b, strips, spread, top, asymmetric, invert)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["strokes", "noise", "far_seed", "uniform"])
+@pytest.mark.parametrize("spread,h,w,hs_extra", [(64, 300, 157, (64, 64)), (20, 260, 64, (45, 3)),
+                                                 (253, 140, 33, (253, 253)), (300, 90, 70, (120, 0)),
+                                                 (64, 517, 301, (0, 0))])
+def test_brute_scan_bytes_halo_staged_on_pass_a_frames(dev, kind, spread, h, w, hs_extra):
+    """The staged halo scan on pass-A planes of a frame cut from a larger
+    mask: several 128-row tiles, odd widths, halos wider than the spread,
+    uint8 up to spread 253 (windows of up to 634 rows) and a uint16 frame
+    that fits, and one device's frame (row_off 0, hs = h): byte for byte its
+    plain version and the one-device scan of the whole mask."""
+    top, bottom = hs_extra
+    rng = np.random.default_rng(spread + h)
+    full_shape = (top + h + bottom, w)
+    if kind == "strokes":
+        mask = torch.from_numpy(_stroke_gray(full_shape, spread) > 0)
+    elif kind == "noise":
+        mask = torch.from_numpy(rng.random(full_shape) < 0.3)
+    elif kind == "far_seed":
+        mask = torch.zeros(full_shape, dtype=torch.bool)
+        mask[1, 2] = True
+    else:
+        mask = torch.zeros(full_shape, dtype=torch.bool)
+    mask = mask.to(dev)
+    strips = cuda_brute.seed_strips(mask, spread)
+    b = mask[top : top + h].contiguous()
+    before = cuda_brute.LAUNCHES["brute_scan_bytes_halo"]
+    got = cuda_brute.brute_scan_bytes_halo(b, strips, spread, top)
+    assert cuda_brute.LAUNCHES["brute_scan_bytes_halo"] == before + 1
+    want = cuda_brute.brute_scan_bytes_halo_plain(b, strips, spread, top)
+    whole = cuda_brute.brute_scan_bytes(mask, strips, spread)[top : top + h]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, whole)
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int32, torch.float32])
@@ -688,6 +764,40 @@ def test_halo_kernels_match_plain(dev, dtype, n, h, w, band):
     plain = halo.exchange_row_halo(blocks, band, fill)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b_) for a, b_ in zip(ext, plain))
+
+
+@pytest.mark.parametrize("kind", ["strokes", "noise", "far_seed", "uniform"])
+@pytest.mark.parametrize("spread,h,w,hs_extra", [(64, 300, 157, (64, 64)), (20, 260, 64, (45, 3)),
+                                                 (253, 140, 33, (253, 253)), (300, 90, 70, (120, 0)),
+                                                 (64, 517, 301, (0, 0))])
+def test_brute_scan_bytes_halo_staged_on_pass_a_frames(dev, kind, spread, h, w, hs_extra):
+    """The staged halo scan on pass-A planes of a frame cut from a larger
+    mask: several 128-row tiles, odd widths, halos wider than the spread,
+    uint8 up to spread 253 (windows of up to 634 rows) and a uint16 frame
+    that fits, and one device's frame (row_off 0, hs = h): byte for byte its
+    plain version and the one-device scan of the whole mask."""
+    top, bottom = hs_extra
+    rng = np.random.default_rng(spread + h)
+    full_shape = (top + h + bottom, w)
+    if kind == "strokes":
+        mask = torch.from_numpy(_stroke_gray(full_shape, spread) > 0)
+    elif kind == "noise":
+        mask = torch.from_numpy(rng.random(full_shape) < 0.3)
+    elif kind == "far_seed":
+        mask = torch.zeros(full_shape, dtype=torch.bool)
+        mask[1, 2] = True
+    else:
+        mask = torch.zeros(full_shape, dtype=torch.bool)
+    mask = mask.to(dev)
+    strips = cuda_brute.seed_strips(mask, spread)
+    b = mask[top : top + h].contiguous()
+    before = cuda_brute.LAUNCHES["brute_scan_bytes_halo"]
+    got = cuda_brute.brute_scan_bytes_halo(b, strips, spread, top)
+    assert cuda_brute.LAUNCHES["brute_scan_bytes_halo"] == before + 1
+    want = cuda_brute.brute_scan_bytes_halo_plain(b, strips, spread, top)
+    whole = cuda_brute.brute_scan_bytes(mask, strips, spread)[top : top + h]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, whole)
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int32, torch.float32])

@@ -28,15 +28,8 @@
 //   (opencl/sdf.cl:206-223). Integer arithmetic up to the sqrt. Bound:
 //   bytes, 1 + 8 sizeof(T) + 1 B/px; a lower envelope per side with the
 //   diagonal rows as a scatter-min needs ~75 operations per pixel, under
-//   them. The walk below costs taps: a pixel near a seed of the other
-//   polarity stops after a few, one far from any walks up to spread rows
-//   each way.
-//   Design: one thread per output pixel walks |dy| = 1, 2, ... and stops
-//   once dy^2 >= its running minimum (dx^2 >= 0, so no later tap can lower
-//   it) -- the GPU form of the TPU kernel's segment-min skip bound. Rows
-//   outside the image are no taps: they read sent there, whose d^2 exceeds
-//   spread^2, so they cannot change the result. Neighbouring threads read
-//   neighbouring columns of each plane.
+//   them. A walk costs taps: a pixel near a seed of the other polarity stops
+//   after a few, one far from any walks up to spread rows each way.
 //
 // brute_scan_bytes_halo<T> replaces pallas_brute.py:_brute_kernel_halo_entry
 //   (brute_sdf_bytes_pallas_halo, a shard of parallel/sharded.py): the same
@@ -46,35 +39,46 @@
 //   own rows from row_off on. The sign comes from the shard's own codes
 //   (N, H_loc, W), and only its H_loc rows are written. With row_off 0 and
 //   hs = H_loc it is the one-device scan. Bound: bytes, as brute_scan_bytes.
-//   What held the per-pixel walk (brute_pixel) back on sparse content: its
-//   only stop is dy^2 >= best, and far from any seed of the other polarity
-//   every row distance is clipped at spread + 1, so the walk runs all
-//   spread rows each way, two dependent plane loads a tap, and ends not
-//   found; the four rows of a 64 x 4 block fetched the same taps again.
-//   Design (brute_scan_halo_staged; PERF.md row 16): a block owns 32
-//   columns (one per lane) and 128 output rows (16 warps), and stages its
-//   window of the frame, rows [y0 - spread, y0 + 128 + spread) within
-//   [0, hs) widened to whole 16-row segments of the frame, into shared
-//   memory once: all eight planes of its columns, through 16-byte cp.async
-//   copies where the rows allow (W sizeof(T) a multiple of 16), each byte
-//   read once per block. With the rows it keeps the least of the four
-//   plane values per segment, column and polarity: every tap in a segment
-//   is at least a^2 + m^2 (a the distance of its nearest row, m that least
-//   value; dx >= min(L1, L2, R1, R2), which is min(L1, R1) on pass-A
-//   planes, and the bound holds on any planes). A pixel walks the segments
-//   outward, one above and one below a step, skips a segment where a^2 +
-//   m^2 >= best, walks a live one's rows near to far, and ends a side once
-//   a^2 >= best. The result is an integer minimum, so the order of the
-//   taps does not matter, and a skipped tap cannot lower it: byte for byte
-//   the per-pixel walk. Far from strokes a pixel is done after its own row
-//   and a test per segment. On dense content the walk was short already:
-//   there the staging (two window rows per output row) and the segment
-//   pass are extra work, and the per-pixel walk stays ahead (PERF.md).
-//   Where the largest window (min(hs, 128 + 2 spread + 30) rows of 256
-//   elements, up to 181 KB for uint8 at spread 253) exceeds a block's 227
-//   KB, as uint16 frames of more than ~440 rows do, the launcher takes the
-//   per-pixel walk from device memory (brute_scan_bytes_halo_kernel),
-//   which brute_scan_bytes also runs.
+//
+// Both run one kernel, brute_scan_staged (PERF.md rows 15-16). The walks
+// it chooses between:
+//   * per pixel (brute_scan_pixel_kernel): |dy| = 1, 2, ... from device
+//     memory, stopping once dy^2 >= the running minimum (dx^2 >= 0: no later
+//     tap can lower it). Rows outside the frame are no taps (they read sent,
+//     whose d^2 exceeds spread^2). Fast where walks are short (dense
+//     content), but far from any seed of the other polarity every row
+//     distance is clipped at spread + 1 and the walk runs all spread rows
+//     each way, two dependent byte loads a tap.
+//   * by segments (segment_walk), on a window of the frame staged in shared
+//     memory: a block of 32 columns (one per lane) and 128 output rows (16
+//     warps) stages rows [y0 - spread, y0 + 128 + spread) within [0, hs)
+//     widened to whole 16-row segments of the frame, through 16-byte
+//     cp.async copies where the rows allow, and keeps the least of the four
+//     plane values per segment, column and polarity: every tap in a segment
+//     is at least a^2 + m^2 (a the distance of its nearest row, m that least
+//     value; dx >= min(L1, L2, R1, R2), on any planes). A pixel walks the
+//     segments outward, one above and one below a step, skips one where a^2
+//     + m^2 >= best and ends a side once a^2 >= best: far from strokes it is
+//     done after its own row and a test per segment.
+// The minimum is an integer, so the order of the taps does not matter and a
+// skipped tap cannot lower it: every path is byte for byte the per-pixel
+// walk. What the block does is chosen from its own codes, before it stages
+// anything. A sparse or uniform block (under 1/8 or over 7/8 of its pixels
+// set), where pixels lie far from the other polarity, stages its window at
+// once, only the planes of the polarities its pixels search, and walks by
+// segments. A dense block stages its core first, the rows within kCap of
+// its output rows (about half its window), walks |dy| <= kCap per pixel
+// there, writes the pixels that are done and, if all are, ends: on dense
+// content no block stages more (either walk alone loses on one content or
+// the other). What is left stages the rest of the window and goes on by
+// segments from |dy| = kCap + 1. A capped walk from device memory instead
+// lost to the per-pixel kernel on noise: byte loads of 8 pixels a lane,
+// serialised by the diagonal rule's dependent loads, or too many of them
+// when issued together (PERF.md).
+// Where the largest window (min(hs, 128 + 2 spread + 30) rows of 256
+// elements, up to 181 KB for uint8 at spread 253) exceeds a block's 227 KB,
+// as uint16 frames of more than ~440 rows do, the launcher takes the
+// per-pixel walk.
 
 // Exact numbers: the float tail is explicit _rn intrinsics in the plain
 // version's order (ops/brute.py, ops/merge.py). Build without
@@ -224,273 +228,362 @@ __device__ __forceinline__ uint8_t opencl_tail(int best, bool val, int spread, f
   return (uint8_t)(int)remap;
 }
 
-// One output pixel of the scan. val: the pixel's value (it searches the
-// seeds of the other polarity, sdf.cl:201); l1: its column of that
-// polarity's L1 plane, the L2, R1 and R2 planes `plane` elements apart;
-// the planes hold rows [0, hs) and the pixel sits at row ys.
+// One tap: dx^2 + a^2 at the row whose L1 value is l1[0], the L2, R1 and R2
+// values `plane` elements apart. The diagonal |dx| == |dy| = a is never a
+// candidate (the OpenCL search never probes it, sdf.cl:131-183), so a side
+// whose nearest seed sits there takes its second.
 template <typename T>
-__device__ __forceinline__ uint8_t brute_pixel(bool val, const T* __restrict__ l1, size_t plane,
-                                               int w, int ys, int hs, int spread, float s_min,
-                                               float s_max, int invert) {
-  const T* l2 = l1 + plane;
-  const T* r1 = l1 + 2 * plane;
-  const T* r2 = l1 + 3 * plane;
-  auto tap = [&](int yy, int a) -> int {
-    const size_t o = (size_t)yy * w;
-    const int dl1 = l1[o];
-    const int dr1 = r1[o];
-    // the diagonal |dx| == |dy| is never a candidate: take the next seed
-    const int dl = dl1 != a ? dl1 : (int)l2[o];
-    const int dr = dr1 != a ? dr1 : (int)r2[o];
-    const int dx = min(dl, dr);
-    return dx * dx + a * a;
-  };
-  int best = tap(ys, 0);
-  const int reach = min(spread, max(ys, hs - 1 - ys));
-  for (int a = 1; a <= reach; ++a) {
-    if (a * a >= best) break;
-    if (ys - a >= 0) best = min(best, tap(ys - a, a));
-    if (ys + a < hs) best = min(best, tap(ys + a, a));
-  }
-  return opencl_tail(best, val, spread, s_min, s_max, invert);
-}
-
-// grid (ceil(W/64), ceil(H/4), N); block (64, 4): one thread per pixel.
-template <typename T>
-__global__ void __launch_bounds__(kScanTx * kScanTy)
-brute_scan_bytes_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
-                        uint8_t* __restrict__ out, int n, int h, int w, int spread,
-                        float s_min, float s_max, int invert) {
-  const int x = blockIdx.x * kScanTx + threadIdx.x;
-  const int y = blockIdx.y * kScanTy + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const size_t plane = (size_t)n * h * w;
-  const size_t img = (size_t)blockIdx.z * h * w;
-  const size_t pix = img + (size_t)y * w + x;
-  const bool val = codes[pix] != 0;
-  out[pix] = brute_pixel(val, strips + (val ? 4 : 0) * plane + img + x, plane, w, y, h, spread,
-                         s_min, s_max, invert);
+__device__ __forceinline__ int plane_tap(const T* __restrict__ l1, size_t plane, int a) {
+  const int dl1 = l1[0], dr1 = l1[2 * plane];
+  const int dl = dl1 != a ? dl1 : (int)l1[plane];
+  const int dr = dr1 != a ? dr1 : (int)l1[3 * plane];
+  const int dx = min(dl, dr);
+  return dx * dx + a * a;
 }
 
 // grid (ceil(W/64), ceil(H_loc/4), N); block (64, 4): one thread per output
 // pixel. codes and out are (N, h, W); the planes (2, 4, N, hs, W), the
-// shard's row y at plane row y + row_off.
+// shard's row y at plane row y + row_off (one device: row_off 0, hs = h).
+// The pixel walks |dy| = 1, 2, ... from device memory and stops once dy^2 >=
+// its running minimum.
 template <typename T>
 __global__ void __launch_bounds__(kScanTx * kScanTy)
-brute_scan_bytes_halo_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
-                             uint8_t* __restrict__ out, int n, int h, int hs, int w,
-                             int row_off, int spread, float s_min, float s_max, int invert) {
+brute_scan_pixel_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
+                        uint8_t* __restrict__ out, int n, int h, int hs, int w, int row_off,
+                        int spread, float s_min, float s_max, int invert) {
   const int x = blockIdx.x * kScanTx + threadIdx.x;
   const int y = blockIdx.y * kScanTy + threadIdx.y;
   if (x >= w || y >= h) return;
   const size_t plane = (size_t)n * hs * w;
   const size_t pix = (size_t)blockIdx.z * h * w + (size_t)y * w + x;
   const bool val = codes[pix] != 0;
+  // the pixel searches the seeds of the other polarity (sdf.cl:201)
   const T* l1 = strips + (val ? 4 : 0) * plane + (size_t)blockIdx.z * hs * w + x;
-  out[pix] = brute_pixel(val, l1, plane, w, y + row_off, hs, spread, s_min, s_max, invert);
+  const int ys = y + row_off;
+  int best = plane_tap(l1 + (size_t)ys * w, plane, 0);
+  const int reach = min(spread, max(ys, hs - 1 - ys));
+  for (int a = 1; a <= reach; ++a) {
+    if (a * a >= best) break;
+    if (ys - a >= 0) best = min(best, plane_tap(l1 + (size_t)(ys - a) * w, plane, a));
+    if (ys + a < hs) best = min(best, plane_tap(l1 + (size_t)(ys + a) * w, plane, a));
+  }
+  out[pix] = opencl_tail(best, val, spread, s_min, s_max, invert);
 }
 
-// ------------------------------------------------------- halo scan, staged
+// ------------------------------------------------------ the staged kernels
 
 constexpr int kHaloLanes = 32;   // columns per block, one per lane
 constexpr int kHaloWarps = 16;
 constexpr int kHaloThreads = kHaloWarps * kHaloLanes;
 constexpr int kHaloRows = 128;   // output rows per block
+constexpr int kPerLane = kHaloRows / kHaloWarps;  // output rows per lane: y0 + warp + 16 i
 constexpr int kHaloSeg = 16;     // window rows per segment minimum
 constexpr int kRowElems = 8 * kHaloLanes;  // a window row: the eight planes' 32 columns
 constexpr int kMaxSmem = 232448; // a block's shared memory on sm_90
+constexpr int kCap = 8;          // brute_scan_staged: rows each way of a dense block's capped walk
+static_assert(kPerLane <= 32, "a lane's pixels fit one word of bits");
 
 __device__ __forceinline__ uint32_t vmin_packed(uint32_t a, uint32_t b, int elem_bytes) {
   return elem_bytes == 1 ? __vminu4(a, b) : __vminu2(a, b);
 }
 
-// grid (ceil(W/32), ceil(H_loc/128), N); block 512: 32 columns (one per lane)
-// and 128 output rows (warp w takes rows w, w + 16, ...) of one image. The
-// block stages its window of the frame, rows [y0 + row_off - spread, y1 +
-// row_off + spread) within [0, hs) widened to whole 16-row segments of the
-// frame, all eight planes of its 32 columns, then the least of the four
-// planes per segment, column and polarity; then each pixel walks the
-// segments outward on both sides, skipping those that cannot lower its
-// minimum. vec: 16-byte copies (rows of W sizeof(T) bytes a multiple of 16,
-// the planes 16-byte aligned); else element by element.
-template <typename T>
-__global__ void __launch_bounds__(kHaloThreads)
-brute_scan_halo_staged(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
-                       uint8_t* __restrict__ out, int n, int h, int hs, int w, int row_off,
-                       int spread, float s_min, float s_max, int invert, int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tx = threadIdx.x % kHaloLanes, wp = threadIdx.x / kHaloLanes;
-  const int x0 = blockIdx.x * kHaloLanes, x = x0 + tx;
-  const int y0 = blockIdx.y * kHaloRows, y1 = min(y0 + kHaloRows, h);
-  const size_t plane = (size_t)n * hs * w;
-  const int wlo = max(0, y0 + row_off - spread) / kHaloSeg * kHaloSeg;
+// A block's window of the frame: rows [wlo, wlo + nrows), its output rows
+// [y0, y1) widened by the spread within [0, hs) and to whole 16-row segments
+// of the frame.
+struct Window {
+  int wlo, nrows, nseg;
+};
+
+__device__ __forceinline__ Window block_window(int y0, int y1, int row_off, int spread, int hs) {
+  Window wd;
+  wd.wlo = max(0, y0 + row_off - spread) / kHaloSeg * kHaloSeg;
   const int whi = min(hs, (y1 + row_off + spread + kHaloSeg - 1) / kHaloSeg * kHaloSeg);
-  const int nrows = whi - wlo, nseg = (nrows + kHaloSeg - 1) / kHaloSeg;
-  T* win = (T*)smem_raw;                                // window row r, plane k: win + (r * 8 + k) * 32
-  int* segm = (int*)(win + (size_t)nrows * kRowElems);  // segment s, polarity p: segm + (s * 2 + p) * 32
+  wd.nrows = whi - wd.wlo;
+  wd.nseg = (wd.nrows + kHaloSeg - 1) / kHaloSeg;
+  return wd;
+}
 
-  // this lane's pixel values (bit i: row y0 + wp + 16 i), loaded together
-  constexpr int kPerLane = kHaloRows / kHaloWarps;
-  static_assert(kPerLane <= 32, "a lane's values fit one word");
-  uint32_t vals = 0;
-  if (x < w) {
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int y = y0 + wp + kHaloWarps * i;
-      if (y < y1 && codes[((size_t)blockIdx.z * h + y) * w + x] != 0) vals |= 1u << i;
-    }
-  }
-
-  // stage: plane k of window row r, columns x0 .. x0 + 31 (columns past W
-  // are never read)
-  const T* base = strips + (size_t)blockIdx.z * hs * w + x0;
+// Stage window rows [r0, r1) of the block's window, planes [k0, k1) of the
+// eight (4 p .. 4 p + 3: polarity p) of its 32 columns, into win (window row
+// r, plane k at win + (r * 8 + k) * 32), and wait for them; ends with
+// __syncthreads. base: the image's planes from column x0. vec: 16-byte
+// copies (rows of W sizeof(T) bytes a multiple of 16, the planes 16-byte
+// aligned); else element by element. Columns past W are never read.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* win, const T* __restrict__ base, size_t plane, int w, int x0, int wlo,
+                                           int r0, int r1, int k0, int k1, int vec) {
+  const int nk = k1 - k0;
   if (vec) {
-    constexpr int kVec = 16 / sizeof(T), kCopies = kRowElems / kVec;  // copies per window row
-    for (int e = threadIdx.x; e < nrows * kCopies; e += kHaloThreads) {
-      const int r = e / kCopies, k = (e % kCopies) / (kHaloLanes / kVec), c = (e % (kHaloLanes / kVec)) * kVec;
+    constexpr int kVec = 16 / sizeof(T), kPerPlane = kHaloLanes / kVec;  // copies per plane row
+    for (int e = threadIdx.x; e < (r1 - r0) * nk * kPerPlane; e += kHaloThreads) {
+      const int r = r0 + e / (nk * kPerPlane), k = k0 + (e / kPerPlane) % nk, c = (e % kPerPlane) * kVec;
       if (x0 + c < w) cp_async16(win + (r * 8 + k) * kHaloLanes + c, base + k * plane + (size_t)(wlo + r) * w + c);
     }
     cp_commit();
     cp_wait_all();
   } else {
-    for (int e = threadIdx.x; e < nrows * kRowElems; e += kHaloThreads) {
-      const int r = e / kRowElems, k = (e / kHaloLanes) % 8, c = e % kHaloLanes;
-      if (x0 + c < w) win[e] = base[k * plane + (size_t)(wlo + r) * w + c];
+    for (int e = threadIdx.x; e < (r1 - r0) * nk * kHaloLanes; e += kHaloThreads) {
+      const int r = r0 + e / (nk * kHaloLanes), k = k0 + (e / kHaloLanes) % nk, c = e % kHaloLanes;
+      if (x0 + c < w) win[(r * 8 + k) * kHaloLanes + c] = base[k * plane + (size_t)(wlo + r) * w + c];
     }
   }
   __syncthreads();
+}
 
-  // segment minima: a thread takes 32 bits of columns of one segment and
-  // polarity, the least over its rows and four planes
-  {
-    constexpr int kPer = 4 / sizeof(T), kWords = kHaloLanes / kPer;  // columns per word, words per plane row
-    const uint32_t* win32 = (const uint32_t*)win;
-    for (int e = threadIdx.x; e < nseg * 2 * kWords; e += kHaloThreads) {
-      const int s = e / (2 * kWords), p = (e / kWords) % 2, q = e % kWords;
-      const int r_end = min((s + 1) * kHaloSeg, nrows);
-      uint32_t m = 0xffffffffu;
-      for (int r = s * kHaloSeg; r < r_end; ++r) {
-        const uint32_t* row = win32 + (r * 8 + 4 * p) * kWords + q;
+// The least of the four planes per segment of the staged window, column and
+// polarity p in [p0, p1) into segm (segment s, polarity p at segm + (s * 2 +
+// p) * 32); ends with __syncthreads. A thread takes 32 bits of columns of
+// one segment and polarity, the least over its rows and four planes.
+template <typename T>
+__device__ __forceinline__ void segment_minima(const T* win, int* segm, const Window& wd, int p0, int p1) {
+  constexpr int kPer = 4 / sizeof(T), kWords = kHaloLanes / kPer;  // columns per word, words per plane row
+  const uint32_t* win32 = (const uint32_t*)win;
+  const int np = p1 - p0;
+  for (int e = threadIdx.x; e < wd.nseg * np * kWords; e += kHaloThreads) {
+    const int s = e / (np * kWords), p = p0 + (e / kWords) % np, q = e % kWords;
+    const int r_end = min((s + 1) * kHaloSeg, wd.nrows);
+    uint32_t m = 0xffffffffu;
+    for (int r = s * kHaloSeg; r < r_end; ++r) {
+      const uint32_t* row = win32 + (r * 8 + 4 * p) * kWords + q;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) m = vmin_packed(m, row[k * kWords], (int)sizeof(T));
-      }
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-        segm[(s * 2 + p) * kHaloLanes + q * kPer + i] = (int)((m >> (8 * sizeof(T) * i)) & ((1u << (8 * sizeof(T))) - 1));
+      for (int k = 0; k < 4; ++k) m = vmin_packed(m, row[k * kWords], (int)sizeof(T));
     }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      segm[(s * 2 + p) * kHaloLanes + q * kPer + i] = (int)((m >> (8 * sizeof(T) * i)) & ((1u << (8 * sizeof(T))) - 1));
   }
   __syncthreads();
-  if (x >= w) return;
+}
 
-  for (int i = 0, y = y0 + wp; y < y1; ++i, y += kHaloWarps) {
-    const size_t pix = ((size_t)blockIdx.z * h + y) * w + x;
-    const bool val = (vals >> i) & 1u;
-    // the pixel searches the seeds of the other polarity (sdf.cl:201)
-    const T* col = win + (val ? 4 : 0) * kHaloLanes + tx;  // window row r, plane k: col[(r * 8 + k) * 32]
-    const int* sm = segm + (val ? kHaloLanes : 0) + tx;   // segment s at sm[s * 64]
-    // brute_pixel's tap: the diagonal |dx| == |dy| = a is never a candidate,
-    // so a side whose nearest seed sits there takes its second
-    auto tap = [&](int r, int a) -> int {
-      const T* q = col + r * kRowElems;
-      const int l1 = q[0], r1 = q[2 * kHaloLanes];
-      const int dl = l1 != a ? l1 : (int)q[kHaloLanes];
-      const int dr = r1 != a ? r1 : (int)q[3 * kHaloLanes];
-      const int dx = min(dl, dr);
-      return dx * dx + a * a;
-    };
-    const int c = y + row_off - wlo;  // the pixel's window row
-    int best = tap(c, 0);
-    // rows within spread of the pixel and inside the frame: [lo, hi]
-    const int lo = max(c - spread, 0), hi = min(c + spread, nrows - 1);
-    // the segments outward, one above and one below per step. Every tap of a
-    // segment is at least a^2 + m^2 (a its nearest row's distance, m its least
-    // plane value: dx >= min(L1, L2, R1, R2)); a segment where that cannot
-    // lower best is skipped, and a side ends where a^2 alone cannot
-    int su = c / kHaloSeg, sd = su;
-    bool up = best > 1 && c > lo, dn = best > 1 && c < hi;  // no row at a >= 1 lowers best <= 1
-    while (up || dn) {
-      if (up) {
-        const int top = max(su * kHaloSeg, lo), bot = min(su * kHaloSeg + kHaloSeg - 1, c - 1);
-        if (bot >= top) {
-          const int a0 = c - bot, m = sm[su * 2 * kHaloLanes];
-          if (a0 * a0 >= best) {
+// The segment walk of the pixel at window row c, from its running minimum
+// best: rows [lo, ub] above it and [db, hi] below, nearest first. col: its
+// column of its polarity's L1 plane in the window (window row r, plane k at
+// col[(r * 8 + k) * 32]); sm: that column's and polarity's segment minima
+// (segment s at sm[s * 64]). Segments go outward, one above and one below a
+// step. Every tap of a segment is at least a^2 + m^2 (a its nearest row's
+// distance, m its least plane value: dx >= min(L1, L2, R1, R2)); a segment
+// where that cannot lower best is skipped, and a side ends where a^2 alone
+// cannot.
+template <typename T>
+__device__ __forceinline__ int segment_walk(const T* col, const int* sm, int c, int lo, int ub, int db, int hi,
+                                            int best) {
+  auto tap = [&](int r, int a) { return plane_tap(col + r * kRowElems, kHaloLanes, a); };
+  int su = ub >= lo ? ub / kHaloSeg : 0, sd = db / kHaloSeg;
+  bool up = ub >= lo, dn = db <= hi;
+  while (up || dn) {
+    if (up) {
+      const int top = max(su * kHaloSeg, lo), bot = min(su * kHaloSeg + kHaloSeg - 1, ub);
+      const int a0 = c - bot, m = sm[su * 2 * kHaloLanes];
+      if (a0 * a0 >= best) {
+        up = false;
+      } else if (a0 * a0 + m * m < best) {
+        for (int r = bot; r >= top; --r) {
+          const int a = c - r;
+          if (a * a >= best) {
             up = false;
-          } else if (a0 * a0 + m * m < best) {
-            for (int r = bot; r >= top; --r) {
-              const int a = c - r;
-              if (a * a >= best) {
-                up = false;
-                break;
-              }
-              best = min(best, tap(r, a));
-            }
+            break;
           }
+          best = min(best, tap(r, a));
         }
-        up = up && su * kHaloSeg > lo;
-        --su;
       }
-      if (dn) {
-        const int top = max(sd * kHaloSeg, c + 1), bot = min(sd * kHaloSeg + kHaloSeg - 1, hi);
-        if (bot >= top) {
-          const int a0 = top - c, m = sm[sd * 2 * kHaloLanes];
-          if (a0 * a0 >= best) {
+      up = up && su * kHaloSeg > lo;
+      --su;
+    }
+    if (dn) {
+      const int top = max(sd * kHaloSeg, db), bot = min(sd * kHaloSeg + kHaloSeg - 1, hi);
+      const int a0 = top - c, m = sm[sd * 2 * kHaloLanes];
+      if (a0 * a0 >= best) {
+        dn = false;
+      } else if (a0 * a0 + m * m < best) {
+        for (int r = top; r <= bot; ++r) {
+          const int a = r - c;
+          if (a * a >= best) {
             dn = false;
-          } else if (a0 * a0 + m * m < best) {
-            for (int r = top; r <= bot; ++r) {
-              const int a = r - c;
-              if (a * a >= best) {
-                dn = false;
-                break;
-              }
-              best = min(best, tap(r, a));
-            }
+            break;
           }
+          best = min(best, tap(r, a));
         }
-        dn = dn && sd * kHaloSeg + kHaloSeg - 1 < hi;
-        ++sd;
+      }
+      dn = dn && sd * kHaloSeg + kHaloSeg - 1 < hi;
+      ++sd;
+    }
+  }
+  return best;
+}
+
+// v[i] for an i known only at run time, without moving v out of registers.
+template <int N>
+__device__ __forceinline__ int pick(const int (&v)[N], int i) {
+  int r = v[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = i == k ? v[k] : r;
+  return r;
+}
+
+// v[i] = x for an i known only at run time, v staying in registers.
+template <int N>
+__device__ __forceinline__ void put(int (&v)[N], int i, int x) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = i == k ? x : v[k];
+}
+
+// grid (ceil(W/32), ceil(H_loc/128), N); block 512: 32 columns (one per lane)
+// and 128 output rows (warp w takes rows w, w + 16, ...) of one image, the
+// shard's row y at frame row y + row_off. The block counts its set pixels
+// and takes one of two paths (the header above): a sparse or uniform block
+// stages its window at once and walks by segments from each pixel's own
+// row; a dense block stages its core, walks |dy| <= kCap per pixel, and
+// stages the rest only for the pixels left, which go on by segments.
+template <typename T>
+__global__ void __launch_bounds__(kHaloThreads)
+brute_scan_staged(const uint8_t* __restrict__ codes, const T* __restrict__ strips,
+                  uint8_t* __restrict__ out, int n, int h, int hs, int w, int row_off,
+                  int spread, float s_min, float s_max, int invert, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tx = threadIdx.x % kHaloLanes, wp = threadIdx.x / kHaloLanes;
+  const int x0 = blockIdx.x * kHaloLanes, x = x0 + tx;
+  const int y0 = blockIdx.y * kHaloRows, y1 = min(y0 + kHaloRows, h);
+  const size_t plane = (size_t)n * hs * w;
+  const T* base = strips + (size_t)blockIdx.z * hs * w + x0;
+  const Window wd = block_window(y0, y1, row_off, spread, hs);
+  T* win = (T*)smem_raw;
+  int* segm = (int*)(win + (size_t)wd.nrows * kRowElems);
+  auto pixel = [&](int y) { return ((size_t)blockIdx.z * h + y) * w + x; };
+
+  // this lane's pixel values (bit i: row y0 + wp + 16 i), loaded together
+  uint32_t vals = 0;
+  if (x < w) {
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int y = y0 + wp + kHaloWarps * i;
+      if (y < y1 && codes[pixel(y)] != 0) vals |= 1u << i;
+    }
+  }
+  __shared__ int warp_ones[kHaloWarps];
+  const int lane_ones = __reduce_add_sync(kFull, __popc(vals));
+  if (tx == 0) warp_ones[wp] = lane_ones;
+  __syncthreads();
+  int ones = 0;
+#pragma unroll
+  for (int k = 0; k < kHaloWarps; ++k) ones += warp_ones[k];
+  const int npix = (y1 - y0) * min(kHaloLanes, w - x0);
+
+  if (8 * ones < npix || 8 * ones > 7 * npix) {
+    // a pixel of value v searches polarity v's planes (sdf.cl:201)
+    const int p0 = ones == npix ? 1 : 0, p1 = ones == 0 ? 1 : 2;
+    stage_rows(win, base, plane, w, x0, wd.wlo, 0, wd.nrows, 4 * p0, 4 * p1, vec);
+    segment_minima(win, segm, wd, p0, p1);
+    if (x >= w) return;
+    for (int i = 0, y = y0 + wp; y < y1; ++i, y += kHaloWarps) {
+      const bool val = (vals >> i) & 1u;
+      const T* col = win + (val ? 4 : 0) * kHaloLanes + tx;
+      const int c = y + row_off - wd.wlo;  // the pixel's window row
+      int best = plane_tap(col + c * kRowElems, kHaloLanes, 0);
+      // no row at a >= 1 lowers best <= 1
+      if (best > 1)
+        best = segment_walk(col, segm + (val ? kHaloLanes : 0) + tx, c, max(c - spread, 0), c - 1, c + 1,
+                            min(c + spread, wd.nrows - 1), best);
+      out[pixel(y)] = opencl_tail(best, val, spread, s_min, s_max, invert);
+    }
+    return;
+  }
+
+  // the core, window rows [k0, k1): the walk below reads |dy| <= min(kCap, spread)
+  const int k0 = max(y0 + row_off - kCap - wd.wlo, 0), k1 = min(y1 + row_off + kCap - wd.wlo, wd.nrows);
+  stage_rows(win, base, plane, w, x0, wd.wlo, k0, k1, 0, 8, vec);
+  uint32_t open = 0;  // bit i: the pixel goes on past |dy| = kCap
+  int best[kPerLane] = {};
+  if (x < w) {
+#pragma unroll 1
+    for (int i = 0, y = y0 + wp; y < y1; ++i, y += kHaloWarps) {
+      const bool val = (vals >> i) & 1u;
+      const T* col = win + (val ? 4 : 0) * kHaloLanes + tx;
+      const int c = y + row_off, cw = c - wd.wlo;  // frame and window rows
+      const int lim = min(spread, max(c, hs - 1 - c));
+      int b = plane_tap(col + cw * kRowElems, kHaloLanes, 0), a = 1;
+      for (; a <= kCap && a <= lim; ++a) {
+        if (a * a >= b) break;
+        if (c - a >= 0) b = min(b, plane_tap(col + (cw - a) * kRowElems, kHaloLanes, a));
+        if (c + a < hs) b = min(b, plane_tap(col + (cw + a) * kRowElems, kHaloLanes, a));
+      }
+      if (a * a >= b || a > lim) {  // done: no row at |dy| >= a lowers b, or none is left
+        out[pixel(y)] = opencl_tail(b, val, spread, s_min, s_max, invert);
+      } else {
+        open |= 1u << i;
+        put(best, i, b);
       }
     }
-    out[pix] = opencl_tail(best, val, spread, s_min, s_max, invert);
+  }
+  if (!__syncthreads_or(open != 0)) return;
+
+  stage_rows(win, base, plane, w, x0, wd.wlo, 0, k0, 0, 8, vec);
+  stage_rows(win, base, plane, w, x0, wd.wlo, k1, wd.nrows, 0, 8, vec);
+  segment_minima(win, segm, wd, 0, 2);
+#pragma unroll 1
+  for (int i = 0; i < kPerLane; ++i) {
+    if (!((open >> i) & 1u)) continue;
+    const bool val = (vals >> i) & 1u;
+    const int y = y0 + wp + kHaloWarps * i, cw = y + row_off - wd.wlo;
+    const int b = segment_walk(win + (val ? 4 : 0) * kHaloLanes + tx, segm + (val ? kHaloLanes : 0) + tx, cw,
+                               max(cw - spread, 0), cw - kCap - 1, cw + kCap + 1, min(cw + spread, wd.nrows - 1),
+                               pick(best, i));
+    out[pixel(y)] = opencl_tail(b, val, spread, s_min, s_max, invert);
   }
 }
 
-// The staged scan's shared memory for windows of up to `rows` rows.
+// The staged kernels' shared memory for windows of up to `rows` rows.
 template <typename T>
-size_t halo_staged_smem(int rows) {
+size_t staged_smem(int rows) {
   return (size_t)rows * kRowElems * sizeof(T) + (size_t)((rows + kHaloSeg - 1) / kHaloSeg) * 2 * kHaloLanes * sizeof(int);
 }
 
-// The halo scan: the staged kernel where its largest window fits a block's
-// shared memory, else the per-pixel walk from device memory.
+// A scan of frames (N, hs, W) into (N, h, W): brute_scan_staged where its
+// largest window fits a block's shared memory, else the per-pixel walk from
+// device memory.
 template <typename T>
-int halo_scan(const uint8_t* codes, const T* strips, uint8_t* out, int n, int h, int hs, int w,
-              int row_off, int spread, float s_min, float s_max, int invert, cudaStream_t s) {
+int scan(const uint8_t* codes, const T* strips, uint8_t* out, int n, int h, int hs, int w, int row_off,
+         int spread, float s_min, float s_max, int invert, cudaStream_t s) {
   const int rows = kHaloRows + 2 * spread + 2 * (kHaloSeg - 1);  // a window's most rows
-  const size_t smem = halo_staged_smem<T>(hs < rows ? hs : rows);
+  const size_t smem = staged_smem<T>(hs < rows ? hs : rows);
   if (smem <= (size_t)kMaxSmem) {
     static size_t allowed[64] = {};  // per device: the dynamic shared memory the kernel may take
     int dev = 0;
     cudaGetDevice(&dev);
     if (smem > 48 * 1024 && (dev >= 64 || smem > allowed[dev])) {
-      const cudaError_t e = cudaFuncSetAttribute(brute_scan_halo_staged<T>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      const cudaError_t e = cudaFuncSetAttribute(brute_scan_staged<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem);
       if (e != cudaSuccess) return (int)e;
       if (dev < 64) allowed[dev] = smem;
     }
     const int vec = (w * (int)sizeof(T)) % 16 == 0 && (size_t)strips % 16 == 0;
     const dim3 grid((unsigned)((w + kHaloLanes - 1) / kHaloLanes),
                     (unsigned)((h + kHaloRows - 1) / kHaloRows), (unsigned)n);
-    brute_scan_halo_staged<T><<<grid, kHaloThreads, smem, s>>>(codes, strips, out, n, h, hs, w, row_off,
-                                                               spread, s_min, s_max, invert, vec);
+    brute_scan_staged<T><<<grid, kHaloThreads, smem, s>>>(codes, strips, out, n, h, hs, w, row_off, spread, s_min,
+                                                          s_max, invert, vec);
   } else {
     const dim3 block(kScanTx, kScanTy);
     const dim3 grid((unsigned)((w + kScanTx - 1) / kScanTx),
                     (unsigned)((h + kScanTy - 1) / kScanTy), (unsigned)n);
     if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    brute_scan_bytes_halo_kernel<T><<<grid, block, 0, s>>>(codes, strips, out, n, h, hs, w, row_off,
-                                                           spread, s_min, s_max, invert);
+    brute_scan_pixel_kernel<T><<<grid, block, 0, s>>>(codes, strips, out, n, h, hs, w, row_off, spread, s_min,
+                                                       s_max, invert);
   }
   return (int)cudaGetLastError();
+}
+
+// The scan for elem_bytes: uint8 planes while spread + 1 fits, else uint16.
+int scan_any(int elem_bytes, const void* codes, const void* strips, void* out, int n, int h, int hs, int w,
+             int row_off, int spread, float s_min, float s_max, int invert, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (elem_bytes == 1 && spread + 1 <= 255) {
+    return scan<uint8_t>((const uint8_t*)codes, (const uint8_t*)strips, (uint8_t*)out, n, h, hs, w, row_off,
+                         spread, s_min, s_max, invert, s);
+  }
+  if (elem_bytes == 2) {
+    return scan<uint16_t>((const uint8_t*)codes, (const uint16_t*)strips, (uint8_t*)out, n, h, hs, w, row_off,
+                          spread, s_min, s_max, invert, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -522,23 +615,7 @@ extern "C" int chaq_brute_scan_bytes(const void* codes, const void* strips, void
   if (n < 1 || h < 1 || w < 1 || n > 65535 || spread < 1 || spread > 32766) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(kScanTx, kScanTy);
-  const dim3 grid((unsigned)((w + kScanTx - 1) / kScanTx),
-                  (unsigned)((h + kScanTy - 1) / kScanTy), (unsigned)n);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 1 && spread + 1 <= 255) {
-    brute_scan_bytes_kernel<uint8_t><<<grid, block, 0, s>>>(
-        (const uint8_t*)codes, (const uint8_t*)strips, (uint8_t*)out, n, h, w, spread, s_min,
-        s_max, invert);
-  } else if (elem_bytes == 2) {
-    brute_scan_bytes_kernel<uint16_t><<<grid, block, 0, s>>>(
-        (const uint8_t*)codes, (const uint16_t*)strips, (uint8_t*)out, n, h, w, spread, s_min,
-        s_max, invert);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return scan_any(elem_bytes, codes, strips, out, n, h, h, w, 0, spread, s_min, s_max, invert, stream);
 }
 
 // codes, out: (n, h, w); strips: (2, 4, n, hs, w) with the shard's rows
@@ -551,14 +628,5 @@ extern "C" int chaq_brute_scan_bytes_halo(const void* codes, const void* strips,
       row_off + h > hs) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 1 && spread + 1 <= 255) {
-    return halo_scan<uint8_t>((const uint8_t*)codes, (const uint8_t*)strips, (uint8_t*)out, n, h, hs, w,
-                              row_off, spread, s_min, s_max, invert, s);
-  }
-  if (elem_bytes == 2) {
-    return halo_scan<uint16_t>((const uint8_t*)codes, (const uint16_t*)strips, (uint8_t*)out, n, h, hs,
-                               w, row_off, spread, s_min, s_max, invert, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return scan_any(elem_bytes, codes, strips, out, n, h, hs, w, row_off, spread, s_min, s_max, invert, stream);
 }

@@ -32,12 +32,35 @@
 //
 // Bound: operations, on data-dependent tap counts (a few taps each way on
 // dense content, up to 2 band + 1 far from any seed); the bytes are 12 (F1),
-// 20 (F2), 28 (B2) and 24 (B1) per pixel. Design: F1 and B1 run along rows,
-// one block per 256-pixel row segment, which stages its two fields' values
-// over the segment and a band-wide halo in shared memory; F2 runs along
-// columns, one block per 32-column x 64-row tile, which stages the tile's
-// column window (64 + 2 band rows) one field at a time. One thread per
-// output pixel (8 per thread in F2). Float32 on CUDA cores.
+// 20 (F2), 28 (B2) and 24 (B1) per pixel. Design: B1 runs along rows, one
+// block per 256-pixel row segment, which stages its two fields' values over
+// the segment and a band-wide halo in shared memory; F2 runs along columns,
+// one block per 32-column x 64-row tile, which stages the tile's column
+// window (64 + 2 band rows) one field at a time. One thread per output pixel
+// (8 per thread in F2). Float32 on CUDA cores.
+//
+// F1 is a staged row (PERF.md row 8). What held its first design back (the
+// design B1 still has): one block-wide min over the 256 + 2 band span set
+// every pixel's hard-min stop and reach (one stroke anywhere in 388 pixels
+// made all of them walk and sum far), the heights (expf and logf) were
+// recomputed for every block that held a pixel, 1.52 times a pixel at band
+// 66, the reach came from a serial loop, and lanes took different paths.
+// Now a block of 16 warps owns a row tile of up to 4096 pixels:
+//   * it stages the heights of both fields over the tile and a band-wide
+//     halo, computed once a pixel (once in all where W <= 4096), with each
+//     32-position segment's least height;
+//   * warp k takes the 32-pixel chunks k, k + 16, ...: the least of its
+//     taps (the 32 positions at each end one by one, the whole segments
+//     between from their minima) sets each lane's hard-min stop and reach,
+//     the reach a float32 estimate corrected to the loop's integer;
+//   * a warp whose reaches are all at most 16 runs every tap, the cut as a
+//     select (its lanes pass it together); else it goes segment by segment
+//     and takes a segment's taps only out to the last |d| whose exponent,
+//     formed from the segment's least height, still passes the cut, with a
+//     branch around expf (its lanes pass it at different taps).
+// On dense content the reaches are short already, so the taps (an accurate
+// expf each, about half of them live) set the time there; on strokes the
+// local bounds cut the loop.
 //
 // B2 is a staged strip (PERF.md row 10), as the column soft-min of
 // softmin.cu. What held its first design back: one window-wide max of d2 set
@@ -90,7 +113,7 @@ namespace {
 constexpr int kMaxBand = 112;      // pallas_soft_fused.fused_geometry_ok: band <= 128 - 16
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 256;      // F1/B1: output pixels per block, one per thread
+constexpr int kRowTile = 256;      // B1: output pixels per block, one per thread
 constexpr int kRowSpan = kRowTile + 2 * kMaxBand;
 constexpr int kColTile = 32;       // F2: columns per block
 constexpr int kColStep = kThreads / kColTile;  // 8 row lanes
@@ -102,7 +125,10 @@ constexpr int kB2Threads = kB2Warps * kLanes;
 constexpr int kSeg = 16;           // B2: ring rows per segment
 constexpr int kB2Per = 4;          // B2: rows per warp and chunk
 constexpr int kB2Chunk = kB2Warps * kB2Per;  // B2: rows per chunk
-constexpr int kShort = 16;         // B2: a reach up to this runs every tap, no segment tests
+constexpr int kShort = 16;         // B2, F1: a reach up to this runs every tap, no segment tests
+constexpr int kF1Seg = 32;         // F1: positions per segment minimum (a warp's chunk)
+constexpr int kF1Tile = 4096;      // F1: output pixels per block, at most (a row tile)
+constexpr int kF1Threads = 512;    // F1: 16 warps
 constexpr float kCut = 27.0f;      // pallas_soft_fused._UNDERFLOW
 constexpr float kPadH = 1e30f;     // height clip (pallas_soft_fused._PAD_H)
 constexpr float kInf = __builtin_huge_valf();
@@ -216,41 +242,149 @@ __device__ __forceinline__ void row_block(const Soft& p, int& y, int& x0) {
   x0 = (blockIdx.x % tiles) * kRowTile;
 }
 
-__global__ void __launch_bounds__(kThreads) soft_f1_kernel(const float* gray, float* s1, Soft p) {
-  __shared__ float hs[2][kRowSpan];
-  __shared__ float red[kWarps];
-  int y, x0;
-  row_block(p, y, x0);
+// ------------------------------------------------------------ F1, staged
+
+// Min over the warp; every lane must call it.
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// F1's taps d .. dend of one field at staged position j, in order, each
+// added to s if its exponent passes the cut. kBranch: a branch around expf,
+// for warps whose lanes pass the cut at different taps (the long path);
+// else a select (s + 0 is s), for warps whose lanes pass it together. d^2 as
+// df * df: exact for |d| <= 112.
+template <bool kBranch>
+__device__ __forceinline__ void f1_taps(const float* hv, int j, int d, int dend, float m, float inv_t, float& s) {
+  float df = (float)d;
+  for (; d <= dend; ++d, df = __fadd_rn(df, 1.0f)) {
+    const float z = __fmul_rn(__fsub_rn(__fsub_rn(m, hv[j + d]), __fmul_rn(df, df)), inv_t);
+    if (kBranch) {
+      if (z >= -kCut) s = __fadd_rn(s, expf(z));
+    } else {
+      s = __fadd_rn(s, z >= -kCut ? expf(z) : 0.0f);
+    }
+  }
+}
+
+// The bounds of one field's soft-min at staged position j, its taps hv[j +
+// d], |d| <= band (+inf outside the image), for a warp whose taps are the
+// positions from ws on: m, the hard min, walked centre-out until the least
+// of the warp's taps + d^2 >= m; and reach, the last |d| whose exponent
+// could still pass the cut given that least tap (a float32 estimate
+// corrected to the loop's integer). The least of the warp's taps: the 32
+// positions at each end (which hold the partial end segments) one by one,
+// the whole segments between from segm (each 32-position segment's least
+// height). live: the lane has a pixel (else m = +inf, reach 0).
+__device__ __forceinline__ void f1_bounds(const float* hv, const float* segm, int j, int ws, int band, float t,
+                                          float inv_t, bool live, float& m, int& reach) {
+  const int lane = threadIdx.x & 31, we = ws + kF1Seg - 1 + 2 * band;
+  const int s_first = (ws + kF1Seg - 1) / kF1Seg, s_last = (we + 1) / kF1Seg - 1;
+  float lo = fminf(hv[ws + lane], hv[we - lane]);
+  if (s_first + lane <= s_last) lo = fminf(lo, segm[s_first + lane]);
+  const float vmin = warp_min(lo);
+  m = kInf;
+  reach = 0;
+  if (!live) return;
+  m = hv[j];
+  float df = 1.0f;
+  for (int d = 1; d <= band; ++d, df = __fadd_rn(df, 1.0f)) {
+    const float dd = __fmul_rn(df, df);
+    if (__fadd_rn(vmin, dd) >= m) break;
+    m = fminf(m, __fadd_rn(fminf(hv[j - d], hv[j + d]), dd));
+  }
+  const float gap = __fsub_rn(m, vmin);
+  reach = reach_of([=](int r) { return __fmul_rn(__fsub_rn(gap, (float)(r * r)), inv_t) >= -kCut; },
+                   sqrtf(fmaxf(__fadd_rn(gap, kCut * t), 0.0f)), band);
+}
+
+// One field's sum of exp(z) over the taps |d| <= reach that pass the cut, d
+// ascending, on the long path: segment by segment, a segment's taps taken
+// only out to |d| <= rs, its own reach from its least height (the exponent
+// formed from that height bounds its taps': rounding is monotone).
+__device__ __forceinline__ float f1_segment_sum(const float* hv, const float* segm, int j, float m, int reach,
+                                                float t, float inv_t) {
+  float s = 0.0f;
+  for (int d = -reach; d <= reach;) {
+    const int sg = (j + d) / kF1Seg, dend = min(reach, (sg + 1) * kF1Seg - 1 - j);
+    const float top = __fsub_rn(m, segm[sg]);
+    const int rs = reach_of([=](int r) { return __fmul_rn(__fsub_rn(top, (float)(r * r)), inv_t) >= -kCut; },
+                            sqrtf(fmaxf(__fadd_rn(top, kCut * t), 0.0f)), reach);
+    f1_taps<true>(hv, j, max(d, -rs), min(dend, rs), m, inv_t, s);
+    d = dend + 1;
+  }
+  return s;
+}
+
+// grid (tiles x H, N); block 512. A block owns a tile of up to 4096 pixels of
+// one row, x in [x0, x0 + lt), and stages the heights of both fields at
+// positions j = x - x0 + pad (pad: the band rounded up to a segment), +inf
+// outside the image, computed once per pixel, with each 32-position
+// segment's least height; then warp k takes the 32-pixel chunks k, k + 16, ...
+// span: the staged positions of the longest tile.
+__global__ void __launch_bounds__(kF1Threads) soft_f1_kernel(const float* gray, float* s1, Soft p, int tiles,
+                                                           int pad, int span) {
+  extern __shared__ float f1_smem[];
+  float* hv = f1_smem;                 // field f's heights at hv + f * span
+  float* segm = hv + 2 * span;         // field f's segment minima at segm + f * (span / 32)
+  const int sps = span / kF1Seg;
+  const int y = blockIdx.x / tiles, x0 = (blockIdx.x % tiles) * kF1Tile;
+  const int lt = min(kF1Tile, p.w - x0);
   const size_t plane = (size_t)p.h * p.w;
+  float* out = s1 + (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w;
   if (y < p.ylo || y >= p.yhi) {  // beyond the image: no seed, height 1e30
-    const int x = x0 + threadIdx.x;
-    if (x < p.w) {
-      float* out = s1 + (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w + x;
-      out[0] = kPadH;
-      out[plane] = kPadH;
+    for (int x = x0 + threadIdx.x; x < x0 + lt; x += kF1Threads) {
+      out[x] = kPadH;
+      out[plane + x] = kPadH;
     }
     return;
   }
   const float* g = gray + (size_t)blockIdx.y * plane + (size_t)y * p.w;
-  const int span = kRowTile + 2 * p.band;
-  float lo0 = kInf, lo1 = kInf;
-  for (int j = threadIdx.x; j < span; j += kThreads) {
-    const int x = x0 - p.band + j;
+  const int nchunks = (lt + kF1Seg - 1) / kF1Seg;
+  const int nst = nchunks * kF1Seg + 2 * pad;  // a multiple of 32: whole warps go round the loop together
+  for (int j = threadIdx.x; j < nst; j += kF1Threads) {
+    const int x = x0 - pad + j;
     float h0 = kInf, h1 = kInf;
     if (x >= 0 && x < p.w) heights(logit(g[x], p.scale), p.t, h0, h1);
-    hs[0][j] = h0;
-    hs[1][j] = h1;
-    lo0 = fminf(lo0, h0);
-    lo1 = fminf(lo1, h1);
+    hv[j] = h0;
+    hv[span + j] = h1;
+    h0 = warp_min(h0);
+    h1 = warp_min(h1);
+    if ((threadIdx.x & 31) == 0) {
+      segm[j / kF1Seg] = h0;
+      segm[sps + j / kF1Seg] = h1;
+    }
   }
-  lo0 = block_reduce<false>(lo0, red);
-  lo1 = block_reduce<false>(lo1, red);
-  const int x = x0 + threadIdx.x;
-  if (x >= p.w) return;
-  float* out = s1 + (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w + x;
-  const int c = p.band + threadIdx.x;
-  out[0] = soft_min(&hs[0][c], 1, p.band, lo0, p.t, p.inv_t);
-  out[plane] = soft_min(&hs[1][c], 1, p.band, lo1, p.t, p.inv_t);
+  __syncthreads();
+  for (int k = threadIdx.x / 32; k < nchunks; k += kF1Threads / 32) {
+    const int j = pad + k * kF1Seg + (threadIdx.x & 31);
+    const int x = x0 + j - pad;
+    const bool live = x < p.w;
+    const int ws = pad + k * kF1Seg - p.band;  // the warp's first tap
+    float m0, m1;
+    int r0, r1;
+    f1_bounds(hv, segm, j, ws, p.band, p.t, p.inv_t, live, m0, r0);
+    f1_bounds(hv + span, segm + sps, j, ws, p.band, p.t, p.inv_t, live, m1, r1);
+    float s0 = 0.0f, s1 = 0.0f;
+    // a warp takes one path for each field (lanes apart on two paths would
+    // run both): every tap where all its reaches are short, else segment by
+    // segment
+    if (__all_sync(0xffffffffu, r0 <= kShort)) {
+      if (live) f1_taps<false>(hv, j, -r0, r0, m0, p.inv_t, s0);
+    } else if (live) {
+      s0 = f1_segment_sum(hv, segm, j, m0, r0, p.t, p.inv_t);
+    }
+    if (__all_sync(0xffffffffu, r1 <= kShort)) {
+      if (live) f1_taps<false>(hv + span, j, -r1, r1, m1, p.inv_t, s1);
+    } else if (live) {
+      s1 = f1_segment_sum(hv + span, segm + sps, j, m1, r1, p.t, p.inv_t);
+    }
+    if (live) {
+      out[x] = __fsub_rn(m0, __fmul_rn(p.t, logf(s0)));
+      out[plane + x] = __fsub_rn(m1, __fmul_rn(p.t, logf(s1)));
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) soft_b1_kernel(const float* gray, const float* s1,
@@ -517,7 +651,12 @@ extern "C" int chaq_soft_f1(const void* gray, void* s1, int n, int h, int w, int
   Soft p;
   const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
-  soft_f1_kernel<<<row_grid(p), kThreads, 0, (cudaStream_t)stream>>>((const float*)gray, (float*)s1, p);
+  const int tiles = (w + kF1Tile - 1) / kF1Tile;
+  const int pad = (band + kF1Seg - 1) / kF1Seg * kF1Seg;
+  const int span = (min(w, kF1Tile) + kF1Seg - 1) / kF1Seg * kF1Seg + 2 * pad;  // at most 4352 positions: 35 KB
+  const size_t smem = sizeof(float) * 2 * ((size_t)span + span / kF1Seg);
+  soft_f1_kernel<<<dim3((unsigned)(tiles * h), (unsigned)n), kF1Threads, smem, (cudaStream_t)stream>>>(
+      (const float*)gray, (float*)s1, p, tiles, pad, span);
   return (int)cudaGetLastError();
 }
 

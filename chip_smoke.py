@@ -72,16 +72,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
  14. adaptive times (CUDA events, as in phase 6): each of the four kernels
      and its plain version, the gated training step on the bench's noise,
      the adaptive step forced on it, the out-of-gamut step and the
-     SoftSDFModel step; soft_b2 also on the glyph in +-2040, with its taps
-     a pixel and field on each input (b2_loop_taps: live, the staged
-     loop, the tile-bound loop of the design before it);
+     SoftSDFModel step; soft_b2 and soft_f1 also on the glyph in +-2040,
+     each with its taps a pixel and field on each input (b2_loop_taps,
+     f1_loop_taps: live, the kernel's loop, the loop of the design before
+     it, whose reach came from a window-wide bound);
  15. where the adaptive steps' device time goes: torch.profiler over the
      forced adaptive step and the gated out-of-gamut step;
  16. the BRUTE kernels (csrc/brute.cu: brute_rows, brute_scan_bytes) and the
      exact-distance kernel (edt_dist) against their plain versions on the
      card, tolerance 0 (bytes; float32 bits): 4096x4096 noise and glyph at
-     spreads 1 and 64, spreads 254 and 300 (uint16 strips) at 1024x1024,
-     odd shapes, uniform and 0/255 masks and a batch of 3; for edt_dist
+     spreads 1 and 64 (the scan's dense blocks walk |dy| <= 8 first, its
+     sparse ones stage at once: both inputs take both), spreads 254 and 300
+     (uint16 strips) at 1024x1024 (at 300 past the staged window: the
+     per-pixel walk) and 300x1100 (uint16, staged), odd shapes, uniform and
+     0/255 masks and a batch of 3; for edt_dist
      also one far seed at 2048x2048 (the O(H) walk) and the 4104x128
      two-seed image (saturation tier 16383) against NumPy brute force;
  17. the BRUTE and JFA paths through their entry points: the CLI with
@@ -96,11 +100,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
  18. BRUTE, JFA and exact-distance times (CUDA events, as in phase 6) at
      4096x4096 spread 64 on both inputs: each kernel against its plain
      version and the three pipelines; edt_dist on both strips of the
-     signed field (its two launches); the staged halo scan
-     (brute_scan_bytes_halo) at row_off 0 on the whole image beside
-     brute_scan_bytes, byte for byte equal to it, with the taps a pixel of
-     both walks (a measurement: the one-device path stays on
-     brute_scan_bytes);
+     signed field (its two launches); the halo scan
+     (brute_scan_bytes_halo, the same kernel) at row_off 0 on the whole
+     image beside brute_scan_bytes, byte for byte equal to it, with the rows
+     a pixel reads against the per-pixel walk's and the blocks that staged
+     their window (scan_walk_taps);
  19. where the BRUTE pipeline's and signed_distance_field_exact's device
      time goes: torch.profiler, as in phase 7;
  20. the composed path's soft-min kernels (csrc/softmin.cu: softmin_col_fwd,
@@ -202,8 +206,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      scale, the parameters after 3 steps within 1e-5), and the CLI
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
      glyph PNG byte for byte the unsharded SDFGenerator.
-`python3 chip_smoke.py --kernel-turn` times rows 10 and 16 and what they
-serve alone (kernel_turn), on this tree or its parent.
+`python3 chip_smoke.py --kernel-turn` times rows 8, 10, 15 and 16 and what
+they serve alone (kernel_turn), on this tree or (copied in) its parent.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -979,6 +983,58 @@ def b2_loop_taps(d2: torch.Tensor, s1: torch.Tensor, band: int, t: float) -> dic
     return out
 
 
+def f1_loop_taps(g: torch.Tensor, band: int, tau: float, t: float) -> dict:
+    """soft_f1's taps on one (H, W) gray image (W <= 4096: one row tile),
+    summed over pixels and fields: ``live`` (inside the cut), ``loop`` (the
+    kernel's tap loop: 2 reach + 1 where all 32 reaches of a warp are at most
+    16, the reach from the least of the warp's taps; else the taps of each
+    segment out to its own reach from its least height) and ``block_loop``
+    (the design before it: 2 reach + 1 with the reach from the least height
+    over a 256-pixel block's span). The torch form of
+    tests/test_torch_scan_bounds.py's mirror."""
+    inv_t = float(np.float32(1.0 / t))
+    h, w = g.shape
+    pad = -(-band // 32) * 32
+    nch = -(-w // 32)
+    nst = nch * 32 + 2 * pad
+    dev = g.device
+
+    def reach_of(gap, top):
+        ok = lambda r: ((gap - (r * r).to(torch.float32)) * inv_t) >= -27.0
+        r = torch.sqrt((gap.double() + 27.0 * t).clamp(0, top * top)).floor().long()
+        while bool((down := (r > 0) & ~ok(r)).any()):
+            r -= down.long()
+        while bool((up := (r < top) & ok(r + 1)).any()):
+            r += up.long()
+        return r
+
+    out = {"live": 0, "loop": 0, "block_loop": 0}
+    for v in soft_fused._heights(soft_fused._logits(g, soft_fused._scalars(tau, t)[0]), t):
+        st = torch.full((h, nst), float("inf"), device=dev)
+        st[:, pad : pad + w] = v
+        segm = st.view(h, nst // 32, 32).amin(2)
+        j = pad + torch.arange(w, device=dev)
+        vmin = torch.stack([st[:, pad + k - band : pad + k + 32 + band].amin(1) for k in range(0, w, 32)], 1)
+        vmin = vmin.repeat_interleave(32, 1)[:, :w]
+        m = v.clone()
+        for d in range(1, band + 1):
+            m = torch.minimum(m, torch.minimum(st[:, pad - d : pad - d + w], st[:, pad + d : pad + d + w]) + float(d * d))
+        reach = reach_of(m - vmin, band)
+        short = torch.nn.functional.pad((reach <= 16).to(torch.uint8), (0, nch * 32 - w), value=1)
+        short = short.view(h, nch, 32).amin(2).repeat_interleave(32, 1)[:, :w].bool()
+        seg_steps = torch.zeros_like(reach)
+        for d in range(-band, band + 1):
+            z = ((m - st[:, pad + d : pad + d + w]) - float(d * d)) * inv_t
+            out["live"] += int((z >= -27.0).sum())
+            rs = reach_of(m - segm[:, (j + d) // 32], band)
+            seg_steps += (abs(d) <= torch.minimum(reach, rs)).long()
+        out["loop"] += int(torch.where(short, 2 * reach + 1, seg_steps).sum())
+        old = torch.stack([v[:, max(0, b0 - band) : b0 + 256 + band].amin(1) for b0 in range(0, w, 256)], 1)
+        old = old.repeat_interleave(256, 1)[:, :w]
+        out["block_loop"] += int((2 * reach_of(m - old, band) + 1).sum())
+    return out
+
+
 def fused_bounds(g, band, tau, t, npix):
     """The four kernels' bounds on these inputs: bytes (each input read once,
     each output written once: 12, 20, 28, 24 per pixel) and float
@@ -1024,6 +1080,20 @@ def b2_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool
                      f"tile-bound loop {per['tile_loop']:.3f}")
         log(line)
         del s1, d2, ones
+
+
+def f1_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool = True) -> None:
+    """soft_f1 on each input (CUDA events) and, with ``count``, its taps a
+    pixel and field (f1_loop_taps): live, the loop, and the loop of the
+    design before it (a block-wide bound)."""
+    for name, g in inputs.items():
+        ms = cuda_ms(lambda: soft_fused.f1_pass(g, band, tau, t))
+        line = f"time adaptive {name} soft_f1: {ms:.4f} ms"
+        if count:
+            per = {k: v / (2 * g.numel()) for k, v in f1_loop_taps(g, band, tau, t).items()}
+            line += (f"; taps a pixel and field: live {per['live']:.3f}, loop {per['loop']:.3f}, "
+                     f"block-bound loop {per['block_loop']:.3f}")
+        log(line)
 
 
 def fused_phases(dev, glyph):
@@ -1200,6 +1270,7 @@ def fused_phases(dev, glyph):
     ms = cuda_ms(lambda: train(img, target), 5, 3)
     log(f"time adaptive SoftSDFModel step {tuple(img.shape)}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
     b2_times_and_taps(big, band, tau, t)
+    f1_times_and_taps(big, band, tau, t)
 
     npix = SIZE * SIZE
     bounds = fused_bounds(big["pm2000"], band, tau, t, npix)
@@ -1230,13 +1301,18 @@ def walk_taps(dist: torch.Tensor, reach: int) -> int:
     return int((1 + 2 * steps).sum())
 
 
-def staged_walk_taps(b: torch.Tensor, frame: torch.Tensor, spread: int, row_off: int) -> int:
-    """Rows read by brute_scan_bytes_halo's staged walk over all pixels of
-    one (H, W) mask on its frame (2, 4, Hs, W): each pixel's own row, then
-    the frame's 16-row segments outward within the spread, skipping one
-    whose least plane value m gives a^2 + m^2 >= best and ending a side at
-    a^2 >= best. The torch form of tests/test_torch_skip_bounds.py's
-    mirror."""
+def scan_walk_taps(b: torch.Tensor, frame: torch.Tensor, spread: int, row_off: int, cap: int = 8,
+                   pixel: bool = False) -> tuple:
+    """(rows read, blocks staged, blocks) of the scan kernel
+    (brute_scan_staged, csrc/brute.cu) over all pixels of one (H, W) mask on
+    its frame (2, 4, Hs, W): a block of 32 columns x 128 rows with between
+    1/8 and 7/8 of its pixels set walks |dy| <= cap per pixel and stages its
+    window only if a pixel is left; any other block stages at once. Staged
+    pixels go on by the frame's 16-row segments outward within the spread,
+    skipping one whose least plane value m gives a^2 + m^2 >= best and ending
+    a side at a^2 >= best. The torch form of tests/test_torch_scan_bounds.py's
+    mirror. ``pixel``: the per-pixel walk instead (brute_scan_pixel_kernel,
+    every pixel walks until dy^2 >= best)."""
     h, w = b.shape
     hs = frame.shape[-2]
     planes = frame.to(torch.int32)
@@ -1246,10 +1322,18 @@ def staged_walk_taps(b: torch.Tensor, frame: torch.Tensor, spread: int, row_off:
     least[:, :hs] = planes.amin(1)
     segm = least.view(2, n_seg, 16, w).amin(2)
     c = (torch.arange(h, device=b.device) + row_off)[:, None].expand(h, w)
+    bh, bw = -(-h // 128), -(-w // 32)
+    pad = (0, bw * 32 - w, 0, bh * 128 - h)
+    ones = torch.nn.functional.pad(pol.to(torch.int32), pad).view(bh, 128, bw, 32).sum((1, 3))
+    npix = torch.nn.functional.pad(torch.ones_like(pol, dtype=torch.int32), pad).view(bh, 128, bw, 32).sum((1, 3))
+    dense = (8 * ones >= npix) & (8 * ones <= 7 * npix)
+    if pixel:
+        dense, cap = torch.ones_like(dense), spread
+    k = torch.where(dense.repeat_interleave(128, 0).repeat_interleave(32, 1)[:h, :w], cap, 0)
 
     def tap(r, a):
         r = r.clamp(0, hs - 1)
-        p = [torch.where(pol, planes[1, k].gather(0, r), planes[0, k].gather(0, r)) for k in range(4)]
+        p = [torch.where(pol, planes[1, q].gather(0, r), planes[0, q].gather(0, r)) for q in range(4)]
         dl = torch.where(p[0] != a, p[0], p[1])
         dr = torch.where(p[2] != a, p[2], p[3])
         return torch.minimum(dl, dr) ** 2 + a * a
@@ -1260,23 +1344,36 @@ def staged_walk_taps(b: torch.Tensor, frame: torch.Tensor, spread: int, row_off:
 
     best = tap(c, torch.zeros_like(c))
     taps = torch.ones_like(c)
+    reach = torch.minimum(torch.full_like(c, spread), torch.maximum(c, hs - 1 - c))
+    open_ = torch.ones_like(pol)
+    for a in range(1, cap + 2):
+        open_ &= ~((a * a >= best) | (a > reach))
+        walking = open_ & (a <= k)
+        if not bool(walking.any()):
+            break
+        for r in (c - a, c + a):
+            on = walking & (r >= 0) & (r < hs)
+            best = torch.where(on, torch.minimum(best, tap(r, torch.full_like(c, a))), best)
+            taps += on
+    left = torch.nn.functional.pad(open_.to(torch.int32), pad).view(bh, 128, bw, 32).amax((1, 3)) > 0
+    staged = ~dense | left
     lo, hi = (c - spread).clamp(min=0), (c + spread).clamp(max=hs - 1)
-    su, sd = c // 16, c // 16
-    up, dn = (best > 1) & (c > lo), (best > 1) & (c < hi)
+    ub, db = c - k - 1, c + k + 1
+    su, sd = ub.clamp(min=0) // 16, db // 16
+    up, dn = open_ & (ub >= lo), open_ & (db <= hi)
     while bool((up | dn).any()):
         for side in ("up", "dn"):
             on, s = (up, su) if side == "up" else (dn, sd)
             if side == "up":
-                top, bot = torch.maximum(s * 16, lo), torch.minimum(s * 16 + 15, c - 1)
+                top, bot = torch.maximum(s * 16, lo), torch.minimum(s * 16 + 15, ub)
                 a0 = c - bot
             else:
-                top, bot = torch.maximum(s * 16, c + 1), torch.minimum(s * 16 + 15, hi)
+                top, bot = torch.maximum(s * 16, db), torch.minimum(s * 16 + 15, hi)
                 a0 = top - c
             m = seg_min(s)
-            rows = on & (bot >= top)
-            stop = rows & (a0 * a0 >= best)
+            stop = on & (a0 * a0 >= best)
             on = on & ~stop
-            live = rows & ~stop & (a0 * a0 + m * m < best)
+            live = on & (a0 * a0 + m * m < best)
             for i in range(16):
                 if not bool(live.any()):
                     break
@@ -1291,7 +1388,7 @@ def staged_walk_taps(b: torch.Tensor, frame: torch.Tensor, spread: int, row_off:
                 up, su = on & (s * 16 > lo), su - 1
             else:
                 dn, sd = on & (s * 16 + 15 < hi), sd + 1
-    return int(taps.sum())
+    return int(taps.sum()), int(staged.sum()), staged.numel()
 
 
 def shard_frames(planes: torch.Tensor, spread: int, shards: int) -> list:
@@ -1355,6 +1452,8 @@ def brute_dist_phases(dev, noise, glyph):
     for name, b in masks.items():
         for spread in (254, 300):
             check_brute(f"{name} 1024 corner", b[:1024, :1024].contiguous(), spread)
+        # uint16 planes short enough to stage (past ~440 rows: the per-pixel walk)
+        check_brute(f"{name} 300 rows", b[:300, :1100].contiguous(), 300)
     rng = np.random.default_rng(SEED + 9)
     for shape in ((1, 17), (17, 1), (139, 131), (3, 256, 256)):
         b = torch.from_numpy(rng.random(shape) < 0.3).to(dev)
@@ -1447,7 +1546,7 @@ def brute_dist_phases(dev, noise, glyph):
             "brute_rows_plain": cuda_ms(lambda: cuda_brute.seed_strips_plain(b, SPREAD), 2, 3),
             "brute_scan_bytes": cuda_ms(lambda: cuda_brute.brute_scan_bytes(b, strips, SPREAD)),
             "brute_scan_bytes_plain": cuda_ms(lambda: cuda_brute.brute_scan_bytes_plain(b, strips, SPREAD), 2, 3),
-            # the staged halo scan on the whole image (row_off 0): a measurement, not the path
+            # the halo scan on the whole image (row_off 0): the same kernel through the other wrapper
             "brute_scan_halo_row_off_0": cuda_ms(lambda: cuda_brute.brute_scan_bytes_halo(b, strips, SPREAD, 0)),
             "edt_dist": cuda_ms(lambda: cuda_edt.exact_dist(din, sat)),
             "edt_dist_plain": cuda_ms(lambda: cuda_edt.exact_dist_plain(din, sat), 2, 3),
@@ -1467,11 +1566,12 @@ def brute_dist_phases(dev, noise, glyph):
             log(f"time {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
         e = max_abs_err(cuda_brute.brute_scan_bytes_halo(b, strips, SPREAD, 0),
                         cuda_brute.brute_scan_bytes(b, strips, SPREAD))
-        old_taps = walk_taps(brute.triangle_d2(b, strips, SPREAD).double().sqrt(), SPREAD)
-        new_taps = staged_walk_taps(b, strips, SPREAD, 0)
-        log(f"check brute_scan_bytes_halo row_off 0 {name}: {e} bytes differ from brute_scan_bytes; taps a pixel: "
-            f"staged walk {new_taps / b.numel():.3f}, per-pixel walk {old_taps / b.numel():.3f}")
-        require(e == 0, f"the staged halo scan at row_off 0 differs from brute_scan_bytes on {name}")
+        old_taps = scan_walk_taps(b, strips, SPREAD, 0, pixel=True)[0]
+        new_taps, staged, blocks = scan_walk_taps(b, strips, SPREAD, 0)
+        log(f"check brute_scan_bytes_halo row_off 0 {name}: {e} bytes differ from brute_scan_bytes; rows read a "
+            f"pixel: the scan {new_taps / b.numel():.3f}, per-pixel walk {old_taps / b.numel():.3f}; blocks "
+            f"staged {staged} of {blocks}")
+        require(e == 0, f"the halo scan at row_off 0 differs from brute_scan_bytes on {name}")
 
     # bounds on the glyph input; the walks' taps are logged, not counted in the bounds
     npix = SIZE * SIZE
@@ -1480,11 +1580,11 @@ def brute_dist_phases(dev, noise, glyph):
     sat = cuda_edt.dist_sat(SIZE)
     din, _ = cuda_edt.row_distances_u8(b, sat - 1)
     taps = {
-        "brute_scan_bytes": walk_taps(brute.triangle_d2(b, strips, SPREAD).double().sqrt(), SPREAD),
+        "brute_scan_bytes": scan_walk_taps(b, strips, SPREAD, 0)[0],
         "edt_dist": walk_taps(cuda_edt.exact_dist(din, sat), SIZE - 1),  # NO_SEED walks the whole reach
     }
     for k, n in taps.items():
-        log(f"walk of {k}: {n} taps ({n / npix:.2f} per pixel)")
+        log(f"walk of {k}: {n} rows read ({n / npix:.2f} per pixel)")
     bounds = {
         # 1 B/px in, 8 strips out; ~4 operations per pixel and scan direction and polarity
         "brute_rows": bound(npix * (1 + 8 * strips.element_size()), 16 * npix),
@@ -1924,12 +2024,13 @@ def composed_turn(dev, glyph) -> None:
 
 
 def kernel_turn(dev, noise, glyph) -> None:
-    """Rows 10 and 16 and what they serve, alone, on any tree that has both
-    kernels (this one or its parent, for turns in one call): soft_b2 on the
-    bench's noise, pm2000 and the glyph in +-2040, the forced and gated
-    adaptive steps and SoftSDFModel's step; brute_scan_bytes_halo on each
-    shard of the glyph and the noise over 4 shards and at row_off 0 on the
-    whole image beside brute_scan_bytes, and sharded BRUTE over (4,)."""
+    """Rows 8, 10, 15 and 16 and what they serve, alone, on any tree that has
+    these kernels (this one or its parent, for turns in one call): soft_b2
+    and soft_f1 on the bench's noise, pm2000 and the glyph in +-2040, the
+    forced and gated adaptive steps and SoftSDFModel's step;
+    brute_scan_bytes_halo on each shard of the glyph and the noise over 4
+    shards and at row_off 0 on the whole image beside brute_scan_bytes, and
+    sharded BRUTE over (4,)."""
     band, tau, t = SPREAD + 2, TRAIN_TAU, TRAIN_T
     rng = np.random.default_rng(SEED + 5)
     inputs = {
@@ -1938,6 +2039,7 @@ def kernel_turn(dev, noise, glyph) -> None:
         "glyph+-2040": torch.from_numpy(glyph[..., 1].astype(np.float32) / 255 * 4080 - 2040).to(dev),
     }
     b2_times_and_taps(inputs, band, tau, t, count=False)
+    f1_times_and_taps(inputs, band, tau, t, count=False)
 
     def step_with(field_fn):
         def step(g):
@@ -2107,8 +2209,8 @@ def read_launches() -> dict:
 def halo_scan_shard_times(masks: dict, count: bool = True) -> dict:
     """brute_scan_bytes_halo on each shard's frame of each (4096, 4096) mask
     over 4 shards at spread 64 (CUDA events, as in phase 6), their sum and
-    the four back to back, with ``count`` the staged walk's taps a pixel;
-    returns {name: [ms per shard]}."""
+    the four back to back, with ``count`` the rows a pixel reads and the
+    blocks that staged (scan_walk_taps); returns {name: [ms per shard]}."""
     out = {}
     h4 = SIZE // SHARDS
     for name, b in masks.items():
@@ -2121,8 +2223,9 @@ def halo_scan_shard_times(masks: dict, count: bool = True) -> dict:
         line = (f"time halo scan {name} shards " + ", ".join(f"{ms:.4f}" for ms in out[name])
                 + f" ms, sum {sum(out[name]):.4f} ms, the four back to back {all4:.4f} ms")
         if count:
-            taps = sum(staged_walk_taps(lb, ext, SPREAD, SPREAD) for lb, ext in zip(locals_, frames))
-            line += f"; staged walk {taps / b.numel():.3f} taps a pixel"
+            stats = [scan_walk_taps(lb, ext, SPREAD, SPREAD) for lb, ext in zip(locals_, frames)]
+            line += (f"; {sum(x[0] for x in stats) / b.numel():.3f} rows read a pixel, blocks staged "
+                     f"{sum(x[1] for x in stats)} of {sum(x[2] for x in stats)}")
         log(line)
         del frames, locals_, calls
     return out

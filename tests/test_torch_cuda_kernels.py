@@ -162,6 +162,47 @@ def test_brute_uniform_and_0_255_masks(dev, fill):
     assert torch.equal(cuda_brute.brute_sdf_bytes(m, 8), cuda_brute.brute_sdf_bytes_plain(m != 0, 8))
 
 
+def _scan_mask(kind, shape, seed):
+    """Masks whose 32 x 128 blocks take both of brute_scan_staged's paths:
+    dense blocks (noise, the border of a half plane) and sparse or uniform
+    ones (strokes, a lone seed)."""
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        return rng.random(shape) < 0.5
+    if kind == "strokes":
+        return _stroke_gray(shape, seed) > 0
+    if kind == "half":
+        m = np.zeros(shape, bool)
+        m[..., shape[-2] // 2 + 3 :, :] = True
+        return m
+    if kind == "one_seed":
+        m = np.zeros(shape, bool)
+        m[..., shape[-2] // 3, 2] = True
+        return m
+    m = rng.random(shape) < 0.5  # "mixed": noise on the left half, strokes on the right
+    m[..., shape[-1] // 2 :] = _stroke_gray(shape, seed)[..., shape[-1] // 2 :] > 0
+    return m
+
+
+@pytest.mark.parametrize("kind", ["noise", "strokes", "half", "one_seed", "mixed"])
+@pytest.mark.parametrize("shape,spread", [((300, 157), 1), ((300, 157), 5), ((517, 301), 64), ((3, 200, 90), 64),
+                                          ((260, 64), 254), ((300, 100), 300), ((700, 70), 300)])
+def test_brute_scan_bytes_dense_and_sparse_blocks(dev, kind, shape, spread):
+    """brute_scan_bytes byte for byte its plain version where blocks take the
+    capped walk (and stage or not) and where they stage at once: heights not
+    a multiple of 128 and widths not a multiple of 32, a batch, uint8 up to
+    spread 254 and uint16 at 300 (staged up to ~440 rows, the per-pixel walk
+    past that)."""
+    b = torch.from_numpy(_scan_mask(kind, shape, spread)).to(dev)
+    strips = cuda_brute.seed_strips(b, spread)
+    before = cuda_brute.LAUNCHES["brute_scan_bytes"]
+    got = cuda_brute.brute_scan_bytes(b, strips, spread)
+    assert cuda_brute.LAUNCHES["brute_scan_bytes"] == before + 1
+    want = cuda_brute.brute_scan_bytes_plain(b, strips, spread)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape,density", [((1, 17), 0.1), ((17, 1), 0.1), ((139, 131), 0.02),
                                            ((3, 64, 80), 0.01), ((300, 1100), 0.001), ((64, 64), 0.0)])
 def test_edt_dist_matches_plain(dev, shape, density):
@@ -388,6 +429,28 @@ def test_soft_b2_long_strips_and_halo_blocks_match_plain(dev, band, tau, tempera
     got = _counted("soft_b2", lambda: soft_fused.b2_pass(cte, d2e, s1ext.contiguous(), band, temperature, 1e-6))
     torch.cuda.synchronize()
     assert torch.equal(got, soft_fused.b2_plain(cte, d2e, s1ext, band, temperature, 1e-6))
+
+
+@pytest.mark.parametrize("kind", ["strokes", "pm2000", "u8"])
+@pytest.mark.parametrize("shape,band,tau,temperature,test_above", [
+    ((300, 520), 66, 2.0, 1.0, True), ((200, 640), 112, 1.0, 0.5, False), ((150, 333), 10, 1.0, 0.5, True),
+    ((2, 90, 700), 66, 2.0, 1.0, False), ((6, 9000), 112, 2.0, 1.0, True), ((40, 4097), 66, 1.0, 0.5, True)])
+def test_soft_f1_row_tiles_and_strokes(dev, kind, shape, band, tau, temperature, test_above):
+    """soft_f1 bit for bit its plain version where warps take both paths
+    (strokes in +-2040: long reaches next to strokes; noise: short ones),
+    rows of several 4096-pixel tiles, a batch, and a live-row window."""
+    if kind == "strokes":
+        g = torch.from_numpy(_stroke_gray(shape, band)).to(dev)
+    else:
+        g, _ = _fused_case(dev, shape, kind, band)
+    args = (band, tau, temperature, test_above)
+    got = _counted("soft_f1", lambda: soft_fused.f1_pass(g, *args))
+    torch.cuda.synchronize()
+    assert torch.equal(got, soft_fused.f1_plain(g, *args))
+    win = (shape[-2] // 5, shape[-2] - shape[-2] // 4)
+    got = soft_fused.f1_pass(g, *args, window=win)
+    torch.cuda.synchronize()
+    assert torch.equal(got, soft_fused.f1_plain(g, *args, window=win))
 
 
 @pytest.mark.parametrize("shape", FUSED_SHAPES)
@@ -705,40 +768,6 @@ def test_brute_scan_bytes_halo_matches_plain(dev, spread, n, hs_extra, asymmetri
     want = cuda_brute.brute_scan_bytes_halo_plain(b, strips, spread, top, asymmetric, invert)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("kind", ["strokes", "noise", "far_seed", "uniform"])
-@pytest.mark.parametrize("spread,h,w,hs_extra", [(64, 300, 157, (64, 64)), (20, 260, 64, (45, 3)),
-                                                 (253, 140, 33, (253, 253)), (300, 90, 70, (120, 0)),
-                                                 (64, 517, 301, (0, 0))])
-def test_brute_scan_bytes_halo_staged_on_pass_a_frames(dev, kind, spread, h, w, hs_extra):
-    """The staged halo scan on pass-A planes of a frame cut from a larger
-    mask: several 128-row tiles, odd widths, halos wider than the spread,
-    uint8 up to spread 253 (windows of up to 634 rows) and a uint16 frame
-    that fits, and one device's frame (row_off 0, hs = h): byte for byte its
-    plain version and the one-device scan of the whole mask."""
-    top, bottom = hs_extra
-    rng = np.random.default_rng(spread + h)
-    full_shape = (top + h + bottom, w)
-    if kind == "strokes":
-        mask = torch.from_numpy(_stroke_gray(full_shape, spread) > 0)
-    elif kind == "noise":
-        mask = torch.from_numpy(rng.random(full_shape) < 0.3)
-    elif kind == "far_seed":
-        mask = torch.zeros(full_shape, dtype=torch.bool)
-        mask[1, 2] = True
-    else:
-        mask = torch.zeros(full_shape, dtype=torch.bool)
-    mask = mask.to(dev)
-    strips = cuda_brute.seed_strips(mask, spread)
-    b = mask[top : top + h].contiguous()
-    before = cuda_brute.LAUNCHES["brute_scan_bytes_halo"]
-    got = cuda_brute.brute_scan_bytes_halo(b, strips, spread, top)
-    assert cuda_brute.LAUNCHES["brute_scan_bytes_halo"] == before + 1
-    want = cuda_brute.brute_scan_bytes_halo_plain(b, strips, spread, top)
-    whole = cuda_brute.brute_scan_bytes(mask, strips, spread)[top : top + h]
-    torch.cuda.synchronize()
-    assert torch.equal(got, want) and torch.equal(got, whole)
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int32, torch.float32])

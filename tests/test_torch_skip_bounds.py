@@ -8,11 +8,13 @@ the plain versions that the kernels match on the card:
   that passes the cut must be visited, so that the sum, d ascending over the
   visited taps, is b2_plain's bit for bit.
 
-  brute_scan_bytes_halo (csrc/brute.cu, brute_scan_halo_staged): the least
-  plane value per 16-row segment of the frame, column and polarity; a pixel
-  walks the segments within the spread outward, skips one where a^2 + m^2
-  >= best and ends a side where a^2 >= best. Its integer minimum must be the
-  plain scan's (brute.triangle_d2 on the frame).
+  brute_scan_bytes_halo (csrc/brute.cu, brute_scan_staged, a sparse
+  block's path): the least plane value per 16-row segment of the frame,
+  column and polarity; a pixel walks the segments within the spread
+  outward, skips one where a^2 + m^2 >= best and ends a side where a^2 >=
+  best. Its integer minimum must be the plain scan's (brute.triangle_d2 on
+  the frame). tests/test_torch_scan_bounds.py mirrors the dense blocks'
+  capped walk before it.
 
 Each mirror also counts what the kernel visits (taps a pixel), the figure
 chip_smoke.py reports on the card.
@@ -29,7 +31,7 @@ CUT = np.float32(-27.0)
 SEG = 16  # both kernels: rows per segment
 WARP_ROWS = 4  # soft_b2: rows per warp and chunk
 SHORT = 16  # soft_b2: a reach up to this runs every tap
-TILE = 128  # brute_scan_halo_staged: output rows per block
+TILE = 128  # brute_scan_staged: output rows per block
 
 
 # ------------------------------------------------------------------ soft_b2
@@ -187,7 +189,7 @@ def test_b2_segment_bounds_never_loop_longer_than_the_tile_bound():
 
 
 def brute_mirror(b: np.ndarray, strips: np.ndarray, spread: int, row_off: int):
-    """(best, taps) of brute_scan_halo_staged: b (n, h, w) bool, strips (2, 4,
+    """(best, taps) of brute_scan_staged's segment walk: b (n, h, w) bool, strips (2, 4,
     n, hs, w) ints, the shard's rows at [row_off, row_off + h). best is the
     integer minimum of dx^2 + dy^2 per pixel, taps the rows each pixel read.
     The segments are the frame's 16-row ones (each block's window is

@@ -32,15 +32,15 @@
 //
 // Bound: operations, on data-dependent tap counts (a few taps each way on
 // dense content, up to 2 band + 1 far from any seed); the bytes are 12 (F1),
-// 20 (F2), 28 (B2) and 24 (B1) per pixel. Design: B1 runs along rows, one
-// block per 256-pixel row segment, which stages its two fields' values over
-// the segment and a band-wide halo in shared memory; F2 runs along columns,
-// one block per 32-column x 64-row tile, which stages the tile's column
-// window (64 + 2 band rows) one field at a time. One thread per output pixel
-// (8 per thread in F2). Float32 on CUDA cores.
+// 20 (F2), 28 (B2) and 24 (B1) per pixel. Design: F1 and B1 run along rows,
+// one block per row tile of up to 4096 (F1) or 2048 (B1) pixels, which stages its values over
+// the tile and a band-wide halo in shared memory; F2 runs along columns, one
+// block per 32-column x 64-row tile, which stages the tile's column window
+// (64 + 2 band rows) one field at a time; B2 walks strips of columns. One
+// thread per output pixel (8 per thread in F2). Float32 on CUDA cores.
 //
-// F1 is a staged row (PERF.md row 8). What held its first design back (the
-// design B1 still has): one block-wide min over the 256 + 2 band span set
+// F1 is a staged row (PERF.md row 8). What held its first design back: one
+// block-wide min over the 256 + 2 band span set
 // every pixel's hard-min stop and reach (one stroke anywhere in 388 pixels
 // made all of them walk and sum far), the heights (expf and logf) were
 // recomputed for every block that held a pixel, 1.52 times a pixel at band
@@ -89,6 +89,33 @@
 //     at most 64 registers a thread; S1 targets (loaded for a warp's rows
 //     together) and dS1 stores are coalesced along the row.
 // The sum runs d ascending over the taps that pass, as _weight_sum adds them.
+//
+// B1 is a staged row tile too (PERF.md row 11). What held its first design
+// back: a block of 256 pixels re-read S1 and dS1 of both fields over 256 + 2
+// band positions (1.52 times at band 66), and one block-wide max of S1 per
+// field, found by a serial loop, set the reach of every pixel of the block.
+// Now:
+//   * a block of 16 warps owns a row tile of up to 2048 pixels and stages S1
+//     and dS1 of both fields over it and a band-wide halo through cp.async,
+//     with each 32-position segment's greatest S1 (38 KB at band 112: 4
+//     blocks an SM, 32 registers a thread);
+//   * a warp's reach per field comes from its own taps: the greatest S1 over
+//     them (the 32 positions at each end one by one, the whole segments
+//     between from their maxima) against the least height of its lanes (the
+//     exponent bound is monotone in the height, so this is the largest of
+//     the lanes' own reaches), a float32 estimate corrected to the loop's
+//     integer; a field none of whose lanes' tap 0 passes is skipped;
+//   * each field's loop runs d = -reach .. reach for the whole warp (its
+//     lanes read consecutive positions), a tap's weight behind a branch
+//     around expf.
+// One loop a lane over both fields (the warp stepping max(n0 + n1) times,
+// not max(n0) + max(n1)) and F1's per-segment clipping past a reach of 16
+// were built and measured: the first cut the warp's steps by a quarter on
+// noise in +-2000 but each step cost more (lanes apart in position and
+// field, expf behind a select), the second lost a quarter on strokes (its
+// lanes diverge between taking taps and finding segments); neither is
+// kept (PERF.md row 11). The sums run d ascending over the taps that pass,
+// as _weight_sum adds them.
 
 // Halo-extended blocks (the sharded tier). F1 and B1 take a live-row window
 // [ylo, yhi): a row outside it is beyond the image (an edge shard's halo),
@@ -113,8 +140,6 @@ namespace {
 constexpr int kMaxBand = 112;      // pallas_soft_fused.fused_geometry_ok: band <= 128 - 16
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 256;      // B1: output pixels per block, one per thread
-constexpr int kRowSpan = kRowTile + 2 * kMaxBand;
 constexpr int kColTile = 32;       // F2: columns per block
 constexpr int kColStep = kThreads / kColTile;  // 8 row lanes
 constexpr int kColRows = 64;       // F2: output rows per block
@@ -125,10 +150,10 @@ constexpr int kB2Threads = kB2Warps * kLanes;
 constexpr int kSeg = 16;           // B2: ring rows per segment
 constexpr int kB2Per = 4;          // B2: rows per warp and chunk
 constexpr int kB2Chunk = kB2Warps * kB2Per;  // B2: rows per chunk
-constexpr int kShort = 16;         // B2, F1: a reach up to this runs every tap, no segment tests
-constexpr int kF1Seg = 32;         // F1: positions per segment minimum (a warp's chunk)
-constexpr int kF1Tile = 4096;      // F1: output pixels per block, at most (a row tile)
-constexpr int kF1Threads = 512;    // F1: 16 warps
+constexpr int kShort = 16;         // B2, F1, B1: a reach up to this runs every tap, no segment tests
+constexpr int kRowSeg = 32;        // F1, B1: positions per segment bound (a warp's chunk)
+constexpr int kRowTile = 4096;     // F1, B1: output pixels per block, at most (a row tile)
+constexpr int kRowThreads = 512;   // F1, B1: 16 warps
 constexpr float kCut = 27.0f;      // pallas_soft_fused._UNDERFLOW
 constexpr float kPadH = 1e30f;     // height clip (pallas_soft_fused._PAD_H)
 constexpr float kInf = __builtin_huge_valf();
@@ -198,24 +223,6 @@ __device__ float soft_min(const float* v, int stride, int band, float vmin, floa
   return __fsub_rn(m, __fmul_rn(t, logf(s)));
 }
 
-// Banded softmax-weight sum at the tap v[0] against ``target``: taps
-// v[d * stride] (-inf outside the image) weighting g[d * stride] (0 there);
-// vmax is an upper bound of every tap.
-__device__ float weight_sum(const float* v, const float* g, int stride, int band, float vmax,
-                            float target, float inv_t) {
-  int reach = 0;
-  while (reach < band &&
-         __fmul_rn(__fsub_rn(__fsub_rn(vmax, (float)((reach + 1) * (reach + 1))), target), inv_t) >=
-             -kCut)
-    ++reach;
-  float s = 0.0f;
-  for (int d = -reach; d <= reach; ++d) {
-    const float z = __fmul_rn(__fsub_rn(__fsub_rn(v[d * stride], (float)(d * d)), target), inv_t);
-    if (z >= -kCut) s = __fadd_rn(s, __fmul_rn(expf(z), g[d * stride]));
-  }
-  return s;
-}
-
 __device__ __forceinline__ float soft_dist(float d2, float eps) {
   return __fsqrt_rn(__fadd_rn(d2 > 0.0f ? d2 : 0.0f, eps));
 }
@@ -233,13 +240,6 @@ __device__ __forceinline__ float height_vjp(float dh, float h, float lf, float s
   const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(lf)));
   const float dl = h < kPadH ? __fmul_rn(__fmul_rn(dh, -t), sig) : 0.0f;
   return __fmul_rn(dl, sgn_scale);
-}
-
-// Row kernels: block (segment, row) of image blockIdx.y.
-__device__ __forceinline__ void row_block(const Soft& p, int& y, int& x0) {
-  const int tiles = (p.w + kRowTile - 1) / kRowTile;
-  y = blockIdx.x / tiles;
-  x0 = (blockIdx.x % tiles) * kRowTile;
 }
 
 // ------------------------------------------------------------ F1, staged
@@ -279,8 +279,8 @@ __device__ __forceinline__ void f1_taps(const float* hv, int j, int d, int dend,
 // height). live: the lane has a pixel (else m = +inf, reach 0).
 __device__ __forceinline__ void f1_bounds(const float* hv, const float* segm, int j, int ws, int band, float t,
                                           float inv_t, bool live, float& m, int& reach) {
-  const int lane = threadIdx.x & 31, we = ws + kF1Seg - 1 + 2 * band;
-  const int s_first = (ws + kF1Seg - 1) / kF1Seg, s_last = (we + 1) / kF1Seg - 1;
+  const int lane = threadIdx.x & 31, we = ws + kRowSeg - 1 + 2 * band;
+  const int s_first = (ws + kRowSeg - 1) / kRowSeg, s_last = (we + 1) / kRowSeg - 1;
   float lo = fminf(hv[ws + lane], hv[we - lane]);
   if (s_first + lane <= s_last) lo = fminf(lo, segm[s_first + lane]);
   const float vmin = warp_min(lo);
@@ -307,7 +307,7 @@ __device__ __forceinline__ float f1_segment_sum(const float* hv, const float* se
                                                 float t, float inv_t) {
   float s = 0.0f;
   for (int d = -reach; d <= reach;) {
-    const int sg = (j + d) / kF1Seg, dend = min(reach, (sg + 1) * kF1Seg - 1 - j);
+    const int sg = (j + d) / kRowSeg, dend = min(reach, (sg + 1) * kRowSeg - 1 - j);
     const float top = __fsub_rn(m, segm[sg]);
     const int rs = reach_of([=](int r) { return __fmul_rn(__fsub_rn(top, (float)(r * r)), inv_t) >= -kCut; },
                             sqrtf(fmaxf(__fadd_rn(top, kCut * t), 0.0f)), reach);
@@ -323,27 +323,27 @@ __device__ __forceinline__ float f1_segment_sum(const float* hv, const float* se
 // outside the image, computed once per pixel, with each 32-position
 // segment's least height; then warp k takes the 32-pixel chunks k, k + 16, ...
 // span: the staged positions of the longest tile.
-__global__ void __launch_bounds__(kF1Threads) soft_f1_kernel(const float* gray, float* s1, Soft p, int tiles,
+__global__ void __launch_bounds__(kRowThreads) soft_f1_kernel(const float* gray, float* s1, Soft p, int tiles,
                                                            int pad, int span) {
   extern __shared__ float f1_smem[];
   float* hv = f1_smem;                 // field f's heights at hv + f * span
   float* segm = hv + 2 * span;         // field f's segment minima at segm + f * (span / 32)
-  const int sps = span / kF1Seg;
-  const int y = blockIdx.x / tiles, x0 = (blockIdx.x % tiles) * kF1Tile;
-  const int lt = min(kF1Tile, p.w - x0);
+  const int sps = span / kRowSeg;
+  const int y = blockIdx.x / tiles, x0 = (blockIdx.x % tiles) * kRowTile;
+  const int lt = min(kRowTile, p.w - x0);
   const size_t plane = (size_t)p.h * p.w;
   float* out = s1 + (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w;
   if (y < p.ylo || y >= p.yhi) {  // beyond the image: no seed, height 1e30
-    for (int x = x0 + threadIdx.x; x < x0 + lt; x += kF1Threads) {
+    for (int x = x0 + threadIdx.x; x < x0 + lt; x += kRowThreads) {
       out[x] = kPadH;
       out[plane + x] = kPadH;
     }
     return;
   }
   const float* g = gray + (size_t)blockIdx.y * plane + (size_t)y * p.w;
-  const int nchunks = (lt + kF1Seg - 1) / kF1Seg;
-  const int nst = nchunks * kF1Seg + 2 * pad;  // a multiple of 32: whole warps go round the loop together
-  for (int j = threadIdx.x; j < nst; j += kF1Threads) {
+  const int nchunks = (lt + kRowSeg - 1) / kRowSeg;
+  const int nst = nchunks * kRowSeg + 2 * pad;  // a multiple of 32: whole warps go round the loop together
+  for (int j = threadIdx.x; j < nst; j += kRowThreads) {
     const int x = x0 - pad + j;
     float h0 = kInf, h1 = kInf;
     if (x >= 0 && x < p.w) heights(logit(g[x], p.scale), p.t, h0, h1);
@@ -352,16 +352,16 @@ __global__ void __launch_bounds__(kF1Threads) soft_f1_kernel(const float* gray, 
     h0 = warp_min(h0);
     h1 = warp_min(h1);
     if ((threadIdx.x & 31) == 0) {
-      segm[j / kF1Seg] = h0;
-      segm[sps + j / kF1Seg] = h1;
+      segm[j / kRowSeg] = h0;
+      segm[sps + j / kRowSeg] = h1;
     }
   }
   __syncthreads();
-  for (int k = threadIdx.x / 32; k < nchunks; k += kF1Threads / 32) {
-    const int j = pad + k * kF1Seg + (threadIdx.x & 31);
+  for (int k = threadIdx.x / 32; k < nchunks; k += kRowThreads / 32) {
+    const int j = pad + k * kRowSeg + (threadIdx.x & 31);
     const int x = x0 + j - pad;
     const bool live = x < p.w;
-    const int ws = pad + k * kF1Seg - p.band;  // the warp's first tap
+    const int ws = pad + k * kRowSeg - p.band;  // the warp's first tap
     float m0, m1;
     int r0, r1;
     f1_bounds(hv, segm, j, ws, p.band, p.t, p.inv_t, live, m0, r0);
@@ -387,45 +387,125 @@ __global__ void __launch_bounds__(kF1Threads) soft_f1_kernel(const float* gray, 
   }
 }
 
-__global__ void __launch_bounds__(kThreads) soft_b1_kernel(const float* gray, const float* s1,
-                                                           const float* ds1, float* dgray, Soft p) {
-  __shared__ float sv[2][kRowSpan];
-  __shared__ float sg[2][kRowSpan];
-  __shared__ float red[kWarps];
-  int y, x0;
-  row_block(p, y, x0);
+// ------------------------------------------------------------ B1, staged
+
+constexpr int kB1Tile = 2048;  // B1: output pixels per block, at most (4 blocks an SM)
+
+// Max over the warp; every lane must call it.
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// B1's exponent at tap distance r for the tap value top, against target:
+// ((top - r^2) - target) / T, as _weight_sum forms it (r^2 exact up to 112).
+__device__ __forceinline__ float b1_z(float top, int r, float target, float inv_t) {
+  return __fmul_rn(__fsub_rn(__fsub_rn(top, (float)(r * r)), target), inv_t);
+}
+
+// The last |d| in [0, band] whose exponent could pass the cut given top, the
+// greatest of the taps (a float32 estimate corrected to the loop's integer);
+// -1 where even tap 0 fails that bound: no tap passes.
+__device__ __forceinline__ int b1_reach(float top, float target, int band, float t, float inv_t) {
+  if (!(b1_z(top, 0, target, inv_t) >= -kCut)) return -1;
+  return reach_of([=](int r) { return b1_z(top, r, target, inv_t) >= -kCut; },
+                  sqrtf(fmaxf(__fadd_rn(__fsub_rn(top, target), kCut * t), 0.0f)), band);
+}
+
+// The greatest S1 of one field over a warp's taps, the staged positions ws ..
+// ws + 31 + 2 band: the 32 positions at each end (which hold the partial end
+// segments) one by one, the whole segments between from segx (each
+// 32-position segment's greatest value).
+__device__ __forceinline__ float b1_warp_max(const float* sv, const float* segx, int ws, int band) {
+  const int lane = threadIdx.x & 31, we = ws + kRowSeg - 1 + 2 * band;
+  const int s_first = (ws + kRowSeg - 1) / kRowSeg, s_last = (we + 1) / kRowSeg - 1;
+  float hi = fmaxf(sv[ws + lane], sv[we - lane]);
+  if (s_first + lane <= s_last) hi = fmaxf(hi, segx[s_first + lane]);
+  return warp_max(hi);
+}
+
+// One field's sum at staged position j for the warp's reach r: the taps d =
+// -r .. r, all lanes stepping together over consecutive staged positions,
+// each tap's weight added behind a branch around expf (a lane's taps past
+// its own reach fail the cut). r = -1: no lane of the warp has a tap.
+__device__ __forceinline__ float b1_taps(const float* sv, const float* sg, int j, int r, float target, float inv_t) {
+  float acc = 0.0f, df = (float)(-r);
+  for (int q = j - r; q <= j + r; ++q, df = __fadd_rn(df, 1.0f)) {
+    const float z = __fmul_rn(__fsub_rn(__fsub_rn(sv[q], __fmul_rn(df, df)), target), inv_t);
+    if (z >= -kCut) acc = __fadd_rn(acc, __fmul_rn(expf(z), sg[q]));
+  }
+  return acc;
+}
+
+// grid (tiles x H, N); block 512. A block owns a tile of up to 2048 pixels of
+// one row, x in [x0, x0 + lt), and stages S1 and dS1 of both fields at
+// positions j = x - x0 + pad (pad: the band rounded up to a segment; S1 -inf
+// and dS1 0 outside the image), each value read once, with each 32-position
+// segment's greatest S1; then warp k takes the 32-pixel chunks k, k + 16, ...
+// span: the staged positions of the longest tile.
+__global__ void __launch_bounds__(kRowThreads, 4) soft_b1_kernel(const float* gray, const float* s1,
+                                                              const float* ds1, float* dgray, Soft p,
+                                                              int tiles, int pad, int span) {
+  extern __shared__ float b1_smem[];
+  float* sv = b1_smem;          // field f's S1 at sv + f * span
+  float* sg = sv + 2 * span;    // field f's dS1 at sg + f * span
+  float* segx = sg + 2 * span;  // field f's segment maxima at segx + f * (span / 32)
+  const int sps = span / kRowSeg, lane = threadIdx.x & 31;
+  const int y = blockIdx.x / tiles, x0 = (blockIdx.x % tiles) * kB1Tile;
+  const int lt = min(kB1Tile, p.w - x0);
   const size_t plane = (size_t)p.h * p.w;
+  float* out = dgray + (size_t)blockIdx.y * plane + (size_t)y * p.w;
   if (y < p.ylo || y >= p.yhi) {  // beyond the image: its gray is no input
-    const int x = x0 + threadIdx.x;
-    if (x < p.w) dgray[(size_t)blockIdx.y * plane + (size_t)y * p.w + x] = 0.0f;
+    for (int x = x0 + threadIdx.x; x < x0 + lt; x += kRowThreads) out[x] = 0.0f;
     return;
   }
   const size_t row = (size_t)blockIdx.y * 2 * plane + (size_t)y * p.w;
-  const int span = kRowTile + 2 * p.band;
-  float hi0 = -kInf, hi1 = -kInf;
-  for (int j = threadIdx.x; j < span; j += kThreads) {
-    const int x = x0 - p.band + j;
-    const bool in = x >= 0 && x < p.w;
-    const float v0 = in ? s1[row + x] : -kInf, v1 = in ? s1[row + plane + x] : -kInf;
-    sv[0][j] = v0;
-    sv[1][j] = v1;
-    sg[0][j] = in ? ds1[row + x] : 0.0f;
-    sg[1][j] = in ? ds1[row + plane + x] : 0.0f;
-    hi0 = fmaxf(hi0, v0);
-    hi1 = fmaxf(hi1, v1);
+  const int nchunks = (lt + kRowSeg - 1) / kRowSeg;
+  const int nst = nchunks * kRowSeg + 2 * pad;  // a multiple of 32
+  for (int j = threadIdx.x; j < nst; j += kRowThreads) {
+    const int x = x0 - pad + j;
+    if (x >= 0 && x < p.w) {
+      cp_async4(sv + j, s1 + row + x);
+      cp_async4(sv + span + j, s1 + row + plane + x);
+      cp_async4(sg + j, ds1 + row + x);
+      cp_async4(sg + span + j, ds1 + row + plane + x);
+    } else {
+      sv[j] = -kInf;
+      sv[span + j] = -kInf;
+      sg[j] = 0.0f;
+      sg[span + j] = 0.0f;
+    }
   }
-  hi0 = block_reduce<true>(hi0, red);
-  hi1 = block_reduce<true>(hi1, red);
-  const int x = x0 + threadIdx.x;
-  if (x >= p.w) return;
-  const size_t o = (size_t)blockIdx.y * plane + (size_t)y * p.w + x;
-  const float l = logit(gray[o], p.scale);
-  float h0, h1;
-  heights(l, p.t, h0, h1);
-  const int c = p.band + threadIdx.x;
-  const float dh0 = weight_sum(&sv[0][c], &sg[0][c], 1, p.band, hi0, h0, p.inv_t);
-  const float dh1 = weight_sum(&sv[1][c], &sg[1][c], 1, p.band, hi1, h1, p.inv_t);
-  dgray[o] = __fadd_rn(height_vjp(dh0, h0, l, p.scale, p.t), height_vjp(dh1, h1, -l, -p.scale, p.t));
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  for (int s = threadIdx.x / 32; s < nst / kRowSeg; s += kRowThreads / 32) {
+    const float m0 = warp_max(sv[s * kRowSeg + lane]), m1 = warp_max(sv[span + s * kRowSeg + lane]);
+    if (lane == 0) {
+      segx[s] = m0;
+      segx[sps + s] = m1;
+    }
+  }
+  __syncthreads();
+  const float* g = gray + (size_t)blockIdx.y * plane + (size_t)y * p.w;
+  for (int k = threadIdx.x / 32; k < nchunks; k += kRowThreads / 32) {
+    const int j = pad + k * kRowSeg + lane;
+    const int x = x0 + k * kRowSeg + lane;
+    const bool live = x < x0 + lt;
+    const int ws = pad + k * kRowSeg - p.band;  // the warp's first tap
+    const float v0 = b1_warp_max(sv, segx, ws, p.band), v1 = b1_warp_max(sv + span, segx + sps, ws, p.band);
+    float l = 0.0f, h0 = kInf, h1 = kInf;  // no pixel: a height that lowers no bound, no tap passes
+    if (live) {
+      l = logit(g[x], p.scale);
+      heights(l, p.t, h0, h1);
+    }
+    // the warp's reach per field: that of its least height (the bound is
+    // monotone in the target), so the largest of its lanes'
+    const int r0 = b1_reach(v0, warp_min(h0), p.band, p.t, p.inv_t);
+    const int r1 = b1_reach(v1, warp_min(h1), p.band, p.t, p.inv_t);
+    const float dh0 = b1_taps(sv, sg, j, r0, h0, p.inv_t), dh1 = b1_taps(sv + span, sg + span, j, r1, h1, p.inv_t);
+    if (live) out[x] = __fadd_rn(height_vjp(dh0, h0, l, p.scale, p.t), height_vjp(dh1, h1, -l, -p.scale, p.t));
+  }
 }
 
 // Column kernels: a 32-column x 64-row tile of image blockIdx.z; thread
@@ -626,9 +706,10 @@ int prepare(int n, int h, int w, int band, float scale, float t, float inv_t, fl
   return 0;
 }
 
-dim3 row_grid(const Soft& p) {
-  return dim3((unsigned)(((p.w + kRowTile - 1) / kRowTile) * p.h), (unsigned)p.n);
-}
+// A row tile's staged positions: the longest tile rounded up to a segment,
+// and a band-wide halo each side (pad: the band rounded up to a segment).
+int row_pad(int band) { return (band + kRowSeg - 1) / kRowSeg * kRowSeg; }
+int row_span(int w, int band, int tile) { return (min(w, tile) + kRowSeg - 1) / kRowSeg * kRowSeg + 2 * row_pad(band); }
 
 dim3 col_grid(const Soft& p) {
   return dim3((unsigned)((p.w + kColTile - 1) / kColTile), (unsigned)((p.h + kColRows - 1) / kColRows),
@@ -651,11 +732,10 @@ extern "C" int chaq_soft_f1(const void* gray, void* s1, int n, int h, int w, int
   Soft p;
   const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
-  const int tiles = (w + kF1Tile - 1) / kF1Tile;
-  const int pad = (band + kF1Seg - 1) / kF1Seg * kF1Seg;
-  const int span = (min(w, kF1Tile) + kF1Seg - 1) / kF1Seg * kF1Seg + 2 * pad;  // at most 4352 positions: 35 KB
-  const size_t smem = sizeof(float) * 2 * ((size_t)span + span / kF1Seg);
-  soft_f1_kernel<<<dim3((unsigned)(tiles * h), (unsigned)n), kF1Threads, smem, (cudaStream_t)stream>>>(
+  const int tiles = (w + kRowTile - 1) / kRowTile;
+  const int pad = row_pad(band), span = row_span(w, band, kRowTile);  // at most 4352 positions: 35 KB
+  const size_t smem = sizeof(float) * 2 * ((size_t)span + span / kRowSeg);
+  soft_f1_kernel<<<dim3((unsigned)(tiles * h), (unsigned)n), kRowThreads, smem, (cudaStream_t)stream>>>(
       (const float*)gray, (float*)s1, p, tiles, pad, span);
   return (int)cudaGetLastError();
 }
@@ -708,7 +788,16 @@ extern "C" int chaq_soft_b1(const void* gray, const void* s1, const void* ds1, v
   Soft p;
   const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
-  soft_b1_kernel<<<row_grid(p), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)gray, (const float*)s1, (const float*)ds1, (float*)dgray, p);
+  const int tiles = (w + kB1Tile - 1) / kB1Tile;
+  const int pad = row_pad(band), span = row_span(w, band, kB1Tile);
+  // S1 and dS1 of both fields and the segment maxima: at most 38 KB (band
+  // 112), 4 blocks of 16 warps an SM
+  const int smem = (int)sizeof(float) * (4 * span + 2 * (span / kRowSeg));
+  if (smem > 48 * 1024) {
+    const int rc2 = (int)cudaFuncSetAttribute(soft_b1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc2 != 0) return rc2;
+  }
+  soft_b1_kernel<<<dim3((unsigned)(tiles * h), (unsigned)n), kRowThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)gray, (const float*)s1, (const float*)ds1, (float*)dgray, p, tiles, pad, span);
   return (int)cudaGetLastError();
 }

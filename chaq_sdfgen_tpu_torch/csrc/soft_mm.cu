@@ -34,17 +34,41 @@
 // image live, and computes what it computed before.
 //
 // Bound: operations. Per pixel about 2 fields x 2 convs x (2k+1) taps of a
-// multiply and an add, plus ~10 transcendentals (the occupancy of the halo
-// pixels is computed again by each tile that reads them); the bytes are
-// 8-16 (forward) and 20 (backward) per pixel. Design: one block of 256
-// threads per 64x64 output tile. Each warp takes rows of the tile plus a
-// halo of k2 rows: it evaluates the per-pixel producer (occupancy, or the
-// tails' VJP) for the 64 + 2 k1 pixels of the row into a warp-private
-// shared buffer, then the rows conv into a (64 + 2 k2) x 64 shared tile per
-// field. After one barrier each thread takes one column and 16 rows of the
-// tile for the cols conv and the per-pixel epilogue (the tails, or the
-// occupancy VJP). Shared memory: 49-55 KB per block (k2 = 10-16).
+// multiply and an add, plus ~10 transcendentals; the bytes are 8-16
+// (forward) and 20 (backward) per pixel.
 //
+// The forward: one block of 256 threads per 64x64 output tile. Each warp
+// takes rows of the tile plus a halo of k2 rows: it evaluates the occupancy
+// for the 64 + 2 k1 pixels of the row into a warp-private shared buffer,
+// then the rows conv into a (64 + 2 k2) x 64 shared tile per field. After
+// one barrier each thread takes one column and 16 rows of the tile for the
+// cols conv and the tails. Shared memory: 49-55 KB per block (k2 = 10-16).
+//
+// The backward (PERF.md row 7). What held its first design, the forward's,
+// back: each tap of each conv read its weight and both fields' inputs from
+// shared memory (3 shared loads for 4 float operations, ~145 loads a pixel
+// at k = 10), the tails' VJP ran 1.72 times a pixel (over the 84 x 84 halo'd
+// inputs of a 64 x 64 tile), and the epilogue formed 6 exponentials. Now a
+// block of 256 threads owns 128 output columns and walks a strip of rows, 16
+// a chunk:
+//   * a batch of 16 input rows (the tile's columns and a k1 halo each side)
+//     of the cotangent and both memos arrives through cp.async while the
+//     last batch's convs run; the tails' VJP turns it into ds once a staged
+//     pixel (128 + 2 k1 columns for 128, and 2 k2 rows once a strip);
+//   * the rows conv: a thread takes 8 consecutive outputs of one row of the
+//     batch, its inputs in a register window (each staged value read once a
+//     thread, not once a tap), into a ring of 48 rows (3 batches);
+//   * the cols conv: a thread takes 8 consecutive rows of one column of the
+//     chunk from the ring the same way, then the occupancy VJP;
+//   * the tap loops are unrolled over the 33 taps the kernels take, each
+//     step behind a test of the radius (uniform over the block), so the
+//     taps come from the kernel's parameters at fixed offsets, out of
+//     shared memory;
+//   * shared memory: 30 KB of staged inputs, 26 KB of ds (a column skewed by
+//     one every 8, so that a warp's 16 windows fall in distinct banks) and
+//     50 KB of ring (a column's low bits xor-swizzled by its 32-column block,
+//     so that a row's 8-wide stores spread over the banks): 2 blocks an SM.
+
 // Exact numbers: every multiply that feeds an add is an explicit _rn
 // intrinsic, so nvcc contracts nothing into an FMA, and the sums run in the
 // order d = -k .. k: the arithmetic is that of the plain version
@@ -57,7 +81,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+
 #include "soft_tails.cuh"
+#include "staged.cuh"
 
 namespace {
 
@@ -83,10 +110,12 @@ struct Geometry {
 // The two shifted occupancies exp(c/T + log sigmoid(+-l)), with
 // log sigmoid(+-l) = min(+-l, 0) - log1p(exp(-|l|)), as ops/soft_mxu.py's
 // occupancy() forms them.
-__device__ __forceinline__ void occupancies(float l, float ct1, float& e_in, float& e_out) {
-  const float sp = log1pf(expf(-fabsf(l)));
+__device__ __forceinline__ void occupancies_of(float l, float sp, float ct1, float& e_in, float& e_out) {
   e_in = expf(__fadd_rn(ct1, __fsub_rn(fminf(l, 0.0f), sp)));
   e_out = expf(__fadd_rn(ct1, __fsub_rn(fminf(-l, 0.0f), sp)));
+}
+__device__ __forceinline__ void occupancies(float l, float ct1, float& e_in, float& e_out) {
+  occupancies_of(l, log1pf(expf(-fabsf(l))), ct1, e_in, e_out);
 }
 
 __device__ __forceinline__ float logit(float g, float tau, bool above) {
@@ -113,37 +142,35 @@ struct FwdTails {
   }
 };
 
-// Backward epilogue: the occupancy VJP into dgray.
+// Backward epilogue: the occupancy VJP, dgray from the pixel's gray. exp(-|l|)
+// is the occupancy's and one of the sigmoids' (exp(l) where l <= 0, exp(-l)
+// where l >= 0), so it is formed once: the same values as forming each.
 struct OccupancyVjp {
-  const float* gray;
-  float* dgray;
   float tau, ct1;
   bool above;
-  __device__ __forceinline__ void operator()(size_t i, float de_in, float de_out, bool live) const {
-    if (!live) {
-      dgray[i] = 0.0f;
-      return;
-    }
-    const float l = logit(gray[i], tau, above);
+  float inv_tau2;  // 1/tau where tau is a power of two, else 0 (div_by)
+  __device__ __forceinline__ float operator()(float g, float de_in, float de_out) const {
+    const float lp = div_by(__fsub_rn(g, 127.5f), tau, inv_tau2), l = above ? lp : -lp;
+    const float e = expf(-fabsf(l)), f = expf(fabsf(l));
     float e_in, e_out;
-    occupancies(l, ct1, e_in, e_out);
-    const float sig_m = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(l)));   // sigmoid(-l)
-    const float sig_p = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-l)));  // sigmoid(l)
-    const float dg = __fdiv_rn(__fsub_rn(__fmul_rn(__fmul_rn(de_in, e_in), sig_m),
-                                         __fmul_rn(__fmul_rn(de_out, e_out), sig_p)),
-                               tau);
-    dgray[i] = above ? dg : -dg;
+    occupancies_of(l, log1pf(e), ct1, e_in, e_out);
+    const float sig_m = __fdiv_rn(1.0f, __fadd_rn(1.0f, l <= 0.0f ? e : f));  // sigmoid(-l)
+    const float sig_p = __fdiv_rn(1.0f, __fadd_rn(1.0f, l >= 0.0f ? e : f));  // sigmoid(l)
+    const float dg = div_by(__fsub_rn(__fmul_rn(__fmul_rn(de_in, e_in), sig_m),
+                                      __fmul_rn(__fmul_rn(de_out, e_out), sig_p)),
+                            tau, inv_tau2);
+    return above ? dg : -dg;
   }
 };
 
-// Shared memory of a block, in floats.
+// Shared memory of a forward block, in floats.
 __host__ __device__ constexpr int smem_floats(int k2) {
   return 2 * (kTile + 2 * k2) * kTile + kWarps * 2 * kRowBuf;
 }
 
-// One 64x64 output tile of image blockIdx.z: producer over the tile's
-// halo-extended input rows, rows conv, cols conv, epilogue. Pixels outside
-// the live window produce zeros (the convs' zero boundary).
+// One 64x64 output tile of image blockIdx.z (the forward): producer over the
+// tile's halo-extended input rows, rows conv, cols conv, epilogue. Pixels
+// outside the live window produce zeros (the convs' zero boundary).
 template <class Producer, class Epilogue>
 __device__ __forceinline__ void two_conv_tile(const Producer& prod, const Epilogue& epi,
                                               const Geometry& geo, const Taps& taps) {
@@ -217,9 +244,168 @@ soft_mm_fwd_kernel(Occupancy prod, FwdTails epi, Geometry geo, Taps taps) {
   two_conv_tile(prod, epi, geo, taps);
 }
 
-__global__ void __launch_bounds__(kThreads)
-soft_mm_bwd_kernel(TailsVjp prod, OccupancyVjp epi, Geometry geo, Taps taps) {
-  two_conv_tile(prod, epi, geo, taps);
+// ----------------------------------------------------------------- backward
+
+constexpr int kBwdCols = 128;                 // output columns per block
+constexpr int kBwdRows = 16;                  // rows a batch (tails' VJP, rows conv) and a chunk (cols conv)
+constexpr int kBwdPer = 8;                    // consecutive outputs a thread in each conv
+constexpr int kBwdThreads = kBwdCols * kBwdRows / kBwdPer;  // one conv item a thread (256)
+constexpr int kRingRows = 3 * kBwdRows;       // the ring: 3 batches, 16 + 2 k2 <= 48 rows
+constexpr int kBwdIn = kBwdCols + 2 * kMaxK;  // staged columns, at most
+constexpr int kDsStride = 208;                // a ds row: kBwdIn columns skewed (180), 16 mod 32
+constexpr int kRingStride = kBwdCols + 4;     // a ring row: the next row 4 banks on
+constexpr int kBwdSmem = 3 * kBwdRows * kBwdIn + 2 * kBwdRows * kDsStride + 2 * kRingRows * kRingStride;
+
+// A ds row's column c, skewed by one every 8: the 16 windows of a warp's row
+// (8 columns apart) start in distinct banks, and the warp's two rows 16 banks
+// apart.
+__device__ __forceinline__ int ds_col(int c) { return c + (c >> 3); }
+
+// The taps 0 .. 2 k of one conv for 8 consecutive outputs: out[q] = sum_i
+// w[i] src[at(q + i)], i ascending from 0, each multiply and add rounded on
+// its own (the plain version's order). Each staged value is read once into a
+// register window; the loop is unrolled over the 33 taps the kernels take,
+// each step behind a test of the radius (uniform over the block), so w[i] is
+// a kernel parameter at a fixed offset.
+template <class At>
+__device__ __forceinline__ void conv_taps(const float* src0, const float* src1, At at, const float* w, int k,
+                                          float (&out0)[kBwdPer], float (&out1)[kBwdPer]) {
+  float v0[kBwdPer + 2 * kMaxK], v1[kBwdPer + 2 * kMaxK];
+#pragma unroll
+  for (int q = 0; q < kBwdPer; ++q) out0[q] = out1[q] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kBwdPer - 1; ++j) {
+    v0[j] = src0[at(j)];
+    v1[j] = src1[at(j)];
+  }
+#pragma unroll
+  for (int i = 0; i < kTaps; ++i) {
+    if (i <= 2 * k) {
+      v0[i + kBwdPer - 1] = src0[at(i + kBwdPer - 1)];
+      v1[i + kBwdPer - 1] = src1[at(i + kBwdPer - 1)];
+      const float wv = w[i];
+#pragma unroll
+      for (int q = 0; q < kBwdPer; ++q) {
+        out0[q] = __fadd_rn(out0[q], __fmul_rn(wv, v0[q + i]));
+        out1[q] = __fadd_rn(out1[q], __fmul_rn(wv, v1[q + i]));
+      }
+    }
+  }
+}
+
+// grid (column tiles, strips, N); block 256. A block owns output columns
+// [x0, x0 + 128) and rows [o_start, o_end) of image blockIdx.z. Ring row u
+// holds the rows conv at input row y_base + u (y_base = o_start + row_off -
+// k2) in ring slot u mod 48; batch b is ring rows 16 b .. 16 b + 15, and
+// output row o_start + t sums ring rows t .. t + 2 k2. Per chunk of 16
+// output rows: the batches it needs that are not in yet (each: wait for its
+// staged inputs, the tails' VJP into ds, start the next batch's copies, the
+// rows conv into the ring), then the cols conv and the occupancy VJP.
+__global__ void __launch_bounds__(kBwdThreads, 2)
+soft_mm_bwd_kernel(TailsVjp prod, OccupancyVjp epi, const float* gray, float* dgray,
+                   const __grid_constant__ Geometry geo, const __grid_constant__ Taps taps, int strip) {
+  extern __shared__ float smem[];
+  float* raw = smem;                             // [3][16][160]: ct, d2_in, d2_out of a batch
+  float* dsb = raw + 3 * kBwdRows * kBwdIn;      // [2][16][kDsStride]: the batch's ds
+  float* ring = dsb + 2 * kBwdRows * kDsStride;  // [2][48][kRingStride]: the rows conv
+  const int k1 = geo.k1, k2 = geo.k2, cw = kBwdCols + 2 * k1;
+  const int tid = threadIdx.x, x0 = blockIdx.x * kBwdCols;
+  const int o_start = blockIdx.y * strip, o_end = min(o_start + strip, geo.h_out);
+  const int y_base = o_start + geo.row_off - k2;
+  const int batches = (o_end - o_start + 2 * k2 + kBwdRows - 1) / kBwdRows;
+  const size_t in_plane = (size_t)blockIdx.z * geo.h_in * geo.w;
+  const size_t out_plane = (size_t)blockIdx.z * geo.h_out * geo.w;
+  const float* ct = prod.ct + in_plane;
+  const float* d2i = prod.d2_in + in_plane;
+  const float* d2o = prod.d2_out + in_plane;
+  // a thread's pixels of a batch are n = tid + 256 m = cw r + c (row r,
+  // column c < cw), staged at e = 160 r + c
+  const int r_first = tid / cw, c_first = tid - r_first * cw;
+  auto live = [&](int y, int x) { return y >= geo.ylo && y < geo.yhi && x >= geo.xlo && x < geo.xhi; };
+  auto stage = [&](int b) {  // start batch b's copies
+    int r = r_first, c = c_first;
+    for (int n = tid; n < kBwdRows * cw; n += kBwdThreads) {
+      const int y = y_base + kBwdRows * b + r, x = x0 - k1 + c, e = r * kBwdIn + c;
+      if (live(y, x)) {
+        const size_t i = (size_t)y * geo.w + x;
+        cp_async4(raw + e, ct + i);
+        cp_async4(raw + kBwdRows * kBwdIn + e, d2i + i);
+        cp_async4(raw + 2 * kBwdRows * kBwdIn + e, d2o + i);
+      } else {  // no input: a zero cotangent and dead memos, whose ds is 0
+        raw[e] = 0.0f;
+        raw[kBwdRows * kBwdIn + e] = kDeadD2;
+        raw[2 * kBwdRows * kBwdIn + e] = kDeadD2;
+      }
+      for (c += kBwdThreads; c >= cw; c -= cw) ++r;
+    }
+    cp_commit();
+  };
+
+  stage(0);
+  int b = 0;
+  for (int t0 = 0; t0 < o_end - o_start; t0 += kBwdRows) {
+    const int need = min((t0 + kBwdRows - 1 + 2 * k2) / kBwdRows, batches - 1);
+    for (; b <= need; ++b) {
+      cp_wait_all();
+      __syncthreads();  // batch b is in; the last convs are done with ds and the ring slot
+      // the tails' VJP, every staged pixel
+      {
+        int r = r_first, c = c_first;
+        for (int n = tid; n < kBwdRows * cw; n += kBwdThreads) {
+          const int e = r * kBwdIn + c;
+          float a, z;
+          prod(raw[e], raw[kBwdRows * kBwdIn + e], raw[2 * kBwdRows * kBwdIn + e], a, z);
+          dsb[r * kDsStride + ds_col(c)] = a;
+          dsb[(kBwdRows + r) * kDsStride + ds_col(c)] = z;
+          for (c += kBwdThreads; c >= cw; c -= cw) ++r;
+        }
+      }
+      __syncthreads();  // ds is in; the staging buffer is free
+      if (b + 1 < batches) stage(b + 1);
+      {
+        // rows conv: row r of the batch, outputs c0 .. c0 + 7, into ring slot
+        // 16 (b mod 3) + r, columns xor'd with their 32-column block
+        const int r = tid / (kBwdCols / kBwdPer), c0 = kBwdPer * (tid % (kBwdCols / kBwdPer));
+        float a0[kBwdPer], a1[kBwdPer];
+        const float* s0 = dsb + r * kDsStride;
+        conv_taps(s0, s0 + kBwdRows * kDsStride, [c0](int j) { return ds_col(c0 + j); }, taps.w1, k1, a0, a1);
+        float* d0 = ring + (kBwdRows * (b % 3) + r) * kRingStride + c0;
+        float* d1 = d0 + kRingRows * kRingStride;
+        const int sw = (c0 >> 5) & 3;
+#pragma unroll
+        for (int q = 0; q < kBwdPer; ++q) {
+          d0[q ^ sw] = a0[q];
+          d1[q ^ sw] = a1[q];
+        }
+      }
+    }
+    __syncthreads();  // the ring holds the chunk's rows
+    // cols conv: column q, tile rows t .. t + 7 (ring rows t .. t + 7 + 2 k2)
+    const int q = tid % kBwdCols, t = t0 + kBwdPer * (tid / kBwdCols);
+    const int x = x0 + q;
+    float gv[kBwdPer];  // the epilogue's gray, loaded ahead of the conv
+#pragma unroll
+    for (int m = 0; m < kBwdPer; ++m) {
+      const int o = o_start + t + m;
+      gv[m] = (x < geo.w && o < o_end) ? gray[out_plane + (size_t)o * geo.w + x] : 0.0f;
+    }
+    const int us = t % kRingRows;
+    const float* c0 = ring + (q ^ ((q >> 5) & 3));
+    float e0[kBwdPer], e1[kBwdPer];
+    conv_taps(c0, c0 + kRingRows * kRingStride,
+              [us](int j) { return (us + j >= kRingRows ? us + j - kRingRows : us + j) * kRingStride; }, taps.w2,
+              k2, e0, e1);
+    if (x < geo.w) {
+      const bool x_in = x >= geo.xlo && x < geo.xhi;
+#pragma unroll
+      for (int m = 0; m < kBwdPer; ++m) {
+        const int o = o_start + t + m, y = o + geo.row_off;
+        if (o < o_end)
+          dgray[out_plane + (size_t)o * geo.w + x] =
+              x_in && y >= geo.ylo && y < geo.yhi ? epi(gv[m], e0[m], e1[m]) : 0.0f;
+      }
+    }
+  }
 }
 
 // Validates the launch and fills the geometry, taps, grid and shared size.
@@ -244,6 +430,13 @@ int prepare(int n, int h_in, int h_out, int w, int row_off, int ylo, int yhi, in
   }
   *smem = sizeof(float) * (size_t)smem_floats(k2);
   return 0;
+}
+
+// 1/v where v is a power of two whose inverse is a normal float (x / v is
+// then x (1/v) bit for bit), else 0.
+float pow2_inverse(float v) {
+  int e = 0;
+  return v > 0.0f && std::frexp(v, &e) == 0.5f && e >= -124 && e <= 126 ? std::ldexp(1.0f, 1 - e) : 0.0f;
 }
 
 // Above 48 KB a block's dynamic shared memory must be allowed first (on
@@ -295,10 +488,25 @@ extern "C" int chaq_soft_mm_bwd(const void* ct, const void* d2_in, const void* d
   size_t smem;
   int rc = prepare(n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, &geo, &tp, &grid,
                    &smem);
-  if (rc == 0) rc = allow_smem(soft_mm_bwd_kernel);
+  const int smem_b = (int)sizeof(float) * kBwdSmem;  // 106 KB: 2 blocks an SM
+  if (rc == 0)
+    rc = (int)cudaFuncSetAttribute(soft_mm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
   if (rc != 0) return rc;
-  const TailsVjp prod{(const float*)ct, (const float*)d2_in, (const float*)d2_out, shift, t, eps};
-  const OccupancyVjp epi{(const float*)gray, (float*)dgray, tau, shift / t, test_above != 0};
-  soft_mm_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(prod, epi, geo, tp);
+  int dev = 0, sms = 132, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, soft_mm_bwd_kernel, kBwdThreads, smem_b);
+  // strips of whole chunks, one block per SM slot in all where the image has
+  // enough: a strip's 2 k2 halo rows stay a small share, and every block
+  // does the same work, so one wave leaves no tail
+  const long long cols = (long long)((w + kBwdCols - 1) / kBwdCols) * n, chunks = (h_out + kBwdRows - 1) / kBwdRows;
+  long long strips = (long long)sms * (per_sm > 0 ? per_sm : 1) / cols;
+  strips = strips < 1 ? 1 : (strips > chunks ? chunks : strips);
+  const int strip = (int)((chunks + strips - 1) / strips) * kBwdRows;
+  const dim3 g((unsigned)((w + kBwdCols - 1) / kBwdCols), (unsigned)((h_out + strip - 1) / strip), (unsigned)n);
+  const TailsVjp prod{(const float*)ct, (const float*)d2_in, (const float*)d2_out, shift, t, eps, pow2_inverse(t)};
+  const OccupancyVjp epi{tau, shift / t, test_above != 0, pow2_inverse(tau)};
+  soft_mm_bwd_kernel<<<g, kBwdThreads, smem_b, (cudaStream_t)stream>>>(prod, epi, (const float*)gray,
+                                                                    (float*)dgray, geo, tp, strip);
   return (int)cudaGetLastError();
 }

@@ -41,8 +41,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      gradient held against the plain version;
  10. soft times (CUDA events, as in phase 6) at 4096x4096
      spread 64: soft_mm_fwd without memos (serving) and with them
-     (training), soft_mm_bwd, the training step and SDFGenerator(soft)
-     .generate, each against its plain version;
+     (training), soft_mm_bwd (also at tap radii 16), the training step and
+     SDFGenerator(soft).generate, each against its plain version;
+     soft_mm_bwd's two convs alone as F.conv2d (cuDNN, TF32 off) on the
+     (2, 4096, 4096) stack of the tails' VJP (its library_ms, convs only),
+     checked against the plain convs within 1e-5 of the scale; and
+     soft_mm_bwd against mm_fused_bwd_plain on the step's cotangent;
  11. where the training step's device time goes: torch.profiler over 10
      steps, device time per kernel and the busy share;
  12. each adaptive soft kernel (csrc/soft_fused.cu) against its plain
@@ -72,10 +76,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
  14. adaptive times (CUDA events, as in phase 6): each of the four kernels
      and its plain version, the gated training step on the bench's noise,
      the adaptive step forced on it, the out-of-gamut step and the
-     SoftSDFModel step; soft_b2 and soft_f1 also on the glyph in +-2040,
-     each with its taps a pixel and field on each input (b2_loop_taps,
-     f1_loop_taps: live, the kernel's loop, the loop of the design before
-     it, whose reach came from a window-wide bound);
+     SoftSDFModel step; soft_b2, soft_f1 and soft_b1 also on the glyph in
+     +-2040, each with its taps a pixel and field on each input
+     (b2_loop_taps, f1_loop_taps: live, the kernel's loop, the loop of the
+     design before it, whose reach came from a window-wide bound;
+     b1_loop_taps also B1's warp steps against those of the design before
+     it);
  15. where the adaptive steps' device time goes: torch.profiler over the
      forced adaptive step and the gated out-of-gamut step;
  16. the BRUTE kernels (csrc/brute.cu: brute_rows, brute_scan_bytes) and the
@@ -206,8 +212,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      scale, the parameters after 3 steps within 1e-5), and the CLI
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
      glyph PNG byte for byte the unsharded SDFGenerator.
-`python3 chip_smoke.py --kernel-turn` times rows 8, 10, 15 and 16 and what
-they serve alone (kernel_turn), on this tree or (copied in) its parent.
+`python3 chip_smoke.py --kernel-turn` times rows 7, 8, 10, 11, 15 and 16 and
+what they serve alone (kernel_turn), on this tree or (copied in) its parent.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -833,14 +839,22 @@ def soft_phases(dev, glyph):
     times["training_step_plain"] = cuda_ms(lambda: plain_train_step(g0))
     times["generate"] = cuda_ms(lambda: gen.generate(img))
     times["generate_plain"] = cuda_ms(plain_generate)
+    times["soft_mm_bwd_k16"] = mm_bwd_times(g0, (16,))[16]
+    times["soft_mm_bwd_library"] = mm_bwd_library(ct, d2i, d2o, c, k1, k2)
     for k, ms in times.items():
         log(f"time soft {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+    dk = cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g0, *args)
+    dp = cuda_soft_mm.mm_fused_bwd_plain(ct, d2i, d2o, g0, *args)
+    log(f"check soft_mm_bwd against mm_fused_bwd_plain on the card (the step's cotangent): max abs err "
+        f"{float((dk - dp).abs().max()) / float(dp.abs().max()):.3e} of the scale; digest {digest(dk)}")
+    del dk, dp
 
     npix = SIZE * SIZE
     bounds = {
         "soft_mm_fwd_serving": bound(8 * npix, soft_flops(npix, k1, k2, True)),
         "soft_mm_fwd": bound(16 * npix, soft_flops(npix, k1, k2, True)),
         "soft_mm_bwd": bound(20 * npix, soft_flops(npix, k1, k2, False)),
+        "soft_mm_bwd_k16": bound(20 * npix, soft_flops(npix, 16, 16, False)),
     }
     for k, (ms, by) in bounds.items():
         log(f"bound soft {k}: {ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
@@ -849,6 +863,50 @@ def soft_phases(dev, glyph):
     # phase 11: device time by kernel over the training step
     profile_device("soft training step", lambda: train_step(g0))
     return err, launches, times, bounds
+
+
+def mm_bwd_times(g: torch.Tensor, radii=(10, 16)) -> dict:
+    """soft_mm_bwd on the bench's input at tap radii k1 = k2 = k ({k: ms},
+    CUDA events; a summed loss's cotangent, the forward's memos), each with
+    a digest of its output (turns on two trees compare it)."""
+    _, _, c = soft_mxu.range_stats(SPREAD + 2, TRAIN_TAU, TRAIN_T, U8)
+    ct = torch.ones_like(g)
+    out = {}
+    for k in radii:
+        args = (c, k, k, TRAIN_TAU, TRAIN_T, 1e-6, True)
+        _, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g, *args)
+        out[k] = cuda_ms(lambda: cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g, *args))
+        log(f"time soft soft_mm_bwd k {k}: {out[k]:.4f} ms; digest "
+            f"{digest(cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g, *args))}")
+    return out
+
+
+def mm_bwd_library(ct, d2i, d2o, c, k1, k2) -> float:
+    """The library yardstick of soft_mm_bwd: its two convs alone as F.conv2d
+    (cuDNN, TF32 off) on the (2, H, W) stack of the tails' VJP, the 1 x (2 k1
+    + 1) taps then the (2 k2 + 1) x 1 (symmetric, so cross-correlation is the
+    conv), zero padding; checked against the plain convs within 1e-5 of the
+    scale. No PyTorch call computes the whole kernel (the tails' VJP and the
+    occupancy VJP around the convs), so this times the convs only."""
+    conv2d = torch.nn.functional.conv2d
+    w1, w2 = soft_mxu.tap_weights(k1, TRAIN_T), soft_mxu.tap_weights(k2, TRAIN_T)
+    ds = torch.stack(soft_mxu.tails_vjp(ct, d2i, d2o, TRAIN_T, c, 1e-6)).unsqueeze(1)
+    t1 = torch.tensor(w1, dtype=torch.float32, device=ds.device).view(1, 1, 1, -1)
+    t2 = torch.tensor(w2, dtype=torch.float32, device=ds.device).view(1, 1, -1, 1)
+    convs = lambda: conv2d(conv2d(ds, t1, padding=(0, k1)), t2, padding=(k2, 0))  # noqa: E731
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = torch.stack([soft_mxu.conv_cols(soft_mxu.conv_rows(d[0], w1), w2) for d in ds])
+        e_lib = float((convs().squeeze(1) - want).abs().max()) / float(want.abs().max())
+        ms = cuda_ms(convs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"check soft_mm_bwd's convs against F.conv2d (cuDNN, no TF32) on the {tuple(ds.shape)} ds stack, "
+        f"k1 {k1} k2 {k2}: max abs err {e_lib:.3e} of the scale {float(want.abs().max()):.4e}; "
+        f"F.conv2d (convs only) {ms:.4f} ms")
+    require(e_lib <= 1e-5, "the plain convs differ from F.conv2d")
+    return ms
 
 
 # ------------------------------------------------------ adaptive soft phases
@@ -1035,6 +1093,52 @@ def f1_loop_taps(g: torch.Tensor, band: int, tau: float, t: float) -> dict:
     return out
 
 
+def b1_loop_taps(s1: torch.Tensor, h: torch.Tensor, band: int, t: float) -> dict:
+    """soft_b1's taps on one image's S1 and heights (2, H, W), summed over
+    pixels and fields: ``live`` (inside the cut), ``loop`` (the kernel's
+    taps a pixel: 2 reach + 1 per field, the warp's reach from the greatest
+    S1 over its taps against its least height, no taps where tap 0 fails),
+    ``warp_steps`` (32 x the sum over warps of their steps: the lanes of a
+    warp step together) and ``parent_warp_steps`` (the design before it: each
+    lane's reach from the greatest S1 over its 256-pixel block's span
+    against its own height, its warp stepping the longest). The torch form of
+    tests/test_torch_b1_bounds.py's mirror."""
+    inv_t = float(np.float32(1.0 / t))
+    _, hh, w = s1.shape
+    nch = -(-w // 32)
+    dev = s1.device
+
+    def reach_of(top, target):
+        ok = lambda r: (((top - (r * r).to(torch.float32)) - target) * inv_t) >= -27.0
+        gap = (top.double() - target.double()).nan_to_num(0.0, 1e9, 0.0)
+        r = torch.sqrt((gap + 27.0 * t).clamp(0, 1e9)).floor().long().clamp(max=band)
+        while bool((down := (r > 0) & ~ok(r)).any()):
+            r -= down.long()
+        while bool((up := (r < band) & ok(r + 1)).any()):
+            r += up.long()
+        return torch.where(ok(torch.zeros_like(r)), r, -1)
+
+    def per_warp(a, fill, fn):
+        a = torch.nn.functional.pad(a, (0, nch * 32 - w), value=fill)
+        return fn(a.view(hh, nch, 32), 2)
+
+    out = {"live": 0, "loop": 0, "warp_steps": 0, "parent_warp_steps": 0}
+    for v, tg in zip(s1, h):
+        vp = torch.nn.functional.pad(v, (band, band + 32), value=float("-inf"))
+        vmax = torch.stack([vp[:, k : k + 32 + 2 * band].amax(1) for k in range(0, w, 32)], 1)
+        reach = reach_of(vmax, per_warp(tg, float("inf"), torch.amin))  # (H, warps)
+        steps = (2 * reach + 1).clamp(min=0)
+        out["warp_steps"] += 32 * int(steps.sum())
+        out["loop"] += int(steps.repeat_interleave(32, 1)[:, :w].sum())
+        for d in range(-band, band + 1):
+            z = ((vp[:, band + d : band + d + w] - float(d * d)) - tg) * inv_t
+            out["live"] += int((z >= -27.0).sum())
+        hi = torch.stack([v[:, max(0, b0 - band) : b0 + 256 + band].amax(1) for b0 in range(0, w, 256)], 1)
+        parent = reach_of(hi.repeat_interleave(256, 1)[:, :w], tg).clamp(min=0)
+        out["parent_warp_steps"] += 32 * int(per_warp(2 * parent + 1, 0, torch.amax).sum())
+    return out
+
+
 def fused_bounds(g, band, tau, t, npix):
     """The four kernels' bounds on these inputs: bytes (each input read once,
     each output written once: 12, 20, 28, 24 per pixel) and float
@@ -1094,6 +1198,37 @@ def f1_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool
             line += (f"; taps a pixel and field: live {per['live']:.3f}, loop {per['loop']:.3f}, "
                      f"block-bound loop {per['block_loop']:.3f}")
         log(line)
+
+
+def b1_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool = True) -> None:
+    """soft_b1 on each input (CUDA events; S1 from F1, dS1 from B2 under a
+    summed loss's cotangent), a digest of its output (turns on two trees
+    compare it), and, with ``count``, its taps a pixel and field
+    (b1_loop_taps: live, the loop, its warp steps and those of the design
+    before it)."""
+    scale = soft_fused._scalars(tau, t)[0]
+    for name, g in inputs.items():
+        s1 = soft_fused.f1_pass(g, band, tau, t)
+        _, d2 = soft_fused.f2_pass(s1, band, t, EPS)
+        ds1 = soft_fused.b2_pass(torch.ones_like(g), d2, s1, band, t, EPS)
+        del d2
+        ms = cuda_ms(lambda: soft_fused.b1_pass(g, s1, ds1, band, tau, t))
+        line = f"time adaptive {name} soft_b1: {ms:.4f} ms; digest {digest(soft_fused.b1_pass(g, s1, ds1, band, tau, t))}"
+        if count:
+            hts = soft_fused._heights(soft_fused._logits(g, scale), t)
+            per = {k: v / (2 * g.numel()) for k, v in b1_loop_taps(s1, hts, band, t).items()}
+            line += (f"; taps a pixel and field: live {per['live']:.3f}, loop {per['loop']:.3f}, warp steps "
+                     f"{per['warp_steps']:.3f}, parent's warp steps {per['parent_warp_steps']:.3f}")
+        log(line)
+        del s1, ds1
+
+
+def digest(x: torch.Tensor) -> str:
+    """The first 16 hex digits of the SHA-1 of a tensor's bytes: two trees'
+    outputs on the same inputs are bit for bit equal when these are."""
+    import hashlib
+
+    return hashlib.sha1(x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def fused_phases(dev, glyph):
@@ -1271,6 +1406,7 @@ def fused_phases(dev, glyph):
     log(f"time adaptive SoftSDFModel step {tuple(img.shape)}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
     b2_times_and_taps(big, band, tau, t)
     f1_times_and_taps(big, band, tau, t)
+    b1_times_and_taps(big, band, tau, t)
 
     npix = SIZE * SIZE
     bounds = fused_bounds(big["pm2000"], band, tau, t, npix)
@@ -2024,10 +2160,12 @@ def composed_turn(dev, glyph) -> None:
 
 
 def kernel_turn(dev, noise, glyph) -> None:
-    """Rows 8, 10, 15 and 16 and what they serve, alone, on any tree that has
-    these kernels (this one or its parent, for turns in one call): soft_b2
-    and soft_f1 on the bench's noise, pm2000 and the glyph in +-2040, the
-    forced and gated adaptive steps and SoftSDFModel's step;
+    """Rows 7, 8, 10, 11, 15 and 16 and what they serve, alone, on any tree
+    that has these kernels (this one or its parent, for turns in one call):
+    soft_b2, soft_f1 and soft_b1 on the bench's noise, pm2000 and the glyph
+    in +-2040, soft_mm_bwd on the bench's noise at tap radii 10 and 16 (with
+    digests of soft_b1's and soft_mm_bwd's outputs), the declared training
+    step, the forced and gated adaptive steps and SoftSDFModel's step;
     brute_scan_bytes_halo on each shard of the glyph and the noise over 4
     shards and at row_off 0 on the whole image beside brute_scan_bytes, and
     sharded BRUTE over (4,)."""
@@ -2040,6 +2178,8 @@ def kernel_turn(dev, noise, glyph) -> None:
     }
     b2_times_and_taps(inputs, band, tau, t, count=False)
     f1_times_and_taps(inputs, band, tau, t, count=False)
+    b1_times_and_taps(inputs, band, tau, t, count=False)
+    mm_bwd_times(inputs["noise"])
 
     def step_with(field_fn):
         def step(g):
@@ -2052,6 +2192,8 @@ def kernel_turn(dev, noise, glyph) -> None:
 
     gated_step = step_with(lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=tau, temperature=t))
     forced_step = step_with(lambda x: soft_fused.soft_sdf_field_fused(x, band, tau, t, EPS))
+    declared_step = step_with(lambda x: softsdf.soft_sdf_field(x, SPREAD, tau=tau, temperature=t, gray_range=U8))
+    log(f"time soft training_step (declared, noise): {cuda_ms(lambda: declared_step(inputs['noise'])):.4f} ms")
     for name in ("pm2000", "noise"):
         log(f"time adaptive {name} forced_step: {cuda_ms(lambda: forced_step(inputs[name])):.4f} ms")
         log(f"time adaptive {name} gated_step: {cuda_ms(lambda: gated_step(inputs[name])):.4f} ms")

@@ -311,6 +311,63 @@ def test_soft_mm_bwd_matches_autograd_of_plain(dev, shape, tau, temperature, tes
     assert float((got - want).abs().max()) < 1e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("k1,k2", [(0, 0), (1, 16), (10, 10), (16, 1), (16, 16), (3, 10)])
+@pytest.mark.parametrize("shape", [(1, 17), (17, 1), (70, 1000), (3, 45, 130), (300, 129)])
+def test_soft_mm_bwd_taps_and_tiles(dev, k1, k2, shape):
+    """soft_mm_bwd (128-column tiles walking strips of 16-row chunks) with
+    tap radii 0-16, k1 != k2, widths and heights that are not multiples of
+    a tile and a batch: within 1e-4 of the scale of autograd through the
+    plain forward and of mm_fused_bwd_plain."""
+    g, ct, (_, _, c) = _soft_case(dev, shape, 2.0, 1.0, seed=k1 + 17 * k2)
+    _, d2i, d2o = cuda_soft_mm.mm_fused_fwd_plain(g, c, k1, k2, 2.0, 1.0, 1e-6)
+    before = cuda_soft_mm.LAUNCHES["soft_mm_bwd"]
+    got = cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g, c, k1, k2, 2.0, 1.0, 1e-6)
+    assert cuda_soft_mm.LAUNCHES["soft_mm_bwd"] == before + 1
+    x = g.clone().requires_grad_()
+    pf = cuda_soft_mm.mm_fused_fwd_plain(x, c, k1, k2, 2.0, 1.0, 1e-6, memos=False)
+    want, = torch.autograd.grad(pf, x, ct)
+    plain = cuda_soft_mm.mm_fused_bwd_plain(ct, d2i, d2o, g, c, k1, k2, 2.0, 1.0, 1e-6)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) < 1e-4 * float(want.abs().max())
+    assert float((got - plain).abs().max()) < 1e-4 * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("k1,k2", [(10, 10), (16, 3), (0, 16)])
+@pytest.mark.parametrize("shard", [0, 1, 3])
+@pytest.mark.parametrize("two_d", [False, True])
+def test_soft_mm_bwd_halo_frames_and_windows(dev, k1, k2, shard, two_d):
+    """soft_mm_bwd on the frames and windows the sharded tier passes: shard
+    i of 4 along y (its cotangent and memos with k2 halo rows, row_off k2,
+    every row live) and, on a 2-D mesh, a tile with k1 halo columns, the
+    live columns those inside the image (edge tiles); within 1e-4 of the
+    scale of mm_fused_bwd_plain on the same frame, zero outside the live
+    columns."""
+    rng = np.random.default_rng(31 + shard)
+    h, w = 75, 200
+    _, _, c = soft_mxu.range_stats(66, 2.0, 1.0, (0.0, 255.0))
+    wf = w + 2 * k1 if two_d else w
+    cols = ((k1, wf) if shard == 0 else (0, w + k1) if shard == 3 else (0, wf)) if two_d else (0, w)
+    ct = torch.from_numpy(rng.standard_normal((2, h + 2 * k2, wf)).astype(np.float32)).to(dev)
+    gray = torch.from_numpy((rng.random((2, h, wf)) * 255).astype(np.float32)).to(dev)
+    gfr = torch.from_numpy((rng.random((2, h + 2 * k2, wf)) * 255).astype(np.float32)).to(dev)
+    _, d2i, d2o = cuda_soft_mm.mm_fused_fwd_plain(gfr, c, k1, k2, 2.0, 1.0, 1e-6)
+    if shard == 0:  # the top edge: halo rows beyond the image, zero cotangent and dead memos
+        ct[:, :k2] = 0.0
+        d2i[:, :k2] = d2o[:, :k2] = soft_mxu.PAD_D2
+    if shard == 3:
+        ct[:, h + k2:] = 0.0
+        d2i[:, h + k2:] = d2o[:, h + k2:] = soft_mxu.PAD_D2
+    win = (0, h + 2 * k2) + cols
+    got = cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, gray, c, k1, k2, 2.0, 1.0, 1e-6, row_off=k2, window=win)
+    want = cuda_soft_mm.mm_fused_bwd_plain(ct, d2i, d2o, gray, c, k1, k2, 2.0, 1.0, 1e-6, row_off=k2,
+                                           window=win)
+    torch.cuda.synchronize()
+    assert got.shape == (2, h, wf)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert not bool(got[..., : cols[0]].any()) and not bool(got[..., cols[1]:].any())
+
+
 def test_soft_training_step_runs_both_kernels(dev):
     rng = np.random.default_rng(4)
     g = torch.from_numpy((rng.random((300, 200)) * 255).astype(np.float32)).to(dev).requires_grad_()
@@ -451,6 +508,32 @@ def test_soft_f1_row_tiles_and_strokes(dev, kind, shape, band, tau, temperature,
     got = soft_fused.f1_pass(g, *args, window=win)
     torch.cuda.synchronize()
     assert torch.equal(got, soft_fused.f1_plain(g, *args, window=win))
+
+
+@pytest.mark.parametrize("kind", ["strokes", "pm2000", "u8"])
+@pytest.mark.parametrize("shape,band,tau,temperature,test_above", [
+    ((300, 520), 66, 2.0, 1.0, True), ((200, 640), 112, 1.0, 0.5, False), ((150, 333), 0, 1.0, 0.5, True),
+    ((2, 90, 700), 66, 2.0, 1.0, False), ((6, 5000), 112, 2.0, 1.0, True), ((40, 4097), 66, 1.0, 0.5, True),
+    ((1, 17), 66, 2.0, 1.0, False), ((17, 1), 112, 1.0, 0.5, True), ((64, 300), 5, 2.0, 1.0, True)])
+def test_soft_b1_row_tiles_and_strokes(dev, kind, shape, band, tau, temperature, test_above):
+    """soft_b1 bit for bit its plain version where warps take both paths
+    (strokes in +-2040: long reaches on the strokes; noise: short ones),
+    rows of several 4096-pixel tiles, a batch, bands 0-112, one row or
+    column, and a live-row window."""
+    if kind == "strokes":
+        g = torch.from_numpy(_stroke_gray(shape, band + 1)).to(dev)
+    else:
+        g, _ = _fused_case(dev, shape, kind, band + 2)
+    args = (band, tau, temperature, test_above)
+    s1 = soft_fused.f1_plain(g, *args)
+    ds1 = torch.from_numpy(np.random.default_rng(band).standard_normal(tuple(s1.shape)).astype(np.float32)).to(dev)
+    got = _counted("soft_b1", lambda: soft_fused.b1_pass(g, s1, ds1, *args))
+    torch.cuda.synchronize()
+    assert torch.equal(got, soft_fused.b1_plain(g, s1, ds1, *args))
+    win = (shape[-2] // 5, shape[-2] - shape[-2] // 4)
+    got = soft_fused.b1_pass(g, s1, ds1, *args, window=win)
+    torch.cuda.synchronize()
+    assert torch.equal(got, soft_fused.b1_plain(g, s1, ds1, *args, window=win))
 
 
 @pytest.mark.parametrize("shape", FUSED_SHAPES)

@@ -76,9 +76,10 @@
 // serialised by the diagonal rule's dependent loads, or too many of them
 // when issued together (PERF.md).
 // Where the largest window (min(hs, 128 + 2 spread + 30) rows of 256
-// elements, up to 181 KB for uint8 at spread 253) exceeds a block's 227 KB,
-// as uint16 frames of more than ~440 rows do, the launcher takes the
-// per-pixel walk.
+// elements, up to 181 KB for uint8 at spread 253) exceeds a block's dynamic
+// shared memory (the opt-in 227 KB less the kernel's static part, 232384 B
+// on the H100), as uint16 frames of 440 rows or more do, the launcher takes
+// the per-pixel walk.
 
 // Exact numbers: the float tail is explicit _rn intrinsics in the plain
 // version's order (ops/brute.py, ops/merge.py). Build without
@@ -279,7 +280,6 @@ constexpr int kHaloRows = 128;   // output rows per block
 constexpr int kPerLane = kHaloRows / kHaloWarps;  // output rows per lane: y0 + warp + 16 i
 constexpr int kHaloSeg = 16;     // window rows per segment minimum
 constexpr int kRowElems = 8 * kHaloLanes;  // a window row: the eight planes' 32 columns
-constexpr int kMaxSmem = 232448; // a block's shared memory on sm_90
 constexpr int kCap = 8;          // brute_scan_staged: rows each way of a dense block's capped walk
 static_assert(kPerLane <= 32, "a lane's pixels fit one word of bits");
 
@@ -545,16 +545,14 @@ int scan(const uint8_t* codes, const T* strips, uint8_t* out, int n, int h, int 
          int spread, float s_min, float s_max, int invert, cudaStream_t s) {
   const int rows = kHaloRows + 2 * spread + 2 * (kHaloSeg - 1);  // a window's most rows
   const size_t smem = staged_smem<T>(hs < rows ? hs : rows);
-  if (smem <= (size_t)kMaxSmem) {
+  static size_t limit_cache[64] = {};  // per device: the dynamic shared memory a block may take
+  size_t limit = 0;
+  int e = dyn_smem_limit(brute_scan_staged<T>, limit_cache, &limit);
+  if (e != 0) return e;
+  if (smem <= limit) {
     static size_t allowed[64] = {};  // per device: the dynamic shared memory the kernel may take
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (smem > 48 * 1024 && (dev >= 64 || smem > allowed[dev])) {
-      const cudaError_t e = cudaFuncSetAttribute(brute_scan_staged<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      if (dev < 64) allowed[dev] = smem;
-    }
+    e = allow_smem(brute_scan_staged<T>, smem, allowed);
+    if (e != 0) return e;
     const int vec = (w * (int)sizeof(T)) % 16 == 0 && (size_t)strips % 16 == 0;
     const dim3 grid((unsigned)((w + kHaloLanes - 1) / kHaloLanes),
                     (unsigned)((h + kHaloRows - 1) / kHaloRows), (unsigned)n);

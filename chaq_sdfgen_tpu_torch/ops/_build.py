@@ -113,9 +113,13 @@ def load() -> ctypes.CDLL:
         lib.chaq_refined_sqrt_f32.argtypes = [vp, vp, ctypes.c_longlong, vp]
         lib.chaq_refined_sqrt_f32.restype = i32
         f32 = ctypes.c_float
-        # (d, out, n, h, w, sat, stream)
-        lib.chaq_edt_dist.argtypes = [vp, vp, i32, i32, i32, i32, vp]
-        lib.chaq_edt_dist.restype = i32
+        # (h, band, elem_bytes, &staged): the path chaq_edt_band_bytes takes
+        lib.chaq_edt_band_staged.argtypes = [i32, i32, i32, ctypes.POINTER(i32)]
+        lib.chaq_edt_band_staged.restype = i32
+        # (d, table, left, out, n, h, w, sat, stream)
+        for entry in ("chaq_edt_dist_core", "chaq_edt_dist"):
+            getattr(lib, entry).argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+            getattr(lib, entry).restype = i32
         # (codes, out, n, h, w, sent, elem_bytes, stream)
         lib.chaq_brute_rows.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
         lib.chaq_brute_rows.restype = i32

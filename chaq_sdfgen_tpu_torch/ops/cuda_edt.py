@@ -8,7 +8,9 @@
                      byte remap in one kernel (kernel ``edt_band_bytes``);
   fused_sdf_bytes    both passes: (..., H, W) bool -> (..., H, W) uint8;
   exact_dist         the full-range column min-plus and sqrt of one
-                     uint16 pass-1 strip (kernel ``edt_dist``);
+                     uint16 pass-1 strip: dist_core (kernel
+                     ``edt_dist_core``: dense tiles, 16-row segment minima),
+                     then dist_walk (kernel ``edt_dist``: the tiles left);
   exact_distance_field(s)  pass 1 at the saturation tier, then exact_dist:
                      (..., H, W) bool -> float32 distance field(s).
 
@@ -32,6 +34,7 @@ through the kernels; the uint16 instances of the two passes (the TPU's
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -39,9 +42,13 @@ import torch
 from chaq_sdfgen_tpu_torch.ops import _build, edt, jfa, merge, threshold
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, walk_done
 
-LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0, "edt_dist": 0, "edt_rows_u16": 0, "edt_band_bytes_u16": 0}
+LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0, "edt_dist": 0, "edt_dist_core": 0, "edt_rows_u16": 0,
+            "edt_band_bytes_u16": 0}
 
 MAX_BAND = (1 << 30) - 1  # band + 1 stays below the kernels' "no seed" index 2^30
+SEG = 16  # rows per segment minimum of exact_dist's table (csrc/edt.cu)
+TILE = (128, 32)  # exact_dist's tiles: rows, columns
+CAP = 8  # rows each way of a dense tile's capped walk
 
 
 def strip_dtype(band: int) -> torch.dtype:
@@ -104,6 +111,21 @@ def _out_rows(din: torch.Tensor, row_off: int, out_rows) -> int:
     if row_off < 0 or out_rows < 0 or row_off + out_rows > h:
         raise ValueError(f"rows [{row_off}, {row_off} + {out_rows}) outside a strip of {h} rows")
     return out_rows
+
+
+def pass2_staged(h: int, band: int, itemsize: int, device=None) -> bool:
+    """Whether pass 2 (kernel edt_band_bytes) on strips of ``h`` rows and
+    ``itemsize`` bytes a value takes the staged walk on ``device`` (the
+    current CUDA device by default), as its launcher decides: where a
+    block's largest window fits its shared memory; else the per-pixel walk.
+    Asks the launcher's own rule (chaq_edt_band_staged)."""
+    lib = _build.load()
+    staged = ctypes.c_int(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.chaq_edt_band_staged(h, band, itemsize, ctypes.byref(staged))
+    if rc != 0:
+        raise RuntimeError(f"chaq_edt_band_staged: cudaError {rc}")
+    return bool(staged.value)
 
 
 def fused_pass2_bytes_plain(
@@ -233,24 +255,119 @@ def exact_dist_plain(d: torch.Tensor, sat: int) -> torch.Tensor:
     return torch.where(acc >= sat * sat, torch.full_like(dist, NO_SEED), dist)
 
 
-def exact_dist(d: torch.Tensor, sat: int) -> torch.Tensor:
-    """Pass 2 of the exact distance field: uint16 row distances clipped at
-    ``sat`` -> float32 distances (see exact_dist_plain). Kernel ``edt_dist``
-    on CUDA, the plain version on the CPU."""
+def dist_table_plain(d: torch.Tensor, sat: int) -> torch.Tensor:
+    """The table kernel ``edt_dist_core`` writes, on any device: (..., H, W)
+    row distances -> (..., ceil(H/16), W) uint16, the least min(d, sat) of
+    each 16-row segment of each column."""
+    h = d.shape[-2]
+    nseg = -(-h // SEG)
+    g = torch.clamp(d.to(torch.int32), max=sat)
+    pad = torch.full(g.shape[:-2] + (nseg * SEG - h, g.shape[-1]), sat, dtype=torch.int32, device=d.device)
+    g = torch.cat([g, pad], dim=-2)
+    return g.view(g.shape[:-2] + (nseg, SEG, g.shape[-1])).amin(-2).to(torch.uint16)
+
+
+def _tiles(x: torch.Tensor, op: str) -> torch.Tensor:
+    """(n, H, W) -> (n, ceil(H/128), ceil(W/32)): the sum ("sum") or the any
+    ("any") of x over each of exact_dist's tiles."""
+    n, h, w = x.shape
+    th, tw = TILE
+    x = torch.nn.functional.pad(x.to(torch.int32), (0, -w % tw, 0, -h % th))
+    x = x.view(n, -(-h // th), th, -(-w // tw), tw).sum((2, 4))
+    return x if op == "sum" else x > 0
+
+
+def dist_left_plain(d: torch.Tensor, sat: int) -> torch.Tensor:
+    """The flags kernel ``edt_dist_core`` writes, on any device: (..., H, W)
+    row distances -> (..., ceil(H/128), ceil(W/32)) uint8, what each tile
+    leaves to kernel ``edt_dist``: 0 nothing, 1 every pixel (a sparse tile:
+    fewer than 7/8 of its pixels' own min(d, sat) at most CAP), 2 some (a
+    dense tile with a pixel whose least dy^2 + g over |dy| <= CAP exceeds
+    (CAP + 1)^2 and whose column goes on past CAP rows)."""
+    lead, (h, w) = d.shape[:-2], d.shape[-2:]
+    g = torch.clamp(d.reshape(-1, h, w).to(torch.int32), max=sat)
+    g = g * g
+    npix = _tiles(torch.ones_like(g), "sum")
+    dense = 8 * _tiles(g <= CAP * CAP, "sum") >= 7 * npix
+    best = g.clone()
+    for a in range(1, min(CAP, h - 1) + 1):
+        torch.minimum(best[:, :-a], g[:, a:] + a * a, out=best[:, :-a])
+        torch.minimum(best[:, a:], g[:, :-a] + a * a, out=best[:, a:])
+    y = torch.arange(h, device=d.device).view(1, h, 1)
+    done = (torch.maximum(y, h - 1 - y) <= CAP) | (best <= (CAP + 1) * (CAP + 1))
+    left = torch.where(dense, 2 * _tiles(~done, "any").to(torch.int32), 1)
+    return left.to(torch.uint8).reshape(lead + left.shape[-2:])
+
+
+def dist_core_plain(d: torch.Tensor, sat: int):
+    """Plain version of kernel ``edt_dist_core`` on any device: (out,
+    table, left) as dist_core returns them, with every pixel of out set."""
+    return exact_dist_plain(d, sat), dist_table_plain(d, sat), dist_left_plain(d, sat)
+
+
+def _check_dist(name: str, d: torch.Tensor) -> None:
+    _build.check_cuda(name, d)
+    if d.dtype != torch.uint16:
+        raise TypeError(f"{name}: the strip must be uint16, got {d.dtype}")
+
+
+def dist_core(d: torch.Tensor, sat: int):
+    """The first of exact_dist's two launches: uint16 row distances (...,
+    H, W) clipped at ``sat`` -> (out, table, left). out (..., H, W) float32
+    holds exact_dist's values on the tiles of 128 rows x 32 columns that
+    ``left`` (..., ceil(H/128), ceil(W/32)) uint8 marks 0 (dense tiles done
+    within CAP rows; elsewhere out is not yet written; see dist_left_plain);
+    table is dist_table_plain's. Kernel ``edt_dist_core`` on CUDA, the plain
+    version on the CPU."""
+    if d.device.type == "cpu":
+        return dist_core_plain(d, sat)
+    if d.device.type != "cuda":
+        raise ValueError(f"dist_core: unsupported device {d.device}")
+    _check_dist("dist_core", d)
+    n, h, w = _build.flat_shape(d)
+    out = torch.empty(d.shape, dtype=torch.float32, device=d.device)
+    table = torch.empty(d.shape[:-2] + (-(-h // SEG), w), dtype=torch.uint16, device=d.device)
+    left = torch.empty(d.shape[:-2] + (-(-h // TILE[0]), -(-w // TILE[1])), dtype=torch.uint8, device=d.device)
+    if d.numel() == 0:
+        return out, table, left
+    _build.launch("chaq_edt_dist_core", d.device, d.data_ptr(), table.data_ptr(), left.data_ptr(), out.data_ptr(),
+                  n, h, w, sat)
+    LAUNCHES["edt_dist_core"] += 1
+    return out, table, left
+
+
+def dist_walk(d: torch.Tensor, sat: int, out: torch.Tensor, table: torch.Tensor, left: torch.Tensor) -> torch.Tensor:
+    """The second launch: writes exact_dist's values into ``out`` on the
+    tiles dist_core left, from its table, and returns out. Kernel
+    ``edt_dist`` on CUDA; on the CPU the plain version, exact_dist_plain."""
     if d.device.type == "cpu":
         return exact_dist_plain(d, sat)
     if d.device.type != "cuda":
-        raise ValueError(f"exact_dist: unsupported device {d.device}")
-    _build.check_cuda("exact_dist", d)
-    if d.dtype != torch.uint16:
-        raise TypeError(f"exact_dist: the strip must be uint16, got {d.dtype}")
-    out = torch.empty(d.shape, dtype=torch.float32, device=d.device)
+        raise ValueError(f"dist_walk: unsupported device {d.device}")
+    _check_dist("dist_walk", d)
+    _build.check_cuda("dist_walk", d, out, table, left)
     n, h, w = _build.flat_shape(d)
+    if (out.shape != d.shape or out.dtype != torch.float32 or table.dtype != torch.uint16
+            or table.shape != d.shape[:-2] + (-(-h // SEG), w) or left.dtype != torch.uint8
+            or left.shape != d.shape[:-2] + (-(-h // TILE[0]), -(-w // TILE[1]))):
+        raise ValueError("dist_walk: out, table and left must be dist_core's")
     if d.numel() == 0:
         return out
-    _build.launch("chaq_edt_dist", d.device, d.data_ptr(), out.data_ptr(), n, h, w, sat)
+    _build.launch("chaq_edt_dist", d.device, d.data_ptr(), table.data_ptr(), left.data_ptr(), out.data_ptr(),
+                  n, h, w, sat)
     LAUNCHES["edt_dist"] += 1
     return out
+
+
+def exact_dist(d: torch.Tensor, sat: int) -> torch.Tensor:
+    """Pass 2 of the exact distance field: uint16 row distances clipped at
+    ``sat`` -> float32 distances (see exact_dist_plain). On CUDA two
+    launches: dist_core (the dense tiles, the segment table), then
+    dist_walk (the tiles left, whose walk skips the segments the table rules
+    out); the plain version on the CPU."""
+    if d.device.type == "cpu":
+        return exact_dist_plain(d, sat)
+    return dist_walk(d, sat, *dist_core(d, sat))
 
 
 def _exact_fields(b: torch.Tensor, row_pass, dist):

@@ -8,10 +8,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
      native PNG codec (native/sdfio) with make;
   3. each hard kernel against its plain PyTorch version on the card, byte
      for byte (tolerance 0), at 4096x4096 on dense noise and on a sparse
-     glyph-like image for spreads 1/64/300/1024, on odd shapes, uniform
-     masks and a batch of 3;
+     glyph-like image for spreads 1/64/300/1024 (pass 2's staged walk in
+     uint8 and uint16, and at 1024 its per-pixel walk), on odd shapes,
+     uniform masks, a batch of 3 and a 300-row int32 strip (staged);
   4. the pass-2 sqrt tail against numerics.refined_sqrt on all 2^24
-     integer radicands;
+     integer radicands, and the IEEE sqrt (edt_dist's below 2^24 - 1) too;
   5. the hard main path: the CLI (python -m chaq_sdfgen_tpu_torch -i in.png
      -o out.png -s 64) on a 4096x4096 gray+alpha PNG made from a seed,
      checked against the plain pipeline on the card; SDFGenerator at 256x256
@@ -21,7 +22,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   6. hard times with CUDA events (per call over 10 back-to-back calls, the
      median of 5 such windows, after a warm-up): each pass and
      the whole pipeline, kernels against plain versions, at 4096x4096
-     spread 64 on both inputs;
+     spread 64 on both inputs; the path pass 2 takes on each input and at
+     spread 300 on the glyph, the rows a pixel reads and the segments it
+     tests (band_walk_counts, whose minima must be the per-pixel walk's);
   7. where the hard main path's device time goes: torch.profiler over 10
      runs on the glyph input, device time per kernel and the device's busy
      share of the window (profiler on);
@@ -85,14 +88,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
  15. where the adaptive steps' device time goes: torch.profiler over the
      forced adaptive step and the gated out-of-gamut step;
  16. the BRUTE kernels (csrc/brute.cu: brute_rows, brute_scan_bytes) and the
-     exact-distance kernel (edt_dist) against their plain versions on the
+     exact-distance kernels (edt_dist_core: its values on the tiles it
+     finishes, its segment table and tile flags; edt_dist) against their plain versions on the
      card, tolerance 0 (bytes; float32 bits): 4096x4096 noise and glyph at
      spreads 1 and 64 (the scan's dense blocks walk |dy| <= 8 first, its
      sparse ones stage at once: both inputs take both), spreads 254 and 300
      (uint16 strips) at 1024x1024 (at 300 past the staged window: the
      per-pixel walk) and 300x1100 (uint16, staged), odd shapes, uniform and
      0/255 masks and a batch of 3; for edt_dist
-     also one far seed at 2048x2048 (the O(H) walk) and the 4104x128
+     also one far seed at 2048x2048 (walks past the block's window) and the 4104x128
      two-seed image (saturation tier 16383) against NumPy brute force;
  17. the BRUTE and JFA paths through their entry points: the CLI with
      --algorithm brute and --algorithm jfa at 4096x4096 spread 64 on the
@@ -106,7 +110,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
  18. BRUTE, JFA and exact-distance times (CUDA events, as in phase 6) at
      4096x4096 spread 64 on both inputs: each kernel against its plain
      version and the three pipelines; edt_dist on both strips of the
-     signed field (its two launches); the halo scan
+     signed field (each exact_dist two launches), edt_dist_core (the first)
+     and edt_dist (the second, from the first's table and flags) alone, and
+     on each strip the tiles' paths, the
+     rows a pixel reads (from device memory too) and the segments it
+     tests (dist_walk_counts, whose minima must be edt_dist's); the halo scan
      (brute_scan_bytes_halo, the same kernel) at row_off 0 on the whole
      image beside brute_scan_bytes, byte for byte equal to it, with the rows
      a pixel reads against the per-pixel walk's and the blocks that staged
@@ -212,8 +220,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      scale, the parameters after 3 steps within 1e-5), and the CLI
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
      glyph PNG byte for byte the unsharded SDFGenerator.
-`python3 chip_smoke.py --kernel-turn` times rows 7, 8, 10, 11, 15 and 16 and
-what they serve alone (kernel_turn), on this tree or (copied in) its parent.
+`python3 chip_smoke.py --kernel-turn` times rows 2, 4, 5, 7, 8, 10, 11, 15
+and 16 and what they serve alone (kernel_turn: edt_turn first), on this
+tree or (copied in) its parent.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -331,6 +340,11 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:1092",
+    },
+    "edt_dist_core": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/edt.cu",
+        "replaces": "chaq_sdfgen_tpu/ops/pallas_edt.py:1106",
     },
     "softmin_col_fwd": {
         "route": "cuda",
@@ -573,6 +587,8 @@ def hard_phases(dev, noise, glyph):
     for fill in (False, True):
         for spread in (64, 1024):
             check(f"uniform-{fill}", torch.full((512, 384), fill, device=dev), spread)
+    # int32 strips short enough for the staged walk (phase 24 holds a 1024-row one, past it)
+    check("glyph 300 rows int32", inputs["glyph"][:300, :1100].contiguous(), 65600)
     codes = torch.from_numpy(rng.integers(0, 3, size=(139, 131), dtype=np.uint8)).to(dev)
     e = max(max_abs_err(a, p) for a, p in zip(cuda_edt.row_distances_u8(codes, 66),
                                               cuda_edt.row_distances_u8_plain(codes, 66)))
@@ -584,6 +600,13 @@ def hard_phases(dev, noise, glyph):
     bad = int((cuda_edt.refined_sqrt_cuda(n).view(torch.int32) != refined_sqrt(n).view(torch.int32)).sum())
     log(f"check refined_sqrt tail over 2^24 integers: {bad} mismatches")
     require(bad == 0, "the kernel's sqrt tail differs from numerics.refined_sqrt")
+    # edt_dist takes the IEEE sqrt below 2^24 - 1 (csrc/edt.cu dist_tail): the
+    # same root there (at 2^24 - 1 the refined root rounds up)
+    m = n[:-1]
+    bad = int((torch.sqrt(m).view(torch.int32) != refined_sqrt(m).view(torch.int32)).sum())
+    log(f"check IEEE sqrt against refined_sqrt over the integers below 2^24 - 1: {bad} mismatches")
+    require(bad == 0, "the IEEE sqrt differs from numerics.refined_sqrt below 2^24 - 1")
+    del m
     del n
 
     # phase 5: the main path
@@ -646,6 +669,7 @@ def hard_phases(dev, noise, glyph):
         times[name] = t
         for k, ms in t.items():
             log(f"time {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+        log_band_walk(f"{name} spread {SPREAD}", din, dout, band)
 
     # bounds on the main path's (glyph) input
     npix = SIZE * SIZE
@@ -670,6 +694,7 @@ def hard_phases(dev, noise, glyph):
     }
     for k, ms in t16.items():
         log(f"time glyph spread 300 {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+    log_band_walk("glyph spread 300", din, dout, band16)
     times["glyph"].update(t16)
     bounds.update(b16)
     for k, (ms, by) in bounds.items():
@@ -679,6 +704,15 @@ def hard_phases(dev, noise, glyph):
     img = torch.from_numpy(glyph).to(dev)
     profile_device("hard", lambda: gen.generate(img))
     return err, launches, times["glyph"], bounds
+
+
+def log_band_walk(label: str, din: torch.Tensor, dout: torch.Tensor, band: int) -> None:
+    """The path pass 2 takes on these strips and what it reads
+    (band_walk_counts)."""
+    r = band_walk_counts(din, dout, band)
+    path = f"staged, blocks {r['blocks']}" if r["staged"] else "the per-pixel walk (past shared memory)"
+    log(f"walk of edt_band_bytes {label}: {path}; rows read a pixel (both fields) {r['rows']:.3f}, segment "
+        f"tests {r['tests']:.3f}; the per-pixel walk {r['pixel_rows']:.3f} rows")
 
 
 def run_cli(img2ch: np.ndarray, flags: list, label: str, soft_field: bool = False):
@@ -1527,6 +1561,195 @@ def scan_walk_taps(b: torch.Tensor, frame: torch.Tensor, spread: int, row_off: i
     return int(taps.sum()), int(staged.sum()), staged.numel()
 
 
+def _blocks(mask: torch.Tensor, op: str = "sum") -> torch.Tensor:
+    """(n, blocks down, blocks across) sums (or "any") of an (n, rows, w)
+    mask over blocks of 128 rows x 32 columns."""
+    n, h, w = mask.shape
+    bh, bw = -(-h // 128), -(-w // 32)
+    padded = torch.nn.functional.pad(mask.to(torch.int32), (0, bw * 32 - w, 0, bh * 128 - h))
+    out = padded.view(n, bh, 128, bw, 32).sum((2, 4))
+    return out > 0 if op == "any" else out
+
+
+def _spread_blocks(blocks: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    return blocks.repeat_interleave(128, 1).repeat_interleave(32, 2)[:, :h, :w]
+
+
+def _segment_walk(gather, seg_bound, c, best, start, walk, lo, hi, counts, staged=None):
+    """The segment walk of csrc/edt.cu (band_walk, dist_walk) over all
+    pixels in ``walk``: rows [lo, c - start] above and [c + start, hi] below,
+    nearest first, by 16-row segments; a segment is tested (seg_bound(s, a0)
+    < best) unless a0's square alone ends its side, its rows read in chunks
+    of 4 while a chunk's first a^2 < best. gather(r, a): the taps at rows r;
+    the square of an |a| comes from best's dtype. counts: [rows, tests, rows
+    from device memory], each per pixel; staged(s): whether segment s lies
+    in the block's window. Returns the minima."""
+    sq = (lambda a: a.float() * a.float()) if best.dtype == torch.float32 else (lambda a: a * a)
+    ub, db = c - start, c + start
+    up, dn = walk & (ub >= lo), walk & (db <= hi)
+    su, sd = ub.clamp(min=0) // 16, db // 16
+    while bool((up | dn).any()):
+        for side in ("up", "dn"):
+            on, s = (up, su) if side == "up" else (dn, sd)
+            if side == "up":
+                top, bot = torch.maximum(s * 16, lo), torch.minimum(s * 16 + 15, ub)
+                a0 = c - bot
+            else:
+                top, bot = torch.maximum(s * 16, db), torch.minimum(s * 16 + 15, hi)
+                a0 = top - c
+            on = on & (sq(a0) < best)
+            counts[1] += on
+            live = on & (seg_bound(s, a0) < best)
+            far = ~staged(s) if staged is not None else None
+            for k in range(0, 16, 4):  # chunks of 4 rows, as kChunk
+                if not bool(live.any()):
+                    break
+                first = bot - k if side == "up" else top + k
+                chunk = live & ((first >= top) if side == "up" else (first <= bot))
+                brk = chunk & (sq((c - first).abs()) >= best)
+                on, live, chunk = on & ~brk, live & ~brk, chunk & ~brk
+                m = best
+                for j in range(4):
+                    r = first - j if side == "up" else first + j
+                    act = chunk & ((r >= top) if side == "up" else (r <= bot))
+                    m = torch.where(act, torch.minimum(m, gather(r, (c - r).abs())), m)
+                    counts[0] += act
+                    if far is not None:
+                        counts[2] += act & far
+                best = m
+            if side == "up":
+                up, su = on & (s * 16 > lo), su - 1
+            else:
+                dn, sd = on & (s * 16 + 15 < hi), sd + 1
+    return best
+
+
+def _dense_capped(g, best, dense, c, lim, cap, h, counts):
+    """The capped walk of a dense block's pixels (|dy| = 1 .. cap while a^2 <
+    best and |dy| <= lim, rows within [0, h)): (minima, done), done where
+    no row past cap can lower the minimum. g(r): the taps' g at rows r."""
+    sq = (lambda a: float(a) * float(a)) if best.dtype == torch.float32 else (lambda a: a * a)
+    running = dense.clone()
+    for a in range(1, cap + 1):
+        running &= (a <= lim) & (sq(a) < best)
+        for r in (c - a, c + a):
+            step = running & (r >= 0) & (r < h)
+            best = torch.where(step, torch.minimum(best, g(r) + sq(a)), best)
+            counts[0] += step
+    return best, dense & ((lim <= cap) | (sq(cap + 1) >= best))
+
+
+def band_walk_counts(din: torch.Tensor, dout: torch.Tensor, band: int, row_off: int = 0, out_rows=None,
+                     cap: int = 8) -> dict:
+    """What edt_band_bytes (csrc/edt.cu) does on strips (h, W) or (n, h,
+    W): the path its launcher takes (cuda_edt.pass2_staged), the blocks of
+    32 columns x 128 rows on each of the staged kernel's paths (dense and
+    done within cap, dense and staged for pixels left, staged at once), the
+    rows a pixel reads over both fields (its own too) and the segments it
+    tests; and the rows of the per-pixel walk (the
+    parent's design) on the same strips. The minima of both walks must be
+    equal (require). The torch form of tests/test_torch_edt_bounds.py's
+    band_mirror."""
+    din, dout = din.reshape((-1,) + din.shape[-2:]), dout.reshape((-1,) + dout.shape[-2:])
+    n, h, w = din.shape
+    out_rows = h - 2 * row_off if out_rows is None else out_rows
+    clip = band + 1
+    c = (torch.arange(out_rows, device=din.device) + row_off).view(1, -1, 1).expand(n, out_rows, w).contiguous()
+    lim = torch.clamp(torch.maximum(c, h - 1 - c), max=band)
+    strips = [s.to(torch.int32) for s in (din, dout)]
+
+    def g(s, r):
+        d = torch.clamp(s.gather(1, r.clamp(0, h - 1)), max=clip).float()
+        return d * d
+
+    def pixel_walk(s, counts):
+        best = g(s, c)
+        counts[0] += 1
+        on = torch.ones_like(c, dtype=torch.bool)
+        for a in range(1, min(band, h - 1) + 1):
+            a2 = float(a) * float(a)
+            on &= (a <= lim) & (a2 < best)
+            if not bool(on.any()):
+                break
+            for r in (c - a, c + a):
+                step = on & (r >= 0) & (r < h)
+                best = torch.where(step, torch.minimum(best, g(s, r) + a2), best)
+                counts[0] += step
+        return best
+
+    pix = [torch.zeros_like(c)]
+    pixel_best = [pixel_walk(s, pix) for s in strips]
+    out = {"pixel_rows": float(pix[0].float().mean()), "staged": cuda_edt.pass2_staged(h, band, din.element_size())}
+    if not out["staged"]:
+        out.update(rows=out["pixel_rows"], tests=0.0, blocks=None)
+        return out
+    counts = [torch.zeros_like(c), torch.zeros_like(c)]
+    own = [g(s, c) for s in strips]
+    counts[0] += 2
+    near = torch.maximum(own[0], own[1]) <= cap * cap
+    dense_b = 8 * _blocks(near) >= 7 * _blocks(torch.ones_like(near))
+    dense = _spread_blocks(dense_b, out_rows, w)
+    capr = min(cap, band)
+    nseg = -(-h // 16)
+    lo, hi = (c - band).clamp(min=0), (c + band).clamp(max=h - 1)
+    start = torch.where(dense, capr + 1, 1)
+    best, done = [], []
+    for s, o in zip(strips, own):
+        b, dn = _dense_capped(lambda r, s=s: g(s, r), o, dense, c, lim, capr, h, counts)
+        best.append(b)
+        done.append(dn)
+    left = _blocks(dense & ~(done[0] & done[1]), "any")
+    for f, s in enumerate(strips):
+        key = torch.nn.functional.pad(s.abs(), (0, 0, 0, nseg * 16 - h), value=1 << 30)
+        m = torch.clamp(key.view(n, nseg, 16, w).amin(2), max=clip).float()
+        gmin = m * m
+        best[f] = _segment_walk(lambda r, d, s=s: g(s, r) + d.float() * d.float(),
+                                lambda sg, a0, gmin=gmin: gmin.gather(1, sg.clamp(0, nseg - 1)) + a0.float() * a0.float(),
+                                c, best[f], start, ~done[f], lo, hi, counts)
+    for a, b in zip(best, pixel_best):
+        require(bool(torch.equal(a, b)), "band_walk_counts: the staged walk's minima differ from the per-pixel walk's")
+    out.update(rows=float(counts[0].float().mean()), tests=float(counts[1].float().mean()),
+               blocks={"dense, done within K": int((dense_b & ~left).sum()), "dense, staged": int((dense_b & left).sum()),
+                       "staged at once": int((~dense_b).sum())})
+    return out
+
+
+def dist_walk_counts(d: torch.Tensor, sat: int, cap: int = 8, halo: int = 64) -> dict:
+    """What exact_dist's kernels (csrc/edt.cu: edt_dist_core, then
+    edt_dist_staged) do on one uint16 strip (h, W) or (n, h, W): the blocks
+    on each path (dense and done within cap, dense and staged, staged at
+    once), and per pixel the rows read (its own too), the segments tested and the rows read from device memory (beyond the
+    block's window of ``halo`` rows each side); and the minima (int). The
+    torch form of tests/test_torch_edt_bounds.py's dist_mirror."""
+    d = d.reshape((-1,) + d.shape[-2:]).to(torch.int32).clamp(max=sat)
+    n, h, w = d.shape
+    y = torch.arange(h, device=d.device).view(1, -1, 1).expand(n, h, w).contiguous()
+    gsq = d * d
+
+    def g(r):
+        return gsq.gather(1, r.clamp(0, h - 1))
+
+    counts = [torch.ones_like(y), torch.zeros_like(y), torch.zeros_like(y)]
+    dense_b = 8 * _blocks(d <= cap) >= 7 * _blocks(torch.ones_like(y, dtype=torch.bool))
+    dense = _spread_blocks(dense_b, h, w)
+    best, done = _dense_capped(g, gsq, dense, y, torch.maximum(y, h - 1 - y), cap, h, counts)
+    left = _blocks(dense & ~done, "any")
+    nseg = -(-h // 16)
+    table = cuda_edt.dist_table_plain(d, sat).to(torch.int32)
+    y0 = y // 128 * 128
+    wlo, whi = (y0 - halo).clamp(min=0), (torch.clamp(y0 + 128, max=h) + halo).clamp(max=h)
+    start = torch.where(dense, cap + 1, 1)
+
+    best = _segment_walk(lambda r, dd: g(r) + dd * dd,
+                         lambda s, a0: table.gather(1, s.clamp(0, nseg - 1)) ** 2 + a0 * a0,
+                         y, best, start, ~done, torch.zeros_like(y), torch.full_like(y, h - 1), counts,
+                         staged=lambda s: (s * 16 >= wlo) & (s * 16 < whi))
+    return {"rows": float(counts[0].float().mean()), "tests": float(counts[1].float().mean()),
+            "far_rows": float(counts[2].float().mean()), "best": best,
+            "blocks": {"dense, done within K": int((dense_b & ~left).sum()),
+                       "dense, staged": int((dense_b & left).sum()), "staged at once": int((~dense_b).sum())}}
+
+
 def shard_frames(planes: torch.Tensor, spread: int, shards: int) -> list:
     """The halo'd frames of sharded BRUTE's scan (parallel/sharded.py): per
     shard of rows, its planes with ``spread`` rows of each neighbour, the
@@ -1545,7 +1768,7 @@ def shard_frames(planes: torch.Tensor, spread: int, shards: int) -> list:
 
 def brute_dist_phases(dev, noise, glyph):
     """Phases 16-19. Returns (errors, launches, glyph times, bounds)."""
-    err = {"brute_rows": 0, "brute_scan_bytes": 0, "edt_dist": 0}
+    err = {"brute_rows": 0, "brute_scan_bytes": 0, "edt_dist": 0, "edt_dist_core": 0}
     masks = {
         "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
         "glyph": threshold.hard_threshold(torch.from_numpy(glyph).to(dev)),
@@ -1568,17 +1791,25 @@ def brute_dist_phases(dev, noise, glyph):
     def check_dist(name, b, want=None):
         sat = cuda_edt.dist_sat(max(b.shape[-2:]))
         din, dout = cuda_edt.row_distances_u8(b, sat - 1)
-        e = 0
+        e = et = 0
         for d in (din, dout):
+            want_d = cuda_edt.exact_dist_plain(d, sat)
             got = cuda_edt.exact_dist(d, sat)
-            e = max(e, bits_err(got, cuda_edt.exact_dist_plain(d, sat)))
+            e = max(e, bits_err(got, want_d))
+            out, table, left = cuda_edt.dist_core(d, sat)
+            done = (left == 0).repeat_interleave(128, -2).repeat_interleave(32, -1)[..., : d.shape[-2], : d.shape[-1]]
+            et = max(et, max_abs_err(table.to(torch.int32), cuda_edt.dist_table_plain(d, sat).to(torch.int32)),
+                     max_abs_err(left, cuda_edt.dist_left_plain(d, sat)),
+                     bits_err(out[done], want_d[done]) if bool(done.any()) else 0)
         if want is not None:
             e = max(e, bits_err(cuda_edt.exact_dist(din, sat).cpu(), torch.from_numpy(want)))
         torch.cuda.synchronize()
         err["edt_dist"] = max(err["edt_dist"], e)
+        err["edt_dist_core"] = max(err["edt_dist_core"], et)
         log(f"check edt_dist {name} {tuple(b.shape)} sat {sat}: {e} values differ"
-            f"{' (and from NumPy brute force)' if want is not None else ''}")
-        require(e == 0, f"edt_dist disagrees with its plain version on {name}")
+            f"{' (and from NumPy brute force)' if want is not None else ''}; edt_dist_core (table, flags, the "
+            f"values of the tiles done) err {et}")
+        require(e == 0 and et == 0, f"edt_dist or edt_dist_core disagrees with its plain version on {name}")
 
     for name, b in masks.items():
         for spread in (1, SPREAD):
@@ -1588,7 +1819,7 @@ def brute_dist_phases(dev, noise, glyph):
     for name, b in masks.items():
         for spread in (254, 300):
             check_brute(f"{name} 1024 corner", b[:1024, :1024].contiguous(), spread)
-        # uint16 planes short enough to stage (past ~440 rows: the per-pixel walk)
+        # uint16 planes short enough to stage (from 440 rows: the per-pixel walk)
         check_brute(f"{name} 300 rows", b[:300, :1100].contiguous(), 300)
     rng = np.random.default_rng(SEED + 9)
     for shape in ((1, 17), (17, 1), (139, 131), (3, 256, 256)):
@@ -1659,9 +1890,9 @@ def brute_dist_phases(dev, noise, glyph):
         cuda_edt.LAUNCHES[k] = 0
     field = signed_distance_field_exact(b)
     torch.cuda.synchronize()
-    launches["edt_dist"] = cuda_edt.LAUNCHES["edt_dist"]
+    launches.update({k: cuda_edt.LAUNCHES[k] for k in ("edt_dist", "edt_dist_core")})
     log(f"main path exact distance: signed_distance_field_exact {SIZE}x{SIZE} launches {dict(cuda_edt.LAUNCHES)}")
-    for k in ("brute_rows", "brute_scan_bytes", "edt_dist"):
+    for k in ("brute_rows", "brute_scan_bytes", "edt_dist", "edt_dist_core"):
         require(launches[k] > 0, f"kernel {k} was not launched on its path")
     want = merge.signed_merge(*reversed(cuda_edt.exact_distance_fields_plain(b)))
     e = bits_err(field, want)
@@ -1677,6 +1908,7 @@ def brute_dist_phases(dev, noise, glyph):
         strips = cuda_brute.seed_strips(b, SPREAD)
         sat = cuda_edt.dist_sat(SIZE)
         din, dout = cuda_edt.row_distances_u8(b, sat - 1)
+        core = cuda_edt.dist_core(din, sat)
         t = {
             "brute_rows": cuda_ms(lambda: cuda_brute.seed_strips(b, SPREAD)),
             "brute_rows_plain": cuda_ms(lambda: cuda_brute.seed_strips_plain(b, SPREAD), 2, 3),
@@ -1684,9 +1916,14 @@ def brute_dist_phases(dev, noise, glyph):
             "brute_scan_bytes_plain": cuda_ms(lambda: cuda_brute.brute_scan_bytes_plain(b, strips, SPREAD), 2, 3),
             # the halo scan on the whole image (row_off 0): the same kernel through the other wrapper
             "brute_scan_halo_row_off_0": cuda_ms(lambda: cuda_brute.brute_scan_bytes_halo(b, strips, SPREAD, 0)),
-            "edt_dist": cuda_ms(lambda: cuda_edt.exact_dist(din, sat)),
+            # exact_dist's two launches alone on the "in" strip: the first, then the
+            # second from the first's table and flags (it rewrites the same pixels)
+            "edt_dist_core": cuda_ms(lambda: cuda_edt.dist_core(din, sat)),
+            "edt_dist_core_plain": cuda_ms(lambda: cuda_edt.dist_core_plain(din, sat), 2, 3),
+            "edt_dist": cuda_ms(lambda: cuda_edt.dist_walk(din, sat, *core)),
             "edt_dist_plain": cuda_ms(lambda: cuda_edt.exact_dist_plain(din, sat), 2, 3),
-            # the signed field's second launch, on the "out" strip, and the two together
+            # exact_dist (both launches) on the "in" strip, on the "out" strip, and the two together
+            "exact_dist": cuda_ms(lambda: cuda_edt.exact_dist(din, sat)),
             "edt_dist_out": cuda_ms(lambda: cuda_edt.exact_dist(dout, sat)),
             "edt_dist_both": cuda_ms(lambda: (cuda_edt.exact_dist(din, sat), cuda_edt.exact_dist(dout, sat))),
             "brute_pipeline": cuda_ms(lambda: gen.generate(img)),
@@ -1708,6 +1945,14 @@ def brute_dist_phases(dev, noise, glyph):
             f"pixel: the scan {new_taps / b.numel():.3f}, per-pixel walk {old_taps / b.numel():.3f}; blocks "
             f"staged {staged} of {blocks}")
         require(e == 0, f"the halo scan at row_off 0 differs from brute_scan_bytes on {name}")
+        for strip, d in (("in", din), ("out", dout)):
+            r = dist_walk_counts(d, sat)
+            want = torch.where(r["best"] >= sat * sat, cuda_edt.NO_SEED, refined_sqrt(r["best"].float()))
+            require(bits_err(cuda_edt.exact_dist(d, sat), want.reshape(d.shape)) == 0,
+                    "dist_walk_counts' minima differ from edt_dist")
+            log(f"walk of edt_dist {name} '{strip}' strip: blocks {r['blocks']}; rows read a pixel {r['rows']:.3f} "
+                f"({r['far_rows']:.3f} from device memory), segment tests {r['tests']:.3f}; the per-pixel walk "
+                f"{walk_taps(cuda_edt.exact_dist(d, sat), SIZE - 1) / d.numel():.3f} rows")
 
     # bounds on the glyph input; the walks' taps are logged, not counted in the bounds
     npix = SIZE * SIZE
@@ -1715,19 +1960,24 @@ def brute_dist_phases(dev, noise, glyph):
     strips = cuda_brute.seed_strips(b, SPREAD)
     sat = cuda_edt.dist_sat(SIZE)
     din, _ = cuda_edt.row_distances_u8(b, sat - 1)
-    taps = {
-        "brute_scan_bytes": scan_walk_taps(b, strips, SPREAD, 0)[0],
-        "edt_dist": walk_taps(cuda_edt.exact_dist(din, sat), SIZE - 1),  # NO_SEED walks the whole reach
-    }
-    for k, n in taps.items():
-        log(f"walk of {k}: {n} rows read ({n / npix:.2f} per pixel)")
+    left = cuda_edt.dist_core(din, sat)[2]
+    left_px = int((left != 0).repeat_interleave(128, 0).repeat_interleave(32, 1)[:SIZE, :SIZE].sum())
+    table_bytes = -(-SIZE // cuda_edt.SEG) * SIZE * 2
+    n = scan_walk_taps(b, strips, SPREAD, 0)[0]
+    log(f"walk of brute_scan_bytes: {n} rows read ({n / npix:.2f} per pixel)")
     bounds = {
         # 1 B/px in, 8 strips out; ~4 operations per pixel and scan direction and polarity
         "brute_rows": bound(npix * (1 + 8 * strips.element_size()), 16 * npix),
         # mask and 8 strips in, bytes out
         "brute_scan_bytes": bound(npix * (1 + 8 * strips.element_size() + 1), brute_scan_flops(npix)),
-        # uint16 strip in, float32 out
-        "edt_dist": bound(npix * (2 + 4), dist_flops(npix)),
+        # the first launch: the uint16 strip in; the table, the flags and the
+        # float32 values of the tiles it finishes out; a min per value and the
+        # field's operations on those pixels
+        "edt_dist_core": bound(npix * 2 + table_bytes + left.numel() + 4 * (npix - left_px),
+                               npix + dist_flops(npix - left_px)),
+        # the second: the strip, the table and the flags in, the float32
+        # values of the tiles left out
+        "edt_dist": bound(npix * 2 + table_bytes + left.numel() + 4 * left_px, dist_flops(left_px)),
     }
     for k, (ms, by) in bounds.items():
         log(f"bound {k}: {ms:.4f} ms ({by}); measured {times['glyph'][k]:.4f} ms, "
@@ -2159,16 +2409,56 @@ def composed_turn(dev, glyph) -> None:
     profile_device("composed step, pm2000", lambda: composed_step(inputs["pm2000"]))
 
 
+def edt_turn(dev, noise, glyph) -> None:
+    """Rows 2, 4 and 5 and what they serve, on the glyph and the noise at
+    4096^2: edt_band_bytes at spreads 64 (uint8 strips) and 300 (uint16),
+    edt_dist on both strips of the signed field, the EXACT pipeline
+    (SDFGenerator.generate), signed_distance_field_exact and sharded EXACT
+    over (4,) logical shards under rdma; each time with a digest of the
+    output, so that turns of two trees in one call can be compared."""
+    m4 = logical_mesh(dev, (SHARDS,))
+    for name, img2ch in (("glyph", glyph), ("noise", noise)):
+        img = torch.from_numpy(img2ch).to(dev)
+        b = threshold.hard_threshold(img)
+        for spread in (SPREAD, 300):
+            band = spread + 2
+            din, dout = cuda_edt.row_distances_u8(b, band)
+            ms = cuda_ms(lambda: cuda_edt.fused_pass2_bytes(din, dout, spread, False, band))
+            path = "?"  # a parent tree without the launcher's query
+            if hasattr(cuda_edt, "pass2_staged"):
+                path = "staged" if cuda_edt.pass2_staged(SIZE, band, din.element_size()) else "per-pixel walk"
+            log(f"time {name} edt_band_bytes spread {spread} ({din.dtype}): {ms:.4f} ms ({path}); digest "
+                f"{digest(cuda_edt.fused_pass2_bytes(din, dout, spread, False, band))}")
+        sat = cuda_edt.dist_sat(SIZE)
+        din, dout = cuda_edt.row_distances_u8(b, sat - 1)
+        for strip, d in (("in", din), ("out", dout)):
+            ms = cuda_ms(lambda: cuda_edt.exact_dist(d, sat))
+            paths = "?"  # a parent tree without edt_dist_core
+            if hasattr(cuda_edt, "dist_core"):
+                n = torch.bincount(cuda_edt.dist_core(d, sat)[2].flatten().long(), minlength=3).tolist()
+                paths = f"tiles done {n[0]}, sparse {n[1]}, dense with pixels left {n[2]}"
+            log(f"time {name} edt_dist '{strip}' strip: {ms:.4f} ms ({paths}); digest "
+                f"{digest(cuda_edt.exact_dist(d, sat))}")
+        gen = SDFGenerator(SdfConfig(spread=SPREAD), device=dev)
+        log(f"time {name} exact_pipeline: {cuda_ms(lambda: gen.generate(img)):.4f} ms; digest "
+            f"{digest(gen.generate(img))}")
+        log(f"time {name} signed_distance_field_exact: {cuda_ms(lambda: signed_distance_field_exact(b)):.4f} ms; "
+            f"digest {digest(signed_distance_field_exact(b))}")
+        run = lambda: sharded.sharded_hard_sdf_bytes(b, SPREAD, m4, halo="rdma")  # noqa: E731
+        log(f"time {name} sharded_exact_rdma (4,): {cuda_ms(run):.4f} ms; digest {digest(run())}")
+
+
 def kernel_turn(dev, noise, glyph) -> None:
-    """Rows 7, 8, 10, 11, 15 and 16 and what they serve, alone, on any tree
-    that has these kernels (this one or its parent, for turns in one call):
-    soft_b2, soft_f1 and soft_b1 on the bench's noise, pm2000 and the glyph
-    in +-2040, soft_mm_bwd on the bench's noise at tap radii 10 and 16 (with
-    digests of soft_b1's and soft_mm_bwd's outputs), the declared training
-    step, the forced and gated adaptive steps and SoftSDFModel's step;
-    brute_scan_bytes_halo on each shard of the glyph and the noise over 4
-    shards and at row_off 0 on the whole image beside brute_scan_bytes, and
-    sharded BRUTE over (4,)."""
+    """Rows 2, 4, 5, 7, 8, 10, 11, 15 and 16 and what they serve, alone, on
+    any tree that has these kernels (this one or its parent, for turns in
+    one call): first edt_turn; then soft_b2, soft_f1 and soft_b1 on the
+    bench's noise, pm2000 and the glyph in +-2040, soft_mm_bwd on the
+    bench's noise at tap radii 10 and 16 (with digests of soft_b1's and
+    soft_mm_bwd's outputs), the declared training step, the forced and
+    gated adaptive steps and SoftSDFModel's step; brute_scan_bytes_halo on
+    each shard of the glyph and the noise over 4 shards and at row_off 0 on
+    the whole image beside brute_scan_bytes, and sharded BRUTE over (4,)."""
+    edt_turn(dev, noise, glyph)
     band, tau, t = SPREAD + 2, TRAIN_TAU, TRAIN_T
     rng = np.random.default_rng(SEED + 5)
     inputs = {

@@ -97,6 +97,16 @@ def test_refined_sqrt_tail_all_2_24_integers(dev):
     assert int((got != want).sum()) == 0
 
 
+def test_ieee_sqrt_is_the_refined_root_below_2_24(dev):
+    """edt_dist takes the IEEE sqrt of minima below 2^24 - 1: on every
+    integer there it is numerics.refined_sqrt's root; at 2^24 - 1 the
+    refined root rounds up (edt_dist takes the refined one there)."""
+    n = torch.arange((1 << 24) - 1, dtype=torch.float32, device=dev)
+    assert int((torch.sqrt(n).view(torch.int32) != refined_sqrt(n).view(torch.int32)).sum()) == 0
+    top = torch.tensor([(1 << 24) - 1], dtype=torch.float32, device=dev)
+    assert float(refined_sqrt(top)) == 4096.0 and float(torch.sqrt(top)) < 4096.0
+
+
 def test_sdf_generator_runs_both_kernels(dev):
     img = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (96, 80, 2), dtype=np.uint8))
     gen = SDFGenerator(SdfConfig(spread=12), device=dev)
@@ -186,13 +196,15 @@ def _scan_mask(kind, shape, seed):
 
 @pytest.mark.parametrize("kind", ["noise", "strokes", "half", "one_seed", "mixed"])
 @pytest.mark.parametrize("shape,spread", [((300, 157), 1), ((300, 157), 5), ((517, 301), 64), ((3, 200, 90), 64),
-                                          ((260, 64), 254), ((300, 100), 300), ((700, 70), 300)])
+                                          ((260, 64), 254), ((300, 100), 300), ((700, 70), 300),
+                                          ((439, 40), 300), ((440, 40), 300)])
 def test_brute_scan_bytes_dense_and_sparse_blocks(dev, kind, shape, spread):
     """brute_scan_bytes byte for byte its plain version where blocks take the
     capped walk (and stage or not) and where they stage at once: heights not
     a multiple of 128 and widths not a multiple of 32, a batch, uint8 up to
-    spread 254 and uint16 at 300 (staged up to ~440 rows, the per-pixel walk
-    past that)."""
+    spread 254 and uint16 at 300 (staged up to 439 rows, the per-pixel walk
+    from 440, where the window passes a block's shared memory by the
+    kernel's static part)."""
     b = torch.from_numpy(_scan_mask(kind, shape, spread)).to(dev)
     strips = cuda_brute.seed_strips(b, spread)
     before = cuda_brute.LAUNCHES["brute_scan_bytes"]
@@ -230,6 +242,99 @@ def test_edt_dist_one_far_seed_and_tall_image(dev):
         assert torch.equal(got[0].cpu(), cuda_edt.exact_distance_field(b))
 
 
+def _edt_mask(kind, shape, seed):
+    if kind == "empty":
+        return np.zeros(shape, bool)
+    return _scan_mask(kind, shape, seed)
+
+
+EDT_KINDS = ["noise", "strokes", "half", "one_seed", "mixed", "empty"]
+
+
+@pytest.mark.parametrize("kind", EDT_KINDS)
+@pytest.mark.parametrize("shape,spread,staged", [((300, 157), 1, True), ((517, 301), 64, True),
+                                                 ((3, 200, 90), 64, True), ((130, 33), 253, True),
+                                                 ((700, 70), 300, True), ((1800, 40), 798, False),
+                                                 ((120, 50), 65600, True), ((900, 24), 65600, False),
+                                                 ((1613, 40), 798, True), ((1614, 40), 798, False),
+                                                 ((1800, 40), 725, True), ((1800, 40), 726, False),
+                                                 ((853, 24), 65600, True), ((854, 24), 65600, False)])
+def test_edt_band_bytes_paths_match_plain(dev, kind, shape, spread, staged):
+    """edt_band_bytes byte for byte its plain version on every path its
+    launcher takes: dense blocks done within K (noise), dense blocks that
+    stage for pixels left (the half plane's border), sparse blocks staged at
+    once (strokes, a lone seed, no seed), and the per-pixel walk past a
+    block's shared memory (uint16 at band 800 over 1800 rows, int32 over 900
+    rows), on both sides of that edge (uint16: 1613 and 1614 rows at band
+    800, bands 727 and 728 over 1800 rows; int32: 853 and 854 rows); heights
+    not a multiple of 128, widths not of 32, a batch. The path is the
+    launcher's own answer (chaq_edt_band_staged)."""
+    band = spread + 2
+    b = torch.from_numpy(_edt_mask(kind, shape, spread)).to(dev)
+    din, dout = cuda_edt.row_distances_u8(b, band)
+    assert cuda_edt.pass2_staged(shape[-2], band, din.element_size()) == staged
+    before = cuda_edt.LAUNCHES["edt_band_bytes"]
+    got = cuda_edt.fused_pass2_bytes(din, dout, spread, False, band)
+    assert cuda_edt.LAUNCHES["edt_band_bytes"] == before + 1
+    want = cuda_edt.fused_pass2_bytes_plain(din, dout, spread, False, band)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("band,rows", [(66, 200), (302, 150), (30, 64), (65602, 100)])
+def test_edt_band_bytes_on_halo_frames(dev, band, rows):
+    """Pass 2 on shard frames as parallel/sharded.py builds them: `band`
+    rows of each neighbour, the dtype's maximum beyond the image; each
+    shard's bytes equal the plain version and the one-device rows."""
+    full = torch.from_numpy(_edt_mask("mixed", (3 * rows, 70), band)).to(dev)
+    din, dout = cuda_edt.row_distances_u8(full, band)
+    fill = torch.iinfo(din.dtype).max
+    one = cuda_edt.fused_pass2_bytes(din, dout, band - 2, False, band)
+    for shard in range(3):
+        lo, hi = shard * rows - band, (shard + 1) * rows + band
+        frames = []
+        for strip in (din, dout):
+            f = torch.full((hi - lo, 70), fill, dtype=strip.dtype, device=dev)
+            f[max(lo, 0) - lo : min(hi, 3 * rows) - lo] = strip[max(lo, 0) : min(hi, 3 * rows)]
+            frames.append(f)
+        got = cuda_edt.fused_pass2_bytes(frames[0], frames[1], band - 2, False, band, True, band, rows)
+        want = cuda_edt.fused_pass2_bytes_plain(frames[0], frames[1], band - 2, False, band, True, band, rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, one[shard * rows : (shard + 1) * rows])
+
+
+@pytest.mark.parametrize("kind", EDT_KINDS)
+@pytest.mark.parametrize("shape", [(300, 157), (3, 200, 90), (517, 301), (129, 33), (4104, 40)])
+def test_edt_dist_paths_match_plain(dev, kind, shape):
+    """edt_dist_core and edt_dist bit for bit their plain versions on both
+    strips: dense tiles done within K (their values, the table and the
+    flags after the first launch), tiles that stage their window and table,
+    walks that read rows beyond the window from device memory (a lone
+    seed), NO_SEED (no seed), the tier sat 16383 (4104 rows); heights not a
+    multiple of 16 or 128, widths not of 32, a batch."""
+    b = torch.from_numpy(_edt_mask(kind, shape, 11)).to(dev)
+    sat = cuda_edt.dist_sat(max(shape[-2:]))
+    assert sat == (16383 if shape[0] == 4104 else 8191)
+    for d in cuda_edt.row_distances_u8(b, sat - 1):
+        out, table, left = cuda_edt.dist_core(d, sat)
+        want = cuda_edt.exact_dist_plain(d, sat)
+        assert torch.equal(table.to(torch.int32), cuda_edt.dist_table_plain(d, sat).to(torch.int32))
+        assert torch.equal(left, cuda_edt.dist_left_plain(d, sat))
+        done = (left == 0).repeat_interleave(128, -2).repeat_interleave(32, -1)[..., : d.shape[-2], : d.shape[-1]]
+        assert torch.equal(out.view(torch.int32)[done], want.view(torch.int32)[done])
+        before = dict(cuda_edt.LAUNCHES)
+        got = cuda_edt.exact_dist(d, sat)
+        assert cuda_edt.LAUNCHES["edt_dist"] == before["edt_dist"] + 1
+        assert cuda_edt.LAUNCHES["edt_dist_core"] == before["edt_dist_core"] + 1
+        walked = cuda_edt.dist_walk(d, sat, out, table, left)  # the second launch alone, on the first's outputs
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(walked.view(torch.int32), want.view(torch.int32))
+    if kind == "empty":
+        assert bool((got.cpu() == 0).all()) and bool((cuda_edt.exact_dist(cuda_edt.row_distances_u8(
+            b, sat - 1)[0], sat) == cuda_edt.NO_SEED).all())
+
+
 def test_brute_and_exact_entry_points_run_their_kernels(dev):
     img = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (96, 80, 2), dtype=np.uint8))
     gen = SDFGenerator(SdfConfig(spread=12, algorithm="brute"), device=dev)
@@ -245,6 +350,7 @@ def test_brute_and_exact_entry_points_run_their_kernels(dev):
     field = signed_distance_field_exact(b.to(dev))
     assert cuda_edt.LAUNCHES["edt_rows"] == before["edt_rows"] + 1
     assert cuda_edt.LAUNCHES["edt_dist"] == before["edt_dist"] + 2
+    assert cuda_edt.LAUNCHES["edt_dist_core"] == before["edt_dist_core"] + 2
     assert torch.equal(field.cpu(), signed_distance_field_exact(b))
 
 

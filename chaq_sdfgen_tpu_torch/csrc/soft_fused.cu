@@ -23,21 +23,22 @@
 //
 // Skipped taps. A tap enters a sum only if its exponent z (times 1/T) is at
 // least -27 (pallas_soft_fused._UNDERFLOW: a relative weight below e^-27).
-// Each pixel walks its hard min centre-out and stops once min(window) + d^2
-// >= m, and sums only |d| <= reach, the last d whose exponent could still pass
-// the cut given the window's min (or max); float rounding is monotone, so
-// both stops are exact: no tap that the plain version adds is left out. The
-// plain version (ops/soft_fused.py) applies the same cut to every tap, and the
-// sums run in the same order, d = -reach .. reach.
+// Each pixel walks its hard min centre-out and stops once a lower bound of
+// its taps + d^2 >= m, and sums only |d| <= reach, the last d whose exponent
+// could still pass the cut given that bound (or an upper one); float rounding
+// is monotone, so both stops are exact: no tap that the plain version adds is
+// left out. The plain version (ops/soft_fused.py) applies the same cut to
+// every tap, and the sums run in the same order, d = -reach .. reach.
 //
 // Bound: operations, on data-dependent tap counts (a few taps each way on
 // dense content, up to 2 band + 1 far from any seed); the bytes are 12 (F1),
 // 20 (F2), 28 (B2) and 24 (B1) per pixel. Design: F1 and B1 run along rows,
-// one block per row tile of up to 4096 (F1) or 2048 (B1) pixels, which stages its values over
-// the tile and a band-wide halo in shared memory; F2 runs along columns, one
-// block per 32-column x 64-row tile, which stages the tile's column window
-// (64 + 2 band rows) one field at a time; B2 walks strips of columns. One
-// thread per output pixel (8 per thread in F2). Float32 on CUDA cores.
+// one block per row tile of up to 4096 (F1) or 2048 (B1) pixels, which stages
+// its values over the tile and a band-wide halo in shared memory; F2 runs
+// along columns, one block per 32-column x 96-row tile, which stages the
+// tile's column window (96 + 2 band rows) one field at a time; B2 walks
+// strips of columns. Bounds come from segment extrema, a warp's or a lane's
+// own. Float32 on CUDA cores.
 //
 // F1 is a staged row (PERF.md row 8). What held its first design back: one
 // block-wide min over the 256 + 2 band span set
@@ -90,6 +91,31 @@
 //     together) and dS1 stores are coalesced along the row.
 // The sum runs d ascending over the taps that pass, as _weight_sum adds them.
 //
+// F2 (PERF.md row 9) stays a column tile. What held its first design back:
+// one block-wide min of S1 over the tile's 32 x (64 + 2 band) window set
+// every pixel's hard-min stop and reach (one small S1 anywhere in 196 rows
+// made all 2048 pixels walk and sum far), the reach came from a serial loop,
+// and each thread's 8 outputs a field were unrolled, 16 copies of the tap
+// loops in all. Now a block owns 32 columns x 96 rows:
+//   * per field a warp stages whole 16-row segments of the window (96 + 2
+//     band rows, 2.4 reads of each S1 row at band 66, was 3.06), keeping
+//     each one's least S1 per lane (column); 32-43 KB;
+//   * warp w takes 12 consecutive rows; a lane's bound is the least S1 over
+//     its own taps for those rows (the rows of the partial segments at the
+//     ends one by one, the whole segments between from their minima); no
+//     block-wide minimum remains;
+//   * the reach is a float32 estimate corrected to the loop's integer
+//     (reach_of); the lanes step together to the warp's longest, so the
+//     loop's branch is uniform; a thread's rows run through one copy of the
+//     loops (unrolled over its rows, they ran 7-22% slower).
+// Built, measured and dropped (PERF.md row 9): a strip of both fields
+// through B2's cp.async ring (its ring, barriers and per-row bookkeeping cost
+// 0.30 ms before any tap: 0.76-0.82 ms on dense content against the
+// parent's 0.59), both fields staged at once (4 blocks an SM, +4-10%), F1's
+// per-segment reach clipping and B2's segment skips (+2-4%: on these inputs
+// few segments can be skipped), the cut as a select (+30%). The sums run d
+// ascending over the taps that pass, each behind a branch around expf.
+
 // B1 is a staged row tile too (PERF.md row 11). What held its first design
 // back: a block of 256 pixels re-read S1 and dS1 of both fields over 256 + 2
 // band positions (1.52 times at band 66), and one block-wide max of S1 per
@@ -138,16 +164,14 @@
 namespace {
 
 constexpr int kMaxBand = 112;      // pallas_soft_fused.fused_geometry_ok: band <= 128 - 16
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kColTile = 32;       // F2: columns per block
-constexpr int kColStep = kThreads / kColTile;  // 8 row lanes
-constexpr int kColRows = 64;       // F2: output rows per block
-constexpr int kColPer = kColRows / kColStep;   // outputs per thread
-constexpr int kLanes = 32;         // B2: columns per block, one per lane
+constexpr int kLanes = 32;         // F2, B2: columns per block, one per lane
+constexpr int kF2Threads = 256;    // F2: 8 warps
+constexpr int kF2Warps = kF2Threads / kLanes;
+constexpr int kF2Rows = 96;        // F2: output rows per block
+constexpr int kF2Per = kF2Rows / kF2Warps;  // F2: consecutive rows per warp
 constexpr int kB2Warps = 8;        // B2: warps per block
 constexpr int kB2Threads = kB2Warps * kLanes;
-constexpr int kSeg = 16;           // B2: ring rows per segment
+constexpr int kSeg = 16;           // F2, B2: rows per segment (B2: of the ring)
 constexpr int kB2Per = 4;          // B2: rows per warp and chunk
 constexpr int kB2Chunk = kB2Warps * kB2Per;  // B2: rows per chunk
 constexpr int kShort = 16;         // B2, F1, B1: a reach up to this runs every tap, no segment tests
@@ -184,43 +208,6 @@ __device__ __forceinline__ void heights(float l, float t, float& h0, float& h1) 
   const float sp = __fadd_rn(fmaxf(x, 0.0f), logf(__fadd_rn(1.0f, expf(-fabsf(x)))));
   h0 = fminf(__fmul_rn(t, sp), kPadH);
   h1 = __fadd_rn(h0, __fmul_rn(t, l));
-}
-
-// Min (or max) over the block; every thread must call it.
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kMax ? fmaxf(v, u) : fminf(v, u);
-  }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-  for (int i = 1; i < kWarps; ++i) v = kMax ? fmaxf(v, red[i]) : fminf(v, red[i]);
-  __syncthreads();  // red is reused
-  return v;
-}
-
-// Banded soft-min at the tap v[0]: taps v[d * stride], |d| <= band, +inf
-// outside the image; vmin is a lower bound of every tap.
-__device__ float soft_min(const float* v, int stride, int band, float vmin, float t, float inv_t) {
-  float m = v[0];
-  for (int d = 1; d <= band; ++d) {
-    const float dd = (float)(d * d);
-    if (__fadd_rn(vmin, dd) >= m) break;
-    m = fminf(m, __fadd_rn(fminf(v[-d * stride], v[d * stride]), dd));
-  }
-  const float gap = __fsub_rn(m, vmin);
-  int reach = 0;
-  while (reach < band &&
-         __fmul_rn(__fsub_rn(gap, (float)((reach + 1) * (reach + 1))), inv_t) >= -kCut)
-    ++reach;
-  float s = 0.0f;
-  for (int d = -reach; d <= reach; ++d) {
-    const float z = __fmul_rn(__fsub_rn(__fsub_rn(m, v[d * stride]), (float)(d * d)), inv_t);
-    if (z >= -kCut) s = __fadd_rn(s, expf(z));
-  }
-  return __fsub_rn(m, __fmul_rn(t, logf(s)));
 }
 
 __device__ __forceinline__ float soft_dist(float d2, float eps) {
@@ -508,44 +495,111 @@ __global__ void __launch_bounds__(kRowThreads, 4) soft_b1_kernel(const float* gr
   }
 }
 
-// Column kernels: a 32-column x 64-row tile of image blockIdx.z; thread
-// (tx, ty) takes column tx and rows ty, ty + 8, ... of the tile. The window
-// buffer holds rows y0 - band .. y0 + 64 + band of the tile's columns.
-__global__ void __launch_bounds__(kThreads) soft_f2_kernel(const float* s1, float* field, float* d2,
-                                                           Soft p) {
-  extern __shared__ float win[];
-  __shared__ float red[kWarps];
-  const int tx = threadIdx.x % kColTile, ty = threadIdx.x / kColTile;
-  const int x = blockIdx.x * kColTile + tx, y0 = blockIdx.y * kColRows;
-  const int rows = kColRows + 2 * p.band;
-  const size_t plane = (size_t)p.h * p.w;
-  float d2_in[kColPer];
+// ------------------------------------------------------------ F2, a tile
+
+// The least of one column's staged values over window rows [u0, u1] (col:
+// the column's row 0, rows 32 apart): the rows of a partial 16-row segment at
+// either end one by one, the whole segments between from segm (each
+// segment's least value, segments 32 apart).
+__device__ __forceinline__ float f2_window_min(const float* col, const float* segm, int u0, int u1) {
+  const int j0 = u0 / kSeg, j1 = u1 / kSeg;
+  float lo = kInf;
+  auto rows = [&](int r0, int r1) {
+    for (int r = r0; r <= r1; ++r) lo = fminf(lo, col[r * kLanes]);
+  };
+  if (j0 == j1) {
+    rows(u0, u1);
+    return lo;
+  }
+  if (u0 % kSeg == 0) lo = segm[j0 * kLanes]; else rows(u0, j0 * kSeg + kSeg - 1);
+  for (int j = j0 + 1; j < j1; ++j) lo = fminf(lo, segm[j * kLanes]);
+  if (u1 % kSeg == kSeg - 1) lo = fminf(lo, segm[j1 * kLanes]); else rows(j1 * kSeg, u1);
+  return lo;
+}
+
+// grid (column blocks, row tiles, N); block 256. A block owns columns [x0, x0
+// + 32) (one per lane) and rows [y0, y0 + 96) of image blockIdx.z; per field
+// it stages window row r = image row y0 - band + r (+inf outside the image),
+// segs segments of 16 rows, segment k by warp k mod 8 with its least value per
+// lane; then warp w takes rows y0 + 12 w .. + 11. The field at a pixel needs
+// both fields' d2: a thread keeps its rows' d2_in until their d2_out is formed.
+__global__ void __launch_bounds__(kF2Threads) soft_f2_kernel(const float* s1, float* field, float* d2, Soft p,
+                                                             int segs) {
+  extern __shared__ float win[];          // segs x 16 x 32
+  float* segm = win + segs * kSeg * kLanes;  // segs x 32
+  const int tx = threadIdx.x % kLanes, w = threadIdx.x / kLanes;
+  const int x = blockIdx.x * kLanes + tx, y0 = blockIdx.y * kF2Rows;
+  const int band = p.band, h = p.h, W = p.w;
+  const float t = p.t, inv_t = p.inv_t;
+  const size_t plane = (size_t)h * W;
+  const bool live = x < W;
+  const int ow = w * kF2Per, nw = min(kF2Per, h - y0 - ow);  // the warp's rows of the tile
+  float d2_in[kF2Per];
   for (int f = 0; f < 2; ++f) {
     const float* src = s1 + ((size_t)blockIdx.z * 2 + f) * plane;
-    float lo = kInf;
-    for (int r = ty; r < rows; r += kColStep) {
-      const int y = y0 - p.band + r;
-      const float v = (x < p.w && y >= 0 && y < p.h) ? src[(size_t)y * p.w + x] : kInf;
-      win[r * kColTile + tx] = v;
-      lo = fminf(lo, v);
-    }
-    lo = block_reduce<false>(lo, red);
+    for (int k = w; k < segs; k += kF2Warps) {
+      float v[kSeg];
 #pragma unroll
-    for (int i = 0; i < kColPer; ++i) {
-      const int r = ty + i * kColStep, y = y0 + r;
-      if (x >= p.w || y >= p.h) continue;
-      const float v = soft_min(&win[(r + p.band) * kColTile + tx], kColTile, p.band, lo, p.t, p.inv_t);
-      const size_t o = (size_t)y * p.w + x;
-      if (d2 != nullptr) d2[((size_t)blockIdx.z * 2 + f) * plane + o] = v;
-      if (f == 0) {
-        d2_in[i] = v;
-      } else {
-        const float d_in = soft_dist(d2_in[i], p.eps), d_out = soft_dist(v, p.eps);
-        field[(size_t)blockIdx.z * plane + o] =
-            __fsub_rn(d_out, d_in > 1.0f ? __fsub_rn(d_in, 1.0f) : 0.0f);
+      for (int i = 0; i < kSeg; ++i) {
+        const int y = y0 - band + k * kSeg + i;
+        v[i] = live && y >= 0 && y < h ? src[(size_t)y * W + x] : kInf;
+      }
+      float lo = kInf;
+#pragma unroll
+      for (int i = 0; i < kSeg; ++i) {
+        win[(k * kSeg + i) * kLanes + tx] = v[i];
+        lo = fminf(lo, v[i]);
+      }
+      segm[k * kLanes + tx] = lo;
+    }
+    __syncthreads();
+    if (nw > 0) {
+      const float* col = win + tx;
+      // a lower bound of every tap of the warp's rows in this lane
+      const float vmin = f2_window_min(col, segm + tx, ow, ow + nw - 1 + 2 * band);
+      // one copy of the loops for the thread's rows
+#pragma unroll 1
+      for (int i = 0; i < nw; ++i) {
+        const float* v = col + (ow + i + band) * kLanes;  // tap 0
+        // m, the hard min walked centre-out until vmin + d^2 >= m; reach,
+        // the last |d| whose exponent could pass the cut given vmin. A lane
+        // without a pixel: reach 0.
+        float m = kInf;
+        int reach = 0;
+        if (live) {
+          m = v[0];
+          float df = 1.0f;
+          for (int d = 1; d <= band; ++d, df = __fadd_rn(df, 1.0f)) {
+            const float dd = __fmul_rn(df, df);
+            if (__fadd_rn(vmin, dd) >= m) break;
+            m = fminf(m, __fadd_rn(fminf(v[-d * kLanes], v[d * kLanes]), dd));
+          }
+          const float gap = __fsub_rn(m, vmin);
+          reach = reach_of([=](int r) { return __fmul_rn(__fsub_rn(gap, (float)(r * r)), inv_t) >= -kCut; },
+                           sqrtf(fmaxf(__fadd_rn(gap, kCut * t), 0.0f)), band);
+        }
+        // the lanes step together to the warp's longest reach (a tap past a
+        // lane's own reach fails the cut)
+        reach = __reduce_max_sync(0xffffffffu, reach);
+        if (!live) continue;
+        float s = 0.0f, df = (float)(-reach);
+        for (int d = -reach; d <= reach; ++d, df = __fadd_rn(df, 1.0f)) {
+          const float z = __fmul_rn(__fsub_rn(__fsub_rn(m, v[d * kLanes]), __fmul_rn(df, df)), inv_t);
+          if (z >= -kCut) s = __fadd_rn(s, expf(z));
+        }
+        const float val = __fsub_rn(m, __fmul_rn(t, logf(s)));
+        const size_t at = (size_t)(y0 + ow + i) * W + x;
+        if (d2 != nullptr) d2[((size_t)blockIdx.z * 2 + f) * plane + at] = val;
+        if (f == 0) {
+          d2_in[i] = val;
+        } else {
+          const float d_in = soft_dist(d2_in[i], p.eps), d_out = soft_dist(val, p.eps);
+          field[(size_t)blockIdx.z * plane + at] =
+              __fsub_rn(d_out, d_in > 1.0f ? __fsub_rn(d_in, 1.0f) : 0.0f);
+        }
       }
     }
-    __syncthreads();  // the window is refilled for the next field
+    __syncthreads();  // the window is restaged for the next field
   }
 }
 
@@ -701,7 +755,7 @@ int prepare(int n, int h, int w, int band, float scale, float t, float inv_t, fl
             int yhi, Soft* p) {
   if (n < 1 || n > 65535 || h < 1 || w < 1 || band < 0 || band > kMaxBand) return (int)cudaErrorInvalidValue;
   if ((long long)((w + kRowTile - 1) / kRowTile) * h > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if ((h + kColRows - 1) / kColRows > 65535) return (int)cudaErrorInvalidValue;
+  if ((h + kF2Rows - 1) / kF2Rows > 65535) return (int)cudaErrorInvalidValue;
   *p = Soft{n, h, w, band, scale, t, inv_t, eps, ylo, yhi};
   return 0;
 }
@@ -712,13 +766,14 @@ int row_pad(int band) { return (band + kRowSeg - 1) / kRowSeg * kRowSeg; }
 int row_span(int w, int band, int tile) { return (min(w, tile) + kRowSeg - 1) / kRowSeg * kRowSeg + 2 * row_pad(band); }
 
 dim3 col_grid(const Soft& p) {
-  return dim3((unsigned)((p.w + kColTile - 1) / kColTile), (unsigned)((p.h + kColRows - 1) / kColRows),
+  return dim3((unsigned)((p.w + kLanes - 1) / kLanes), (unsigned)((p.h + kF2Rows - 1) / kF2Rows),
               (unsigned)p.n);
 }
 
-size_t col_smem(int band) {
-  return sizeof(float) * (size_t)(kColRows + 2 * band) * kColTile;
-}
+// F2's window: 96 + 2 band rows in 16-row segments, and each segment's least
+// value per lane (32 KB at band 66, 43 KB at band 112).
+int col_segs(int band) { return (kF2Rows + 2 * band + kSeg - 1) / kSeg; }
+size_t col_smem(int band) { return sizeof(float) * (size_t)col_segs(band) * (kSeg + 1) * kLanes; }
 
 }  // namespace
 
@@ -746,8 +801,8 @@ extern "C" int chaq_soft_f2(const void* s1, void* field, void* d2, int n, int h,
   Soft p;
   const int rc = prepare(n, h, w, band, scale, t, inv_t, eps, ylo, yhi, &p);
   if (rc != 0) return rc;
-  soft_f2_kernel<<<col_grid(p), kThreads, col_smem(band), (cudaStream_t)stream>>>(
-      (const float*)s1, (float*)field, (float*)d2, p);
+  soft_f2_kernel<<<col_grid(p), kF2Threads, col_smem(band), (cudaStream_t)stream>>>(
+      (const float*)s1, (float*)field, (float*)d2, p, col_segs(band));
   return (int)cudaGetLastError();
 }
 

@@ -37,37 +37,36 @@
 // multiply and an add, plus ~10 transcendentals; the bytes are 8-16
 // (forward) and 20 (backward) per pixel.
 //
-// The forward: one block of 256 threads per 64x64 output tile. Each warp
-// takes rows of the tile plus a halo of k2 rows: it evaluates the occupancy
-// for the 64 + 2 k1 pixels of the row into a warp-private shared buffer,
-// then the rows conv into a (64 + 2 k2) x 64 shared tile per field. After
-// one barrier each thread takes one column and 16 rows of the tile for the
-// cols conv and the tails. Shared memory: 49-55 KB per block (k2 = 10-16).
-//
-// The backward (PERF.md row 7). What held its first design, the forward's,
-// back: each tap of each conv read its weight and both fields' inputs from
-// shared memory (3 shared loads for 4 float operations, ~145 loads a pixel
-// at k = 10), the tails' VJP ran 1.72 times a pixel (over the 84 x 84 halo'd
-// inputs of a 64 x 64 tile), and the epilogue formed 6 exponentials. Now a
-// block of 256 threads owns 128 output columns and walks a strip of rows, 16
-// a chunk:
+// Design (PERF.md rows 6-7): one strip walker serves both directions, with
+// a producer and an epilogue of each. What held the first design, a 64 x 64
+// output tile a block, back: each tap of each conv read its weight and both
+// fields' inputs from shared memory (3 shared loads for 4 float operations,
+// ~145 loads a pixel at k = 10), and the producer ran 1.72 times a pixel
+// (over the 84 x 84 halo'd inputs of a 64 x 64 tile). Now a block of 256
+// threads owns 128 output columns and walks a strip of rows, 16 a chunk:
 //   * a batch of 16 input rows (the tile's columns and a k1 halo each side)
-//     of the cotangent and both memos arrives through cp.async while the
-//     last batch's convs run; the tails' VJP turns it into ds once a staged
-//     pixel (128 + 2 k1 columns for 128, and 2 k2 rows once a strip);
+//     arrives through cp.async while the last batch's convs run: gray for
+//     the forward, the cotangent and both memos for the backward; the
+//     producer turns it into the two fields' conv inputs once a staged pixel
+//     (128 + 2 k1 columns for 128, and 2 k2 rows once a strip): the shifted
+//     occupancies from gray (forward), the tails' VJP ds (backward);
 //   * the rows conv: a thread takes 8 consecutive outputs of one row of the
 //     batch, its inputs in a register window (each staged value read once a
 //     thread, not once a tap), into a ring of 48 rows (3 batches);
 //   * the cols conv: a thread takes 8 consecutive rows of one column of the
-//     chunk from the ring the same way, then the occupancy VJP;
+//     chunk from the ring the same way, then the epilogue: the tails, the
+//     field and the memos (forward), the occupancy VJP (backward);
 //   * the tap loops are unrolled over the 33 taps the kernels take, each
 //     step behind a test of the radius (uniform over the block), so the
 //     taps come from the kernel's parameters at fixed offsets, out of
 //     shared memory;
-//   * shared memory: 30 KB of staged inputs, 26 KB of ds (a column skewed by
-//     one every 8, so that a warp's 16 windows fall in distinct banks) and
-//     50 KB of ring (a column's low bits xor-swizzled by its 32-column block,
-//     so that a row's 8-wide stores spread over the banks): 2 blocks an SM.
+//   * shared memory: the staged inputs (10 KB forward, 30 KB backward), 26
+//     KB of conv inputs (a column skewed by one every 8, so that a warp's 16
+//     windows fall in distinct banks) and 50 KB of ring (a column's low bits
+//     xor-swizzled by its 32-column block, so that a row's 8-wide stores
+//     spread over the banks): 86 KB forward, 106 KB backward, 2 blocks an SM.
+// x / T and x / tau are exact products where T or tau is a power of two
+// (div_by): the same bits as the division.
 
 // Exact numbers: every multiply that feeds an add is an explicit _rn
 // intrinsic, so nvcc contracts nothing into an FMA, and the sums run in the
@@ -88,12 +87,16 @@
 
 namespace {
 
-constexpr int kMaxK = 16;               // tap radius limit (pallas_soft_mm._HK)
+constexpr int kMaxK = 16;                     // tap radius limit (pallas_soft_mm._HK)
 constexpr int kTaps = 2 * kMaxK + 1;
-constexpr int kTile = 64;               // output tile: kTile x kTile pixels
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowBuf = kTile + 2 * kMaxK;  // one field of a warp's row buffer
+constexpr int kCols = 128;                    // output columns per block
+constexpr int kRows = 16;                     // rows a batch (producer, rows conv) and a chunk (cols conv)
+constexpr int kPer = 8;                       // consecutive outputs a thread in each conv
+constexpr int kThreads = kCols * kRows / kPer;  // one conv item a thread (256)
+constexpr int kRingRows = 3 * kRows;          // the ring: 3 batches, 16 + 2 k2 <= 48 rows
+constexpr int kIn = kCols + 2 * kMaxK;        // staged columns, at most
+constexpr int kDsStride = 208;                // a conv-input row: kIn columns skewed (180), 16 mod 32
+constexpr int kRingStride = kCols + 4;        // a ring row: the next row 4 banks on
 
 struct Taps {
   float w1[kTaps];  // rows conv, w1[i] = w(i - k1), i <= 2 k1
@@ -114,22 +117,40 @@ __device__ __forceinline__ void occupancies_of(float l, float sp, float ct1, flo
   e_in = expf(__fadd_rn(ct1, __fsub_rn(fminf(l, 0.0f), sp)));
   e_out = expf(__fadd_rn(ct1, __fsub_rn(fminf(-l, 0.0f), sp)));
 }
-__device__ __forceinline__ void occupancies(float l, float ct1, float& e_in, float& e_out) {
-  occupancies_of(l, log1pf(expf(-fabsf(l))), ct1, e_in, e_out);
-}
 
-__device__ __forceinline__ float logit(float g, float tau, bool above) {
-  const float l = __fdiv_rn(__fsub_rn(g, 127.5f), tau);
+// l = +-(g - 127.5) / tau.
+__device__ __forceinline__ float logit(float g, float tau, float inv_tau2, bool above) {
+  const float l = div_by(__fsub_rn(g, 127.5f), tau, inv_tau2);
   return above ? l : -l;
 }
 
-// Forward producer: the two shifted occupancies of a pixel.
+// Forward producer: gray staged (one plane), then the two shifted
+// occupancies of a live pixel.
 struct Occupancy {
+  static constexpr int kPlanes = 1;
   const float* gray;
-  float tau, ct1;  // ct1 = c / T
+  float tau, inv_tau2;  // inv_tau2: 1/tau where tau is a power of two, else 0 (div_by)
+  float ct1;            // c / T
   bool above;
-  __device__ __forceinline__ void operator()(size_t i, float& e_in, float& e_out) const {
-    occupancies(logit(gray[i], tau, above), ct1, e_in, e_out);
+  __device__ __forceinline__ void stage(float* raw, int e, size_t i) const { cp_async4(raw + e, gray + i); }
+  __device__ __forceinline__ void operator()(const float* raw, int e, float& e_in, float& e_out) const {
+    const float l = logit(raw[e], tau, inv_tau2, above);
+    occupancies_of(l, log1pf(expf(-fabsf(l))), ct1, e_in, e_out);
+  }
+};
+
+// Backward producer: the cotangent and both memos staged, then the tails'
+// VJP ds of a live pixel.
+struct DsOfTails {
+  static constexpr int kPlanes = 3;
+  TailsVjp vjp;
+  __device__ __forceinline__ void stage(float* raw, int e, size_t i) const {
+    cp_async4(raw + e, vjp.ct + i);
+    cp_async4(raw + kRows * kIn + e, vjp.d2_in + i);
+    cp_async4(raw + 2 * kRows * kIn + e, vjp.d2_out + i);
+  }
+  __device__ __forceinline__ void operator()(const float* raw, int e, float& ds_in, float& ds_out) const {
+    vjp(raw[e], raw[kRows * kIn + e], raw[2 * kRows * kIn + e], ds_in, ds_out);
   }
 };
 
@@ -137,20 +158,29 @@ struct Occupancy {
 // pixel (the caller crops what lies outside the image).
 struct FwdTails {
   Tails tails;
-  __device__ __forceinline__ void operator()(size_t i, float s_in, float s_out, bool) const {
+  __device__ __forceinline__ float ahead(size_t) const { return 0.0f; }
+  __device__ __forceinline__ void operator()(size_t i, float, float s_in, float s_out, bool) const {
     tails(i, s_in, s_out);
   }
 };
 
-// Backward epilogue: the occupancy VJP, dgray from the pixel's gray. exp(-|l|)
-// is the occupancy's and one of the sigmoids' (exp(l) where l <= 0, exp(-l)
-// where l >= 0), so it is formed once: the same values as forming each.
+// Backward epilogue: the occupancy VJP, dgray from the pixel's gray (loaded
+// ahead of the cols conv), zero outside the live window. exp(-|l|) is the
+// occupancy's and one of the sigmoids' (exp(l) where l <= 0, exp(-l) where l
+// >= 0), so it is formed once: the same values as forming each.
 struct OccupancyVjp {
+  const float* gray;
+  float* dgray;
   float tau, ct1;
   bool above;
   float inv_tau2;  // 1/tau where tau is a power of two, else 0 (div_by)
-  __device__ __forceinline__ float operator()(float g, float de_in, float de_out) const {
-    const float lp = div_by(__fsub_rn(g, 127.5f), tau, inv_tau2), l = above ? lp : -lp;
+  __device__ __forceinline__ float ahead(size_t i) const { return gray[i]; }
+  __device__ __forceinline__ void operator()(size_t i, float g, float de_in, float de_out, bool live) const {
+    if (!live) {
+      dgray[i] = 0.0f;
+      return;
+    }
+    const float l = logit(g, tau, inv_tau2, above);
     const float e = expf(-fabsf(l)), f = expf(fabsf(l));
     float e_in, e_out;
     occupancies_of(l, log1pf(e), ct1, e_in, e_out);
@@ -159,106 +189,20 @@ struct OccupancyVjp {
     const float dg = div_by(__fsub_rn(__fmul_rn(__fmul_rn(de_in, e_in), sig_m),
                                       __fmul_rn(__fmul_rn(de_out, e_out), sig_p)),
                             tau, inv_tau2);
-    return above ? dg : -dg;
+    dgray[i] = above ? dg : -dg;
   }
 };
 
-// Shared memory of a forward block, in floats.
-__host__ __device__ constexpr int smem_floats(int k2) {
-  return 2 * (kTile + 2 * k2) * kTile + kWarps * 2 * kRowBuf;
+// Shared memory of a block, in floats: the staged planes, the conv inputs of
+// both fields, the ring of both fields.
+template <class Producer>
+constexpr int smem_floats() {
+  return Producer::kPlanes * kRows * kIn + 2 * kRows * kDsStride + 2 * kRingRows * kRingStride;
 }
 
-// One 64x64 output tile of image blockIdx.z (the forward): producer over the
-// tile's halo-extended input rows, rows conv, cols conv, epilogue. Pixels
-// outside the live window produce zeros (the convs' zero boundary).
-template <class Producer, class Epilogue>
-__device__ __forceinline__ void two_conv_tile(const Producer& prod, const Epilogue& epi,
-                                              const Geometry& geo, const Taps& taps) {
-  extern __shared__ float smem[];
-  __shared__ float w1[kTaps], w2[kTaps];
-  const int k1 = geo.k1, k2 = geo.k2;
-  const int rows = kTile + 2 * k2;
-  const int cols_in = kTile + 2 * k1;
-  float* a_in = smem;                  // [rows][kTile], rows conv of field 0
-  float* a_out = a_in + rows * kTile;  // field 1
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* r_in = a_out + rows * kTile + warp * 2 * kRowBuf;
-  float* r_out = r_in + kRowBuf;
-  if (threadIdx.x < kTaps) {
-    w1[threadIdx.x] = taps.w1[threadIdx.x];
-    w2[threadIdx.x] = taps.w2[threadIdx.x];
-  }
-  __syncthreads();
-
-  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
-  const size_t in_plane = (size_t)blockIdx.z * geo.h_in * geo.w;
-  const size_t out_plane = (size_t)blockIdx.z * geo.h_out * geo.w;
-
-  // stage 1: per row of the tile and its k2-row halo, the producer over
-  // the row's 64 + 2 k1 pixels, then the rows conv of its 64 outputs
-  for (int r = warp; r < rows; r += kWarps) {
-    const int y = y0 - k2 + r + geo.row_off;  // input row
-    const bool y_in = y >= geo.ylo && y < geo.yhi;
-    for (int j = lane; j < cols_in; j += 32) {
-      const int x = x0 - k1 + j;
-      float v_in = 0.0f, v_out = 0.0f;
-      if (y_in && x >= geo.xlo && x < geo.xhi) prod(in_plane + (size_t)y * geo.w + x, v_in, v_out);
-      r_in[j] = v_in;
-      r_out[j] = v_out;
-    }
-    __syncwarp();
-    for (int q = lane; q < kTile; q += 32) {
-      float s_in = 0.0f, s_out = 0.0f;
-      for (int i = 0; i <= 2 * k1; ++i) {
-        const float wv = w1[i];
-        s_in = __fadd_rn(s_in, __fmul_rn(wv, r_in[q + i]));
-        s_out = __fadd_rn(s_out, __fmul_rn(wv, r_out[q + i]));
-      }
-      a_in[r * kTile + q] = s_in;
-      a_out[r * kTile + q] = s_out;
-    }
-    __syncwarp();  // the row buffer is refilled next
-  }
-  __syncthreads();
-
-  // stage 2: one column and every (kThreads / kTile)-th row per thread:
-  // the cols conv, then the epilogue
-  const int q = threadIdx.x % kTile;
-  const int x = x0 + q;
-  if (x >= geo.w) return;
-  const bool x_in = x >= geo.xlo && x < geo.xhi;
-  for (int o = threadIdx.x / kTile; o < kTile && y0 + o < geo.h_out; o += kThreads / kTile) {
-    float s_in = 0.0f, s_out = 0.0f;
-    for (int i = 0; i <= 2 * k2; ++i) {
-      const float wv = w2[i];
-      s_in = __fadd_rn(s_in, __fmul_rn(wv, a_in[(o + i) * kTile + q]));
-      s_out = __fadd_rn(s_out, __fmul_rn(wv, a_out[(o + i) * kTile + q]));
-    }
-    const int y = y0 + o + geo.row_off;
-    epi(out_plane + (size_t)(y0 + o) * geo.w + x, s_in, s_out, x_in && y >= geo.ylo && y < geo.yhi);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-soft_mm_fwd_kernel(Occupancy prod, FwdTails epi, Geometry geo, Taps taps) {
-  two_conv_tile(prod, epi, geo, taps);
-}
-
-// ----------------------------------------------------------------- backward
-
-constexpr int kBwdCols = 128;                 // output columns per block
-constexpr int kBwdRows = 16;                  // rows a batch (tails' VJP, rows conv) and a chunk (cols conv)
-constexpr int kBwdPer = 8;                    // consecutive outputs a thread in each conv
-constexpr int kBwdThreads = kBwdCols * kBwdRows / kBwdPer;  // one conv item a thread (256)
-constexpr int kRingRows = 3 * kBwdRows;       // the ring: 3 batches, 16 + 2 k2 <= 48 rows
-constexpr int kBwdIn = kBwdCols + 2 * kMaxK;  // staged columns, at most
-constexpr int kDsStride = 208;                // a ds row: kBwdIn columns skewed (180), 16 mod 32
-constexpr int kRingStride = kBwdCols + 4;     // a ring row: the next row 4 banks on
-constexpr int kBwdSmem = 3 * kBwdRows * kBwdIn + 2 * kBwdRows * kDsStride + 2 * kRingRows * kRingStride;
-
-// A ds row's column c, skewed by one every 8: the 16 windows of a warp's row
-// (8 columns apart) start in distinct banks, and the warp's two rows 16 banks
-// apart.
+// A conv-input row's column c, skewed by one every 8: the 16 windows of a
+// warp's row (8 columns apart) start in distinct banks, and the warp's two
+// rows 16 banks apart.
 __device__ __forceinline__ int ds_col(int c) { return c + (c >> 3); }
 
 // The taps 0 .. 2 k of one conv for 8 consecutive outputs: out[q] = sum_i
@@ -269,23 +213,23 @@ __device__ __forceinline__ int ds_col(int c) { return c + (c >> 3); }
 // a kernel parameter at a fixed offset.
 template <class At>
 __device__ __forceinline__ void conv_taps(const float* src0, const float* src1, At at, const float* w, int k,
-                                          float (&out0)[kBwdPer], float (&out1)[kBwdPer]) {
-  float v0[kBwdPer + 2 * kMaxK], v1[kBwdPer + 2 * kMaxK];
+                                          float (&out0)[kPer], float (&out1)[kPer]) {
+  float v0[kPer + 2 * kMaxK], v1[kPer + 2 * kMaxK];
 #pragma unroll
-  for (int q = 0; q < kBwdPer; ++q) out0[q] = out1[q] = 0.0f;
+  for (int q = 0; q < kPer; ++q) out0[q] = out1[q] = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kBwdPer - 1; ++j) {
+  for (int j = 0; j < kPer - 1; ++j) {
     v0[j] = src0[at(j)];
     v1[j] = src1[at(j)];
   }
 #pragma unroll
   for (int i = 0; i < kTaps; ++i) {
     if (i <= 2 * k) {
-      v0[i + kBwdPer - 1] = src0[at(i + kBwdPer - 1)];
-      v1[i + kBwdPer - 1] = src1[at(i + kBwdPer - 1)];
+      v0[i + kPer - 1] = src0[at(i + kPer - 1)];
+      v1[i + kPer - 1] = src1[at(i + kPer - 1)];
       const float wv = w[i];
 #pragma unroll
-      for (int q = 0; q < kBwdPer; ++q) {
+      for (int q = 0; q < kPer; ++q) {
         out0[q] = __fadd_rn(out0[q], __fmul_rn(wv, v0[q + i]));
         out1[q] = __fadd_rn(out1[q], __fmul_rn(wv, v1[q + i]));
       }
@@ -293,87 +237,75 @@ __device__ __forceinline__ void conv_taps(const float* src0, const float* src1, 
   }
 }
 
-// grid (column tiles, strips, N); block 256. A block owns output columns
-// [x0, x0 + 128) and rows [o_start, o_end) of image blockIdx.z. Ring row u
-// holds the rows conv at input row y_base + u (y_base = o_start + row_off -
-// k2) in ring slot u mod 48; batch b is ring rows 16 b .. 16 b + 15, and
-// output row o_start + t sums ring rows t .. t + 2 k2. Per chunk of 16
-// output rows: the batches it needs that are not in yet (each: wait for its
-// staged inputs, the tails' VJP into ds, start the next batch's copies, the
-// rows conv into the ring), then the cols conv and the occupancy VJP.
-__global__ void __launch_bounds__(kBwdThreads, 2)
-soft_mm_bwd_kernel(TailsVjp prod, OccupancyVjp epi, const float* gray, float* dgray,
-                   const __grid_constant__ Geometry geo, const __grid_constant__ Taps taps, int strip) {
+// A block of either kernel: output columns [x0, x0 + 128) and rows [o_start,
+// o_end) of image blockIdx.z. Ring row u holds the rows conv at input row
+// y_base + u (y_base = o_start + row_off - k2) in ring slot u mod 48; batch b
+// is ring rows 16 b .. 16 b + 15, and output row o_start + t sums ring rows t
+// .. t + 2 k2. Per chunk of 16 output rows: the batches it needs that are not
+// in yet (each: wait for its staged inputs, the producer into the conv
+// inputs, start the next batch's copies, the rows conv into the ring), then
+// the cols conv and the epilogue. A pixel outside the live window (or the
+// frame) gives zero conv inputs (the convs' zero boundary); it is not staged.
+template <class Producer, class Epilogue>
+__device__ __forceinline__ void strip_walk(const Producer& prod, const Epilogue& epi, const Geometry& geo,
+                                           const Taps& taps, int strip) {
   extern __shared__ float smem[];
-  float* raw = smem;                             // [3][16][160]: ct, d2_in, d2_out of a batch
-  float* dsb = raw + 3 * kBwdRows * kBwdIn;      // [2][16][kDsStride]: the batch's ds
-  float* ring = dsb + 2 * kBwdRows * kDsStride;  // [2][48][kRingStride]: the rows conv
-  const int k1 = geo.k1, k2 = geo.k2, cw = kBwdCols + 2 * k1;
-  const int tid = threadIdx.x, x0 = blockIdx.x * kBwdCols;
+  float* raw = smem;                                    // [planes][16][160]: a batch as staged
+  float* dsb = raw + Producer::kPlanes * kRows * kIn;   // [2][16][kDsStride]: the batch's conv inputs
+  float* ring = dsb + 2 * kRows * kDsStride;            // [2][48][kRingStride]: the rows conv
+  const int k1 = geo.k1, k2 = geo.k2, cw = kCols + 2 * k1;
+  const int tid = threadIdx.x, x0 = blockIdx.x * kCols;
   const int o_start = blockIdx.y * strip, o_end = min(o_start + strip, geo.h_out);
   const int y_base = o_start + geo.row_off - k2;
-  const int batches = (o_end - o_start + 2 * k2 + kBwdRows - 1) / kBwdRows;
+  const int batches = (o_end - o_start + 2 * k2 + kRows - 1) / kRows;
   const size_t in_plane = (size_t)blockIdx.z * geo.h_in * geo.w;
   const size_t out_plane = (size_t)blockIdx.z * geo.h_out * geo.w;
-  const float* ct = prod.ct + in_plane;
-  const float* d2i = prod.d2_in + in_plane;
-  const float* d2o = prod.d2_out + in_plane;
   // a thread's pixels of a batch are n = tid + 256 m = cw r + c (row r,
   // column c < cw), staged at e = 160 r + c
   const int r_first = tid / cw, c_first = tid - r_first * cw;
   auto live = [&](int y, int x) { return y >= geo.ylo && y < geo.yhi && x >= geo.xlo && x < geo.xhi; };
   auto stage = [&](int b) {  // start batch b's copies
     int r = r_first, c = c_first;
-    for (int n = tid; n < kBwdRows * cw; n += kBwdThreads) {
-      const int y = y_base + kBwdRows * b + r, x = x0 - k1 + c, e = r * kBwdIn + c;
-      if (live(y, x)) {
-        const size_t i = (size_t)y * geo.w + x;
-        cp_async4(raw + e, ct + i);
-        cp_async4(raw + kBwdRows * kBwdIn + e, d2i + i);
-        cp_async4(raw + 2 * kBwdRows * kBwdIn + e, d2o + i);
-      } else {  // no input: a zero cotangent and dead memos, whose ds is 0
-        raw[e] = 0.0f;
-        raw[kBwdRows * kBwdIn + e] = kDeadD2;
-        raw[2 * kBwdRows * kBwdIn + e] = kDeadD2;
-      }
-      for (c += kBwdThreads; c >= cw; c -= cw) ++r;
+    for (int n = tid; n < kRows * cw; n += kThreads) {
+      const int y = y_base + kRows * b + r, x = x0 - k1 + c;
+      if (live(y, x)) prod.stage(raw, r * kIn + c, in_plane + (size_t)y * geo.w + x);
+      for (c += kThreads; c >= cw; c -= cw) ++r;
     }
     cp_commit();
   };
 
   stage(0);
   int b = 0;
-  for (int t0 = 0; t0 < o_end - o_start; t0 += kBwdRows) {
-    const int need = min((t0 + kBwdRows - 1 + 2 * k2) / kBwdRows, batches - 1);
+  for (int t0 = 0; t0 < o_end - o_start; t0 += kRows) {
+    const int need = min((t0 + kRows - 1 + 2 * k2) / kRows, batches - 1);
     for (; b <= need; ++b) {
       cp_wait_all();
-      __syncthreads();  // batch b is in; the last convs are done with ds and the ring slot
-      // the tails' VJP, every staged pixel
+      __syncthreads();  // batch b is in; the last convs are done with the conv inputs and the ring slot
+      // the producer, every staged pixel
       {
         int r = r_first, c = c_first;
-        for (int n = tid; n < kBwdRows * cw; n += kBwdThreads) {
-          const int e = r * kBwdIn + c;
-          float a, z;
-          prod(raw[e], raw[kBwdRows * kBwdIn + e], raw[2 * kBwdRows * kBwdIn + e], a, z);
+        for (int n = tid; n < kRows * cw; n += kThreads) {
+          float a = 0.0f, z = 0.0f;
+          if (live(y_base + kRows * b + r, x0 - k1 + c)) prod(raw, r * kIn + c, a, z);
           dsb[r * kDsStride + ds_col(c)] = a;
-          dsb[(kBwdRows + r) * kDsStride + ds_col(c)] = z;
-          for (c += kBwdThreads; c >= cw; c -= cw) ++r;
+          dsb[(kRows + r) * kDsStride + ds_col(c)] = z;
+          for (c += kThreads; c >= cw; c -= cw) ++r;
         }
       }
-      __syncthreads();  // ds is in; the staging buffer is free
+      __syncthreads();  // the conv inputs are in; the staging buffer is free
       if (b + 1 < batches) stage(b + 1);
       {
         // rows conv: row r of the batch, outputs c0 .. c0 + 7, into ring slot
         // 16 (b mod 3) + r, columns xor'd with their 32-column block
-        const int r = tid / (kBwdCols / kBwdPer), c0 = kBwdPer * (tid % (kBwdCols / kBwdPer));
-        float a0[kBwdPer], a1[kBwdPer];
+        const int r = tid / (kCols / kPer), c0 = kPer * (tid % (kCols / kPer));
+        float a0[kPer], a1[kPer];
         const float* s0 = dsb + r * kDsStride;
-        conv_taps(s0, s0 + kBwdRows * kDsStride, [c0](int j) { return ds_col(c0 + j); }, taps.w1, k1, a0, a1);
-        float* d0 = ring + (kBwdRows * (b % 3) + r) * kRingStride + c0;
+        conv_taps(s0, s0 + kRows * kDsStride, [c0](int j) { return ds_col(c0 + j); }, taps.w1, k1, a0, a1);
+        float* d0 = ring + (kRows * (b % 3) + r) * kRingStride + c0;
         float* d1 = d0 + kRingRows * kRingStride;
         const int sw = (c0 >> 5) & 3;
 #pragma unroll
-        for (int q = 0; q < kBwdPer; ++q) {
+        for (int q = 0; q < kPer; ++q) {
           d0[q ^ sw] = a0[q];
           d1[q ^ sw] = a1[q];
         }
@@ -381,44 +313,52 @@ soft_mm_bwd_kernel(TailsVjp prod, OccupancyVjp epi, const float* gray, float* dg
     }
     __syncthreads();  // the ring holds the chunk's rows
     // cols conv: column q, tile rows t .. t + 7 (ring rows t .. t + 7 + 2 k2)
-    const int q = tid % kBwdCols, t = t0 + kBwdPer * (tid / kBwdCols);
+    const int q = tid % kCols, t = t0 + kPer * (tid / kCols);
     const int x = x0 + q;
-    float gv[kBwdPer];  // the epilogue's gray, loaded ahead of the conv
+    float pre[kPer];  // what the epilogue loads, ahead of the conv
 #pragma unroll
-    for (int m = 0; m < kBwdPer; ++m) {
+    for (int m = 0; m < kPer; ++m) {
       const int o = o_start + t + m;
-      gv[m] = (x < geo.w && o < o_end) ? gray[out_plane + (size_t)o * geo.w + x] : 0.0f;
+      pre[m] = (x < geo.w && o < o_end) ? epi.ahead(out_plane + (size_t)o * geo.w + x) : 0.0f;
     }
     const int us = t % kRingRows;
     const float* c0 = ring + (q ^ ((q >> 5) & 3));
-    float e0[kBwdPer], e1[kBwdPer];
+    float e0[kPer], e1[kPer];
     conv_taps(c0, c0 + kRingRows * kRingStride,
               [us](int j) { return (us + j >= kRingRows ? us + j - kRingRows : us + j) * kRingStride; }, taps.w2,
               k2, e0, e1);
     if (x < geo.w) {
       const bool x_in = x >= geo.xlo && x < geo.xhi;
 #pragma unroll
-      for (int m = 0; m < kBwdPer; ++m) {
+      for (int m = 0; m < kPer; ++m) {
         const int o = o_start + t + m, y = o + geo.row_off;
         if (o < o_end)
-          dgray[out_plane + (size_t)o * geo.w + x] =
-              x_in && y >= geo.ylo && y < geo.yhi ? epi(gv[m], e0[m], e1[m]) : 0.0f;
+          epi(out_plane + (size_t)o * geo.w + x, pre[m], e0[m], e1[m], x_in && y >= geo.ylo && y < geo.yhi);
       }
     }
   }
 }
 
-// Validates the launch and fills the geometry, taps, grid and shared size.
-// The window is clamped to the input frame.
+// grid (column tiles, strips, N); block 256.
+__global__ void __launch_bounds__(kThreads, 2)
+soft_mm_fwd_kernel(Occupancy prod, FwdTails epi, const __grid_constant__ Geometry geo,
+                   const __grid_constant__ Taps taps, int strip) {
+  strip_walk(prod, epi, geo, taps, strip);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+soft_mm_bwd_kernel(DsOfTails prod, OccupancyVjp epi, const __grid_constant__ Geometry geo,
+                   const __grid_constant__ Taps taps, int strip) {
+  strip_walk(prod, epi, geo, taps, strip);
+}
+
+// Validates the launch and fills the geometry and taps. The window is
+// clamped to the input frame.
 int prepare(int n, int h_in, int h_out, int w, int row_off, int ylo, int yhi, int xlo, int xhi,
-            int k1, int k2, const float* taps_host, Geometry* geo, Taps* taps, dim3* grid,
-            size_t* smem) {
+            int k1, int k2, const float* taps_host, Geometry* geo, Taps* taps) {
   if (n < 1 || h_in < 1 || h_out < 1 || w < 1 || n > 65535 || k1 < 0 || k2 < 0 || k1 > kMaxK ||
       k2 > kMaxK || taps_host == nullptr)
     return (int)cudaErrorInvalidValue;
-  *grid = dim3((unsigned)((w + kTile - 1) / kTile), (unsigned)((h_out + kTile - 1) / kTile),
-               (unsigned)n);
-  if (grid->y > 65535) return (int)cudaErrorInvalidValue;
   ylo = ylo < 0 ? 0 : ylo;
   yhi = yhi > h_in ? h_in : yhi;
   xlo = xlo < 0 ? 0 : xlo;
@@ -428,7 +368,6 @@ int prepare(int n, int h_in, int h_out, int w, int row_off, int ylo, int yhi, in
     taps->w1[i] = taps_host[i];
     taps->w2[i] = taps_host[kTaps + i];
   }
-  *smem = sizeof(float) * (size_t)smem_floats(k2);
   return 0;
 }
 
@@ -439,12 +378,26 @@ float pow2_inverse(float v) {
   return v > 0.0f && std::frexp(v, &e) == 0.5f && e >= -124 && e <= 126 ? std::ldexp(1.0f, 1 - e) : 0.0f;
 }
 
-// Above 48 KB a block's dynamic shared memory must be allowed first (on
-// the current device).
-template <class Kernel>
-int allow_smem(Kernel kernel) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)(sizeof(float) * smem_floats(kMaxK)));
+// Launches a strip kernel: strips of whole chunks, one block per SM slot in
+// all where the image has enough: a strip's 2 k2 halo rows stay a small
+// share, and every block does the same work, so one wave leaves no tail.
+template <class Kernel, class Producer, class Epilogue>
+int launch_strips(Kernel kernel, const Producer& prod, const Epilogue& epi, const Geometry& geo, const Taps& taps,
+                  int n, cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * smem_floats<Producer>();
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 132, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  const long long cols = (long long)((geo.w + kCols - 1) / kCols) * n, chunks = (geo.h_out + kRows - 1) / kRows;
+  long long strips = (long long)sms * (per_sm > 0 ? per_sm : 1) / cols;
+  strips = strips < 1 ? 1 : (strips > chunks ? chunks : strips);
+  const int strip = (int)((chunks + strips - 1) / strips) * kRows;
+  const dim3 grid((unsigned)((geo.w + kCols - 1) / kCols), (unsigned)((geo.h_out + strip - 1) / strip), (unsigned)n);
+  kernel<<<grid, kThreads, smem, stream>>>(prod, epi, geo, taps, strip);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -464,17 +417,12 @@ extern "C" int chaq_soft_mm_fwd(const void* gray, void* field, void* d2_in, void
                                 float eps, float shift, int test_above, void* stream) {
   Geometry geo;
   Taps tp;
-  dim3 grid;
-  size_t smem;
-  int rc = prepare(n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, &geo, &tp, &grid,
-                   &smem);
-  if (rc == 0) rc = allow_smem(soft_mm_fwd_kernel);
+  const int rc = prepare(n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, &geo, &tp);
   if (rc != 0) return rc;
   if ((d2_in == nullptr) != (d2_out == nullptr)) return (int)cudaErrorInvalidValue;
-  const Occupancy prod{(const float*)gray, tau, shift / t, test_above != 0};
+  const Occupancy prod{(const float*)gray, tau, pow2_inverse(tau), shift / t, test_above != 0};
   const FwdTails epi{Tails{(float*)field, (float*)d2_in, (float*)d2_out, shift, t, eps}};
-  soft_mm_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(prod, epi, geo, tp);
-  return (int)cudaGetLastError();
+  return launch_strips(soft_mm_fwd_kernel, prod, epi, geo, tp, n, (cudaStream_t)stream);
 }
 
 extern "C" int chaq_soft_mm_bwd(const void* ct, const void* d2_in, const void* d2_out,
@@ -484,29 +432,10 @@ extern "C" int chaq_soft_mm_bwd(const void* ct, const void* d2_in, const void* d
                                 int test_above, void* stream) {
   Geometry geo;
   Taps tp;
-  dim3 grid;
-  size_t smem;
-  int rc = prepare(n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, &geo, &tp, &grid,
-                   &smem);
-  const int smem_b = (int)sizeof(float) * kBwdSmem;  // 106 KB: 2 blocks an SM
-  if (rc == 0)
-    rc = (int)cudaFuncSetAttribute(soft_mm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
+  const int rc = prepare(n, h_in, h_out, w, row_off, ylo, yhi, xlo, xhi, k1, k2, taps, &geo, &tp);
   if (rc != 0) return rc;
-  int dev = 0, sms = 132, per_sm = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, soft_mm_bwd_kernel, kBwdThreads, smem_b);
-  // strips of whole chunks, one block per SM slot in all where the image has
-  // enough: a strip's 2 k2 halo rows stay a small share, and every block
-  // does the same work, so one wave leaves no tail
-  const long long cols = (long long)((w + kBwdCols - 1) / kBwdCols) * n, chunks = (h_out + kBwdRows - 1) / kBwdRows;
-  long long strips = (long long)sms * (per_sm > 0 ? per_sm : 1) / cols;
-  strips = strips < 1 ? 1 : (strips > chunks ? chunks : strips);
-  const int strip = (int)((chunks + strips - 1) / strips) * kBwdRows;
-  const dim3 g((unsigned)((w + kBwdCols - 1) / kBwdCols), (unsigned)((h_out + strip - 1) / strip), (unsigned)n);
-  const TailsVjp prod{(const float*)ct, (const float*)d2_in, (const float*)d2_out, shift, t, eps, pow2_inverse(t)};
-  const OccupancyVjp epi{tau, shift / t, test_above != 0, pow2_inverse(tau)};
-  soft_mm_bwd_kernel<<<g, kBwdThreads, smem_b, (cudaStream_t)stream>>>(prod, epi, (const float*)gray,
-                                                                    (float*)dgray, geo, tp, strip);
-  return (int)cudaGetLastError();
+  const DsOfTails prod{
+      TailsVjp{(const float*)ct, (const float*)d2_in, (const float*)d2_out, shift, t, eps, pow2_inverse(t)}};
+  const OccupancyVjp epi{(const float*)gray, (float*)dgray, tau, shift / t, test_above != 0, pow2_inverse(tau)};
+  return launch_strips(soft_mm_bwd_kernel, prod, epi, geo, tp, n, (cudaStream_t)stream);
 }

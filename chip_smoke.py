@@ -44,12 +44,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      gradient held against the plain version;
  10. soft times (CUDA events, as in phase 6) at 4096x4096
      spread 64: soft_mm_fwd without memos (serving) and with them
-     (training), soft_mm_bwd (also at tap radii 16), the training step and
-     SDFGenerator(soft).generate, each against its plain version;
-     soft_mm_bwd's two convs alone as F.conv2d (cuDNN, TF32 off) on the
-     (2, 4096, 4096) stack of the tails' VJP (its library_ms, convs only),
-     checked against the plain convs within 1e-5 of the scale; and
-     soft_mm_bwd against mm_fused_bwd_plain on the step's cotangent;
+     (training), soft_mm_bwd, both also at tap radii 16, the training step
+     and SDFGenerator(soft).generate, each against its plain version;
+     each kernel's two convs alone as F.conv2d (cuDNN, TF32 off) on the
+     (2, 4096, 4096) stack of the occupancies (soft_mm_fwd) or of the tails'
+     VJP (soft_mm_bwd): their library_ms, convs only, checked against the
+     plain convs within 1e-5 of the scale; and soft_mm_bwd against
+     mm_fused_bwd_plain on the step's cotangent;
  11. where the training step's device time goes: torch.profiler over 10
      steps, device time per kernel and the busy share;
  12. each adaptive soft kernel (csrc/soft_fused.cu) against its plain
@@ -79,12 +80,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
  14. adaptive times (CUDA events, as in phase 6): each of the four kernels
      and its plain version, the gated training step on the bench's noise,
      the adaptive step forced on it, the out-of-gamut step and the
-     SoftSDFModel step; soft_b2, soft_f1 and soft_b1 also on the glyph in
-     +-2040, each with its taps a pixel and field on each input
-     (b2_loop_taps, f1_loop_taps: live, the kernel's loop, the loop of the
-     design before it, whose reach came from a window-wide bound;
-     b1_loop_taps also B1's warp steps against those of the design before
-     it);
+     SoftSDFModel step; soft_b2, soft_f1, soft_f2 and soft_b1 also on the
+     glyph in +-2040, each with its taps a pixel and field on each input
+     (b2_loop_taps, f1_loop_taps, f2_loop_taps: live, the kernel's loop,
+     the loop of the design before it, whose reach came from a window-wide
+     bound; f2_loop_taps also F2's hard-min walk steps; b1_loop_taps also
+     B1's warp steps against those of the design before it);
  15. where the adaptive steps' device time goes: torch.profiler over the
      forced adaptive step and the gated out-of-gamut step;
  16. the BRUTE kernels (csrc/brute.cu: brute_rows, brute_scan_bytes) and the
@@ -220,9 +221,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      scale, the parameters after 3 steps within 1e-5), and the CLI
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
      glyph PNG byte for byte the unsharded SDFGenerator.
-`python3 chip_smoke.py --kernel-turn` times rows 2, 4, 5, 7, 8, 10, 11, 15
-and 16 and what they serve alone (kernel_turn: edt_turn first), on this
-tree or (copied in) its parent.
+`python3 chip_smoke.py --kernel-turn` times rows 2, 4, 5, 6, 7, 8, 9, 10,
+11, 15 and 16 and what they serve alone (kernel_turn: edt_turn first), on
+this tree or (copied in) its parent.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -875,6 +876,8 @@ def soft_phases(dev, glyph):
     times["generate_plain"] = cuda_ms(plain_generate)
     times["soft_mm_bwd_k16"] = mm_bwd_times(g0, (16,))[16]
     times["soft_mm_bwd_library"] = mm_bwd_library(ct, d2i, d2o, c, k1, k2)
+    times["soft_mm_fwd_k16"] = mm_fwd_times(g0, (16,))[(16, True)]
+    times["soft_mm_fwd_library"] = mm_fwd_library(g0, c, k1, k2)
     for k, ms in times.items():
         log(f"time soft {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
     dk = cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g0, *args)
@@ -889,6 +892,7 @@ def soft_phases(dev, glyph):
         "soft_mm_fwd": bound(16 * npix, soft_flops(npix, k1, k2, True)),
         "soft_mm_bwd": bound(20 * npix, soft_flops(npix, k1, k2, False)),
         "soft_mm_bwd_k16": bound(20 * npix, soft_flops(npix, 16, 16, False)),
+        "soft_mm_fwd_k16": bound(16 * npix, soft_flops(npix, 16, 16, True)),
     }
     for k, (ms, by) in bounds.items():
         log(f"bound soft {k}: {ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
@@ -897,6 +901,59 @@ def soft_phases(dev, glyph):
     # phase 11: device time by kernel over the training step
     profile_device("soft training step", lambda: train_step(g0))
     return err, launches, times, bounds
+
+
+def mm_fwd_times(g: torch.Tensor, radii=(10, 16)) -> dict:
+    """soft_mm_fwd on the bench's input at tap radii k1 = k2 = k, with the
+    memos (training) and without (serving) ({(k, memos): ms}, CUDA events),
+    each with a digest of its outputs (turns on two trees compare them)."""
+    _, _, c = soft_mxu.range_stats(SPREAD + 2, TRAIN_TAU, TRAIN_T, U8)
+    out = {}
+    for k in radii:
+        args = (c, k, k, TRAIN_TAU, TRAIN_T, 1e-6, True)
+        for memos in (True, False):
+            out[(k, memos)] = cuda_ms(lambda: cuda_soft_mm.mm_fused_fwd(g, *args, memos=memos))
+            res = cuda_soft_mm.mm_fused_fwd(g, *args, memos=memos)
+            dig = " ".join(digest(x) for x in (res if memos else (res,)))
+            log(f"time soft soft_mm_fwd k {k} {'with memos' if memos else 'serving'}: {out[(k, memos)]:.4f} ms; "
+                f"digest {dig}")
+    return out
+
+
+def mm_fwd_library(g, c, k1, k2) -> float:
+    """The library yardstick of soft_mm_fwd: its two convs alone as F.conv2d
+    (cuDNN, TF32 off) on the (2, H, W) stack of the occupancies, as
+    mm_bwd_library times the backward's; checked against the plain convs
+    within 1e-5 of the scale. No PyTorch call computes the whole kernel (the
+    occupancies and the tails around the convs), so this times the convs
+    only."""
+    _, e_in, e_out = soft_mxu.occupancy(g, TRAIN_TAU, TRAIN_T, c, True)
+    return convs_library("soft_mm_fwd", torch.stack([e_in, e_out]).unsqueeze(1), k1, k2)
+
+
+def convs_library(name, stack, k1, k2) -> float:
+    """The two convs of the declared kernels as F.conv2d (cuDNN, TF32 off)
+    on a (2, 1, H, W) stack, the 1 x (2 k1 + 1) taps then the (2 k2 + 1) x 1
+    (symmetric, so cross-correlation is the conv), zero padding: ms, after a
+    check against the plain convs within 1e-5 of the scale."""
+    conv2d = torch.nn.functional.conv2d
+    w1, w2 = soft_mxu.tap_weights(k1, TRAIN_T), soft_mxu.tap_weights(k2, TRAIN_T)
+    t1 = torch.tensor(w1, dtype=torch.float32, device=stack.device).view(1, 1, 1, -1)
+    t2 = torch.tensor(w2, dtype=torch.float32, device=stack.device).view(1, 1, -1, 1)
+    convs = lambda: conv2d(conv2d(stack, t1, padding=(0, k1)), t2, padding=(k2, 0))  # noqa: E731
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = torch.stack([soft_mxu.conv_cols(soft_mxu.conv_rows(d[0], w1), w2) for d in stack])
+        e_lib = float((convs().squeeze(1) - want).abs().max()) / float(want.abs().max())
+        ms = cuda_ms(convs)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"check {name}'s convs against F.conv2d (cuDNN, no TF32) on the {tuple(stack.shape)} stack, "
+        f"k1 {k1} k2 {k2}: max abs err {e_lib:.3e} of the scale {float(want.abs().max()):.4e}; "
+        f"F.conv2d (convs only) {ms:.4f} ms")
+    require(e_lib <= 1e-5, "the plain convs differ from F.conv2d")
+    return ms
 
 
 def mm_bwd_times(g: torch.Tensor, radii=(10, 16)) -> dict:
@@ -917,30 +974,11 @@ def mm_bwd_times(g: torch.Tensor, radii=(10, 16)) -> dict:
 
 def mm_bwd_library(ct, d2i, d2o, c, k1, k2) -> float:
     """The library yardstick of soft_mm_bwd: its two convs alone as F.conv2d
-    (cuDNN, TF32 off) on the (2, H, W) stack of the tails' VJP, the 1 x (2 k1
-    + 1) taps then the (2 k2 + 1) x 1 (symmetric, so cross-correlation is the
-    conv), zero padding; checked against the plain convs within 1e-5 of the
-    scale. No PyTorch call computes the whole kernel (the tails' VJP and the
-    occupancy VJP around the convs), so this times the convs only."""
-    conv2d = torch.nn.functional.conv2d
-    w1, w2 = soft_mxu.tap_weights(k1, TRAIN_T), soft_mxu.tap_weights(k2, TRAIN_T)
+    (cuDNN, TF32 off) on the (2, H, W) stack of the tails' VJP. No PyTorch
+    call computes the whole kernel (the tails' VJP and the occupancy VJP
+    around the convs), so this times the convs only."""
     ds = torch.stack(soft_mxu.tails_vjp(ct, d2i, d2o, TRAIN_T, c, 1e-6)).unsqueeze(1)
-    t1 = torch.tensor(w1, dtype=torch.float32, device=ds.device).view(1, 1, 1, -1)
-    t2 = torch.tensor(w2, dtype=torch.float32, device=ds.device).view(1, 1, -1, 1)
-    convs = lambda: conv2d(conv2d(ds, t1, padding=(0, k1)), t2, padding=(k2, 0))  # noqa: E731
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        want = torch.stack([soft_mxu.conv_cols(soft_mxu.conv_rows(d[0], w1), w2) for d in ds])
-        e_lib = float((convs().squeeze(1) - want).abs().max()) / float(want.abs().max())
-        ms = cuda_ms(convs)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    log(f"check soft_mm_bwd's convs against F.conv2d (cuDNN, no TF32) on the {tuple(ds.shape)} ds stack, "
-        f"k1 {k1} k2 {k2}: max abs err {e_lib:.3e} of the scale {float(want.abs().max()):.4e}; "
-        f"F.conv2d (convs only) {ms:.4f} ms")
-    require(e_lib <= 1e-5, "the plain convs differ from F.conv2d")
-    return ms
+    return convs_library("soft_mm_bwd", ds, k1, k2)
 
 
 # ------------------------------------------------------ adaptive soft phases
@@ -1127,6 +1165,60 @@ def f1_loop_taps(g: torch.Tensor, band: int, tau: float, t: float) -> dict:
     return out
 
 
+def f2_loop_taps(s1: torch.Tensor, band: int, t: float) -> dict:
+    """soft_f2's taps on one image's S1 (2, H, W), summed over pixels and
+    fields: ``live`` (inside the cut), ``loop`` (the kernel's sum: 2 R + 1,
+    R the longest reach of the pixel's warp, 32 columns of one row, each
+    lane's reach from the least S1 over its taps for the warp's 12 rows),
+    ``walk`` (the hard-min walk's steps), and ``block_loop`` and
+    ``block_walk`` (the design before it: from the least S1 over a 32-column
+    x (64 + 2 band)-row window, a warp stepping to its longest reach). The
+    torch form of tests/test_torch_f2_bounds.py's mirror."""
+    inv_t = float(np.float32(1.0 / t))
+    _, h, w = s1.shape
+    dev, inf = s1.device, float("inf")
+    nch, groups = -(-w // 32), -(-h // 12)
+
+    def reach_of(gap):
+        ok = lambda r: ((gap - (r * r).to(torch.float32)) * inv_t) >= -27.0  # noqa: E731
+        r = torch.sqrt((gap.double().nan_to_num(0.0, 1e9, 0.0) + 27.0 * t).clamp(0, 1e9)).floor().long()
+        r = r.clamp(max=band)
+        while bool((down := (r > 0) & ~ok(r)).any()):
+            r -= down.long()
+        while bool((up := (r < band) & ok(r + 1)).any()):
+            r += up.long()
+        return r
+
+    def per_warp(a):  # each pixel's warp's longest
+        a = torch.nn.functional.pad(a, (0, nch * 32 - w))
+        return a.view(h, nch, 32).amax(2).repeat_interleave(32, 1)[:, :w]
+
+    out = {"live": 0, "loop": 0, "walk": 0, "block_loop": 0, "block_walk": 0}
+    for v in s1:
+        vp = torch.full((12 * groups + 2 * band + 12, w), inf, device=dev)  # row y at y + band
+        vp[band : band + h] = v
+        # a lane's bound: the least over rows [12 g - band, 12 g + 11 + band] of its warp's rows 12 g ..
+        vmin = -torch.nn.functional.max_pool1d(-vp.t()[None], 2 * band + 12, 12)[0].t()[:groups]
+        vmin = vmin.repeat_interleave(12, 0)[:h]
+        vx = torch.nn.functional.pad(v, (0, nch * 32 - w), value=inf)
+        lo = torch.stack([vx[max(0, y0 - band) : y0 + 64 + band].view(-1, nch, 32).amin((0, 2))
+                          for y0 in range(0, h, 64)])
+        lo = lo.repeat_interleave(64, 0)[:h].repeat_interleave(32, 1)[:, :w]
+        m = v.clone()
+        for d in range(1, band + 1):
+            side = torch.minimum(vp[band - d : band - d + h], vp[band + d : band + d + h])
+            m = torch.minimum(m, side + float(d * d))
+        for d in range(-band, band + 1):
+            z = ((m - vp[band + d : band + d + h]) - float(d * d)) * inv_t
+            out["live"] += int((z >= -27.0).sum())
+            if d > 0:
+                out["walk"] += int((vmin + float(d * d) < m).sum())
+                out["block_walk"] += int((lo + float(d * d) < m).sum())
+        out["loop"] += int((2 * per_warp(reach_of(m - vmin)) + 1).sum())
+        out["block_loop"] += int((2 * per_warp(reach_of(m - lo)) + 1).sum())
+    return out
+
+
 def b1_loop_taps(s1: torch.Tensor, h: torch.Tensor, band: int, t: float) -> dict:
     """soft_b1's taps on one image's S1 and heights (2, H, W), summed over
     pixels and fields: ``live`` (inside the cut), ``loop`` (the kernel's
@@ -1232,6 +1324,25 @@ def f1_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool
             line += (f"; taps a pixel and field: live {per['live']:.3f}, loop {per['loop']:.3f}, "
                      f"block-bound loop {per['block_loop']:.3f}")
         log(line)
+
+
+def f2_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool = True) -> None:
+    """soft_f2 on each input (CUDA events; S1 from F1, the memos written, as
+    the training step runs it), digests of its field and memos (turns on two
+    trees compare them) and, with ``count``, its taps a pixel and field
+    (f2_loop_taps: live, the loop and the hard-min walk's steps, and those
+    of the design before it, whose bound was block-wide)."""
+    for name, g in inputs.items():
+        s1 = soft_fused.f1_pass(g, band, tau, t)
+        ms = cuda_ms(lambda: soft_fused.f2_pass(s1, band, t, EPS))
+        field, d2 = soft_fused.f2_pass(s1, band, t, EPS)
+        line = f"time adaptive {name} soft_f2: {ms:.4f} ms; digest field {digest(field)} memos {digest(d2)}"
+        if count:
+            per = {k: v / (2 * g.numel()) for k, v in f2_loop_taps(s1, band, t).items()}
+            line += (f"; taps a pixel and field: live {per['live']:.3f}, loop {per['loop']:.3f}, walk steps "
+                     f"{per['walk']:.3f}; block-bound loop {per['block_loop']:.3f}, walk {per['block_walk']:.3f}")
+        log(line)
+        del s1, field, d2
 
 
 def b1_times_and_taps(inputs: dict, band: int, tau: float, t: float, count: bool = True) -> None:
@@ -1440,6 +1551,7 @@ def fused_phases(dev, glyph):
     log(f"time adaptive SoftSDFModel step {tuple(img.shape)}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
     b2_times_and_taps(big, band, tau, t)
     f1_times_and_taps(big, band, tau, t)
+    f2_times_and_taps(big, band, tau, t)
     b1_times_and_taps(big, band, tau, t)
 
     npix = SIZE * SIZE
@@ -2449,15 +2561,17 @@ def edt_turn(dev, noise, glyph) -> None:
 
 
 def kernel_turn(dev, noise, glyph) -> None:
-    """Rows 2, 4, 5, 7, 8, 10, 11, 15 and 16 and what they serve, alone, on
-    any tree that has these kernels (this one or its parent, for turns in
-    one call): first edt_turn; then soft_b2, soft_f1 and soft_b1 on the
-    bench's noise, pm2000 and the glyph in +-2040, soft_mm_bwd on the
-    bench's noise at tap radii 10 and 16 (with digests of soft_b1's and
-    soft_mm_bwd's outputs), the declared training step, the forced and
-    gated adaptive steps and SoftSDFModel's step; brute_scan_bytes_halo on
-    each shard of the glyph and the noise over 4 shards and at row_off 0 on
-    the whole image beside brute_scan_bytes, and sharded BRUTE over (4,)."""
+    """Rows 2, 4, 5, 6, 7, 8, 9, 10, 11, 15 and 16 and what they serve,
+    alone, on any tree that has these kernels (this one or its parent, for
+    turns in one call): first edt_turn; then soft_b2, soft_f1, soft_f2
+    (row 9) and soft_b1 on the bench's noise, pm2000 and the glyph in
+    +-2040, soft_mm_bwd on the bench's noise at tap radii 10 and 16, and
+    soft_mm_fwd (row 6) there at 10 and 16 with and without memos (with
+    digests of soft_f2's, soft_b1's and both declared kernels' outputs),
+    the declared training step, the forced and gated adaptive steps and
+    SoftSDFModel's step; brute_scan_bytes_halo on each shard of the glyph
+    and the noise over 4 shards and at row_off 0 on the whole image beside
+    brute_scan_bytes, and sharded BRUTE over (4,)."""
     edt_turn(dev, noise, glyph)
     band, tau, t = SPREAD + 2, TRAIN_TAU, TRAIN_T
     rng = np.random.default_rng(SEED + 5)
@@ -2468,8 +2582,10 @@ def kernel_turn(dev, noise, glyph) -> None:
     }
     b2_times_and_taps(inputs, band, tau, t, count=False)
     f1_times_and_taps(inputs, band, tau, t, count=False)
+    f2_times_and_taps(inputs, band, tau, t, count=False)
     b1_times_and_taps(inputs, band, tau, t, count=False)
     mm_bwd_times(inputs["noise"])
+    mm_fwd_times(inputs["noise"])
 
     def step_with(field_fn):
         def step(g):
@@ -3252,9 +3368,10 @@ def sharded_soft_phases(dev, noise, glyph):
 
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
-    bounds). library_ms is the time of the halo kernels' Tensor.to form and
-    of cols_conv's F.conv2d; no PyTorch call computes any other kernel's
-    function (null)."""
+    bounds). library_ms is the time of the halo kernels' Tensor.to form, of
+    cols_conv's F.conv2d and of the declared kernels' two convs as F.conv2d
+    (convs only); no PyTorch call computes any other kernel's function
+    (null)."""
     rows = []
     for k, spec in KERNELS.items():
         err, launches, times, bounds = next(p for p in paths if k in p[0])

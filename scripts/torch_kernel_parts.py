@@ -1,8 +1,10 @@
-"""Where soft_b1's and soft_mm_bwd's time goes, on one NVIDIA GPU: each
-kernel timed as built, then built again from an edited copy of
-chaq_sdfgen_tpu_torch/csrc with one part stripped out, so the difference is
-that part's share. The edited kernels compute wrong values; they are timed
-only, never used.
+"""Where four soft kernels' time goes, on one NVIDIA GPU: soft_b1,
+soft_mm_bwd, soft_f2 and soft_mm_fwd timed as built, then built again from
+an edited copy of chaq_sdfgen_tpu_torch/csrc with one part stripped out or
+changed, so the difference is that part's share or that design's cost. A
+stripped kernel computes wrong values; it is timed only, never used. The
+design variants (f2_64_rows .. f2_both_fields, fwd_divide) compute the same
+values.
 
     python3 scripts/torch_kernel_parts.py
 
@@ -15,10 +17,25 @@ the sources stops the script):
                   cotangent and memo);
   mm_no_occ_vjp   soft_mm_bwd without the occupancy VJP (dgray = a sum);
   mm_divide       soft_mm_bwd dividing by T and tau where they are powers of
-                  two too (no exact products).
+                  two too (no exact products);
+  f2_no_walk      soft_f2 without its hard-min walk (m = the centre tap);
+  f2_no_taps      soft_f2 without its sum over the taps (the reach is left);
+  f2_64_rows      soft_f2 with 64-row tiles (the parent's);
+  f2_lane_reach   soft_f2's lanes each to its own reach, not the warp's
+                  longest;
+  f2_unrolled     soft_f2's loop over a thread's rows unrolled (the
+                  parent's);
+  f2_select       soft_f2's cut as a select (expf for every tap looped);
+  f2_both_fields  soft_f2 staging both fields' windows at once (twice the
+                  shared memory, one barrier pair);
+  fwd_no_occ      soft_mm_fwd without the occupancies' transcendentals;
+  fwd_no_tails    soft_mm_fwd without the tails (field = a sum, no memos);
+  fwd_divide      soft_mm_fwd dividing by tau where it is a power of two
+                  too (the design before it; its values are right).
 Times: CUDA events around 10 back-to-back calls, the median of 5 windows
 (chip_smoke.cuda_ms), at 4096x4096, spread 64, tau 2, T 1, on the inputs
-chip_smoke.py uses; the card's name and power limit are printed first.
+chip_smoke.py uses (soft_f2 on all three, the declared kernels on the
+bench's noise at k 10); the card's name and power limit are printed first.
 """
 
 import os
@@ -35,6 +52,52 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from chaq_sdfgen_tpu_torch.ops import _build, cuda_soft_mm, soft_fused, soft_mxu  # noqa: E402
 
+# soft_f2's staging of one field's window, and of both at once (f2_both_fields)
+F2_STAGE = """  for (int f = 0; f < 2; ++f) {
+    const float* src = s1 + ((size_t)blockIdx.z * 2 + f) * plane;
+    for (int k = w; k < segs; k += kF2Warps) {
+      float v[kSeg];
+#pragma unroll
+      for (int i = 0; i < kSeg; ++i) {
+        const int y = y0 - band + k * kSeg + i;
+        v[i] = live && y >= 0 && y < h ? src[(size_t)y * W + x] : kInf;
+      }
+      float lo = kInf;
+#pragma unroll
+      for (int i = 0; i < kSeg; ++i) {
+        win[(k * kSeg + i) * kLanes + tx] = v[i];
+        lo = fminf(lo, v[i]);
+      }
+      segm[k * kLanes + tx] = lo;
+    }
+    __syncthreads();
+    if (nw > 0) {
+      const float* col = win + tx;
+      // a lower bound of every tap of the warp's rows in this lane
+      const float vmin = f2_window_min(col, segm + tx, ow, ow + nw - 1 + 2 * band);"""
+F2_STAGE_BOTH = """  for (int k = w; k < 2 * segs; k += kF2Warps) {
+    const int ff = k / segs, kk = k - ff * segs;
+    const float* src = s1 + ((size_t)blockIdx.z * 2 + ff) * plane;
+    float v[kSeg];
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i) {
+      const int y = y0 - band + kk * kSeg + i;
+      v[i] = live && y >= 0 && y < h ? src[(size_t)y * W + x] : kInf;
+    }
+    float lo = kInf;
+#pragma unroll
+    for (int i = 0; i < kSeg; ++i) {
+      win[((ff * segs + kk) * kSeg + i) * kLanes + tx] = v[i];
+      lo = fminf(lo, v[i]);
+    }
+    segm[(ff * segs + kk) * kLanes + tx] = lo;
+  }
+  __syncthreads();
+  for (int f = 0; f < 2; ++f) {
+    if (nw > 0) {
+      const float* col = win + f * segs * kSeg * kLanes + tx;
+      const float vmin = f2_window_min(col, segm + f * segs * kLanes + tx, ow, ow + nw - 1 + 2 * band);"""
+
 PARTS = {
     "as built": [],
     "b1_no_taps": [("soft_fused.cu",
@@ -43,12 +106,39 @@ PARTS = {
                     "const float dh0 = (float)r0, dh1 = (float)r1;")],
     "b1_no_expf": [("soft_fused.cu", "if (z >= -kCut) acc = __fadd_rn(acc, __fmul_rn(expf(z), sg[q]));",
                     "if (z >= -kCut) acc = __fadd_rn(acc, __fmul_rn(z, sg[q]));")],
-    "mm_no_vjp": [("soft_mm.cu", "prod(raw[e], raw[kBwdRows * kBwdIn + e], raw[2 * kBwdRows * kBwdIn + e], a, z);",
-                   "a = raw[e], z = raw[kBwdRows * kBwdIn + e];")],
-    "mm_no_occ_vjp": [("soft_mm.cu", "? epi(gv[m], e0[m], e1[m]) : 0.0f",
-                       "? __fadd_rn(gv[m], __fadd_rn(e0[m], e1[m])) : 0.0f")],
-    "mm_divide": [("soft_mm.cu", "shift, t, eps, pow2_inverse(t)};", "shift, t, eps, 0.0f};"),
+    "mm_no_vjp": [("soft_mm.cu", "vjp(raw[e], raw[kRows * kIn + e], raw[2 * kRows * kIn + e], ds_in, ds_out);",
+                   "ds_in = raw[e], ds_out = raw[kRows * kIn + e];")],
+    "mm_no_occ_vjp": [("soft_mm.cu", "    if (!live) {\n      dgray[i] = 0.0f;\n      return;\n    }",
+                       "    if (true) {\n      dgray[i] = live ? __fadd_rn(g, __fadd_rn(de_in, de_out)) : 0.0f;\n"
+                       "      return;\n    }")],
+    "mm_divide": [("soft_mm.cu", "shift, t, eps, pow2_inverse(t)}};", "shift, t, eps, 0.0f}};"),
                   ("soft_mm.cu", "test_above != 0, pow2_inverse(tau)};", "test_above != 0, 0.0f};")],
+    "f2_no_walk": [("soft_fused.cu", "            if (__fadd_rn(vmin, dd) >= m) break;\n",
+                    "            if (true) break;\n")],
+    "f2_no_taps": [("soft_fused.cu", "        float s = 0.0f, df = (float)(-reach);\n",
+                    "        float s = 1.0f + (float)reach, df = (float)(-reach);\n        if (false)\n")],
+    "f2_64_rows": [("soft_fused.cu", "constexpr int kF2Rows = 96;", "constexpr int kF2Rows = 64;")],
+    "f2_lane_reach": [("soft_fused.cu", "        reach = __reduce_max_sync(0xffffffffu, reach);\n", "")],
+    "f2_unrolled": [("soft_fused.cu", "#pragma unroll 1\n      for (int i = 0; i < nw; ++i) {",
+                     "#pragma unroll\n      for (int i = 0; i < kF2Per; ++i) {\n        if (i >= nw) break;")],
+    "f2_select": [("soft_fused.cu",
+                   "          if (z >= -kCut) s = __fadd_rn(s, expf(z));\n        }\n        const float val",
+                   "          s = __fadd_rn(s, z >= -kCut ? expf(z) : 0.0f);\n        }\n        const float val")],
+    "f2_both_fields": [
+        ("soft_fused.cu", F2_STAGE, F2_STAGE_BOTH),
+        ("soft_fused.cu", "  float* segm = win + segs * kSeg * kLanes;  // segs x 32",
+         "  float* segm = win + 2 * segs * kSeg * kLanes;"),
+        ("soft_fused.cu", "    __syncthreads();  // the window is restaged for the next field\n", ""),
+        ("soft_fused.cu", "size_t col_smem(int band) { return sizeof(float) *",
+         "size_t col_smem(int band) { return 2 * sizeof(float) *"),
+        ("soft_fused.cu", "  soft_f2_kernel<<<col_grid(p), kF2Threads, col_smem(band), (cudaStream_t)stream>>>(",
+         "  cudaFuncSetAttribute(soft_f2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)col_smem(band));\n"
+         "  soft_f2_kernel<<<col_grid(p), kF2Threads, col_smem(band), (cudaStream_t)stream>>>(")],
+    "fwd_no_occ": [("soft_mm.cu", "occupancies_of(l, log1pf(expf(-fabsf(l))), ct1, e_in, e_out);",
+                    "e_in = l, e_out = ct1;")],
+    "fwd_no_tails": [("soft_mm.cu", "    tails(i, s_in, s_out);\n", "    tails.field[i] = __fadd_rn(s_in, s_out);\n")],
+    "fwd_divide": [("soft_mm.cu", "tau, pow2_inverse(tau), shift / t, test_above != 0}",
+                    "tau, 0.0f, shift / t, test_above != 0}")],
 }
 
 
@@ -96,16 +186,25 @@ def main() -> int:
         args = (c, k1, k2, tau, t, 1e-6, True)
         _, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g0, *args)
         ct = torch.ones_like(g0)
+        s1s = {name: soft_fused.f1_pass(g, band, tau, t) for name, g in inputs.items()}
         for part, edits in PARTS.items():
             build(edits, os.path.join(tmp, part.replace(" ", "_")))
             line = []
-            if not part.startswith("mm"):
+            if part == "as built" or part.startswith("b1"):
                 for name, (g, s1, ds1) in b1_in.items():
                     ms = cs.cuda_ms(lambda: soft_fused.b1_pass(g, s1, ds1, band, tau, t))
                     line.append(f"soft_b1 {name} {ms:.4f}")
-            if not part.startswith("b1"):
+            if part == "as built" or part.startswith("mm"):
                 ms = cs.cuda_ms(lambda: cuda_soft_mm.mm_fused_bwd(ct, d2i, d2o, g0, *args))
                 line.append(f"soft_mm_bwd k {k1} {ms:.4f}")
+            if part == "as built" or part.startswith("f2"):
+                for name, s1 in s1s.items():
+                    ms = cs.cuda_ms(lambda: soft_fused.f2_pass(s1, band, t, cs.EPS))
+                    line.append(f"soft_f2 {name} {ms:.4f}")
+            if part == "as built" or part.startswith("fwd"):
+                for memos in (True, False):
+                    ms = cs.cuda_ms(lambda: cuda_soft_mm.mm_fused_fwd(g0, *args, memos=memos))
+                    line.append(f"soft_mm_fwd k {k1}{'' if memos else ' serving'} {ms:.4f}")
             print(f"part {part}: " + ", ".join(line) + " ms", flush=True)
     return 0
 

@@ -12,7 +12,8 @@ plain versions that the kernels match on the card:
   exceed those of the design before it (a block-wide max of S1 over 256 +
   2 band positions against each lane's own height).
 
-  soft_mm_bwd (csrc/soft_mm.cu): a block owns 128 output columns and a
+  soft_mm_bwd (csrc/soft_mm.cu; its strip walker serves soft_mm_fwd too,
+  tests/test_torch_f2_bounds.py): a block owns 128 output columns and a
   strip of rows (the launcher's strips: about one block per SM slot), walks
   it 16 output rows a chunk, and keeps the rows conv of 16-row batches in a
   ring of 3 batches. Every output pixel must be written once, every ring row
@@ -225,18 +226,19 @@ def test_b1_warp_reach_is_its_lanes_longest(temperature):
 COLS, ROWS, RING = 128, 16, 3  # output columns a block, rows a batch and a chunk, batches in the ring
 
 
-def mm_bwd_strip(h_out, w, n, sms, per_sm):
-    """The launcher's strip height: whole 16-row chunks, about one block per
-    SM slot in all."""
+def mm_strip(h_out, w, n, sms, per_sm):
+    """The launcher's strip height (both declared kernels, launch_strips):
+    whole 16-row chunks, about one block per SM slot in all."""
     cols, chunks = -(-w // COLS) * n, -(-h_out // ROWS)
     strips = min(max(sms * per_sm // cols, 1), chunks)
     return -(-chunks // strips) * ROWS
 
 
-def mm_bwd_mirror(ds_in, ds_out, k1, k2, row_off, h_out, temperature, sms=132, per_sm=2):
-    """The backward's two convs (..., h_out, W) as the kernel's blocks
-    compute them from the tails' VJP ds (..., h_in, W) (zero outside the live
-    window): per block the batches of 16 input rows (the block's 128 columns
+def mm_strip_mirror(ds_in, ds_out, k1, k2, row_off, h_out, temperature, sms=132, per_sm=2):
+    """The two convs (..., h_out, W) as the strip walker's blocks compute
+    them from the producer's output of both fields (..., h_in, W): the
+    tails' VJP ds backward, the occupancies forward, zero outside the live
+    window. Per block the batches of 16 input rows (the block's 128 columns
     and k1 more each side, zero outside the frame) through the rows conv into
     a ring of 3 batches, per chunk of 16 output rows the cols conv from the
     ring. Asserts that every ring row a chunk reads holds its batch, and
@@ -245,7 +247,7 @@ def mm_bwd_mirror(ds_in, ds_out, k1, k2, row_off, h_out, temperature, sms=132, p
     lead, (h_in, w) = ds_in.shape[:-2], ds_in.shape[-2:]
     src = [x.reshape(-1, h_in, w) for x in (ds_in, ds_out)]
     nimg = src[0].shape[0]
-    strip = mm_bwd_strip(h_out, w, nimg, sms, per_sm)
+    strip = mm_strip(h_out, w, nimg, sms, per_sm)
     out = [torch.zeros(nimg, h_out, w) for _ in range(2)]
     written = torch.zeros(nimg, h_out, w, dtype=torch.int32)
     for z in range(nimg):
@@ -324,7 +326,7 @@ def test_mm_bwd_tiles_write_every_pixel_once_from_produced_rows(shape_in, k1, k2
     h_in = h_out + 2 k2, edge windows)."""
     win = (0, shape_in[-2], 0, shape_in[-1]) if window is None else window
     ds_in, ds_out = _frame_ds(shape_in, k1, k2, win, seed=k1 + k2 + h_out)
-    got, written = mm_bwd_mirror(ds_in, ds_out, k1, k2, row_off, h_out, 1.0, sms, per_sm)
+    got, written = mm_strip_mirror(ds_in, ds_out, k1, k2, row_off, h_out, 1.0, sms, per_sm)
     assert bool((written == 1).all())
     w1, w2 = soft_mxu.tap_weights(k1, 1.0), soft_mxu.tap_weights(k2, 1.0)
     for g, ds in zip(got, (ds_in, ds_out)):
@@ -335,6 +337,6 @@ def test_mm_bwd_tiles_write_every_pixel_once_from_produced_rows(shape_in, k1, k2
 def test_mm_bwd_strips_fill_the_card_once():
     """At 4096^2 on an H100 (132 SMs, 2 blocks an SM) the launcher cuts 8
     strips of 512 rows: 256 blocks, one wave, 2 k2 halo rows a strip."""
-    assert mm_bwd_strip(4096, 4096, 1, 132, 2) == 512
-    assert mm_bwd_strip(4096, 4096, 8, 132, 2) == 4096
-    assert mm_bwd_strip(17, 300, 3, 132, 2) == 16
+    assert mm_strip(4096, 4096, 1, 132, 2) == 512
+    assert mm_strip(4096, 4096, 8, 132, 2) == 4096
+    assert mm_strip(17, 300, 3, 132, 2) == 16

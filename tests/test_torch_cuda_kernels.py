@@ -474,6 +474,54 @@ def test_soft_mm_bwd_halo_frames_and_windows(dev, k1, k2, shard, two_d):
     assert not bool(got[..., : cols[0]].any()) and not bool(got[..., cols[1]:].any())
 
 
+@pytest.mark.parametrize("k1,k2", [(0, 0), (0, 16), (16, 0), (10, 16), (16, 10), (3, 8), (3, 9), (16, 16)])
+@pytest.mark.parametrize("shape", [(1, 17), (17, 1), (70, 1000), (3, 45, 130), (300, 129)])
+def test_soft_mm_fwd_taps_and_tiles(dev, k1, k2, shape):
+    """soft_mm_fwd (the backward's strip walker: 128-column tiles, 16-row
+    chunks) with tap radii 0-16, k1 != k2, a chunk's rows in 2 batches (k2
+    8) or 3 (k2 9), the staged columns full (k1 16), widths and heights that
+    are not multiples of a tile and a batch: field and memos within 1e-4 of
+    mm_fused_fwd_plain on live windows, the same dead windows, and the field
+    without memos the same."""
+    g, _, (_, _, c) = _soft_case(dev, shape, 2.0, 1.0, seed=k1 + 17 * k2)
+    before = cuda_soft_mm.LAUNCHES["soft_mm_fwd"]
+    f, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g, c, k1, k2, 2.0, 1.0, 1e-6)
+    assert cuda_soft_mm.LAUNCHES["soft_mm_fwd"] == before + 1
+    pf, pi, po = cuda_soft_mm.mm_fused_fwd_plain(g, c, k1, k2, 2.0, 1.0, 1e-6)
+    torch.cuda.synchronize()
+    for got, want in ((d2i, pi), (d2o, po)):
+        assert torch.equal(got >= 1e29, want >= 1e29)
+        live = want < 1e29
+        assert not bool(live.any()) or float((got - want).abs()[live].max()) <= 1e-4
+    live = (pi < 1e29) & (po < 1e29)
+    assert not bool(live.any()) or float((f - pf).abs()[live].max()) <= 1e-4
+    assert torch.equal(cuda_soft_mm.mm_fused_fwd(g, c, k1, k2, 2.0, 1.0, 1e-6, memos=False), f)
+
+
+@pytest.mark.parametrize("k1,k2", [(10, 10), (16, 3), (0, 16)])
+@pytest.mark.parametrize("shard", [0, 1, 3])
+@pytest.mark.parametrize("two_d", [False, True])
+def test_soft_mm_fwd_halo_frames_and_windows(dev, k1, k2, shard, two_d):
+    """soft_mm_fwd on the frames and windows the sharded tier passes: shard
+    i of 4 along y (its gray with k2 halo rows, row_off k2, the rows beyond
+    the image dead at the edges) and, on a 2-D mesh, a tile with k1 halo
+    columns, the live columns those inside the image; bit for bit
+    mm_fused_fwd_plain on the same frame."""
+    rng = np.random.default_rng(41 + shard)
+    h, w = 75, 200
+    _, _, c = soft_mxu.range_stats(66, 2.0, 1.0, (0.0, 255.0))
+    wf = w + 2 * k1 if two_d else w
+    cols = ((k1, wf) if shard == 0 else (0, w + k1) if shard == 3 else (0, wf)) if two_d else (0, w)
+    rows = (k2, h + 2 * k2) if shard == 0 else (0, h + k2) if shard == 3 else (0, h + 2 * k2)
+    g = torch.from_numpy((rng.random((2, h + 2 * k2, wf)) * 255).astype(np.float32)).to(dev)
+    win = rows + cols
+    got = cuda_soft_mm.mm_fused_fwd(g, c, k1, k2, 2.0, 1.0, 1e-6, row_off=k2, h_out=h, window=win)
+    want = cuda_soft_mm.mm_fused_fwd_plain(g, c, k1, k2, 2.0, 1.0, 1e-6, row_off=k2, h_out=h, window=win)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.shape == (2, h, wf) and torch.equal(x, y)
+
+
 def test_soft_training_step_runs_both_kernels(dev):
     rng = np.random.default_rng(4)
     g = torch.from_numpy((rng.random((300, 200)) * 255).astype(np.float32)).to(dev).requires_grad_()
@@ -640,6 +688,56 @@ def test_soft_b1_row_tiles_and_strokes(dev, kind, shape, band, tau, temperature,
     got = soft_fused.b1_pass(g, s1, ds1, *args, window=win)
     torch.cuda.synchronize()
     assert torch.equal(got, soft_fused.b1_plain(g, s1, ds1, *args, window=win))
+
+
+@pytest.mark.parametrize("kind", ["strokes", "pm2000", "u8"])
+@pytest.mark.parametrize("shape,band,temperature", [
+    ((300, 45), 56, 1.0), ((300, 45), 57, 1.0),  # the window fills 13 segments exactly, then 14
+    ((200, 100), 72, 1.0), ((250, 33), 105, 0.5), ((2, 150, 70), 112, 1.0), ((100, 64), 0, 0.5),
+    ((37, 31), 1, 1.0), ((1, 17), 66, 1.0), ((17, 1), 112, 0.5), ((95, 40), 5, 1.0), ((97, 40), 20, 0.5),
+    ((2, 1536, 2048), 66, 1.0)])
+def test_soft_f2_tiles_and_windows(dev, kind, shape, band, temperature):
+    """soft_f2 (32 columns x 96 rows a block, each window staged in 16-row
+    segments with per-lane minima, a warp's 12 rows bounded by their own
+    taps) bit for bit its plain version, field and memos, where windows fill
+    their last segment or not, where warps meet long reaches (strokes in
+    +-2040) and short ones (noise), on heights and widths that are not
+    multiples of a warp's rows, a tile or a block, and a batch."""
+    if kind == "strokes":
+        g = torch.from_numpy(_stroke_gray(shape, band + 3)).to(dev)
+    else:
+        g, _ = _fused_case(dev, shape, kind, band + 3)
+    s1 = soft_fused.f1_plain(g, band, 2.0, temperature)
+    field, d2 = _counted("soft_f2", lambda: soft_fused.f2_pass(s1, band, temperature, 1e-6))
+    fp, d2p = soft_fused.f2_plain(s1, band, temperature, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(field, fp) and torch.equal(d2, d2p)
+    assert torch.equal(soft_fused.f2_pass(s1, band, temperature, 1e-6, memos=False), field)
+
+
+@pytest.mark.parametrize("kind", ["strokes", "pm2000"])
+@pytest.mark.parametrize("band", [10, 66, 112])
+def test_soft_f2_halo_blocks_match_plain(dev, kind, band):
+    """soft_f2 on tier 2's halo'd S1 blocks (pass2_ext: each shard's S1 with
+    band rows of its neighbours', 1e30 beyond the image) bit for bit its
+    plain version on the block, and the cropped field the whole image's."""
+    shape = (300, 150)
+    if kind == "strokes":
+        g = torch.from_numpy(_stroke_gray(shape, band)).to(dev)
+    else:
+        g, _ = _fused_case(dev, shape, kind, band)
+    s1 = soft_fused.f1_plain(g, band, 2.0, 1.0)
+    whole = soft_fused.f2_plain(s1, band, 1.0, 1e-6, memos=False)
+    pad = torch.full_like(s1[..., :band, :], soft_fused.PAD_H)
+    s1p = torch.cat([pad, s1, pad], dim=-2)
+    for i in range(3):
+        s1ext = s1p[..., i * 100 : i * 100 + 100 + 2 * band, :].contiguous()
+        field, d2 = _counted("soft_f2", lambda: soft_fused.f2_pass(s1ext, band, 1.0, 1e-6))
+        fp, d2p = soft_fused.f2_plain(s1ext, band, 1.0, 1e-6)
+        got = soft_fused.pass2_ext(s1ext, band, 1.0, 1e-6, band)
+        torch.cuda.synchronize()
+        assert torch.equal(field, fp) and torch.equal(d2, d2p)
+        assert torch.equal(got, whole[i * 100 : i * 100 + 100])
 
 
 @pytest.mark.parametrize("shape", FUSED_SHAPES)

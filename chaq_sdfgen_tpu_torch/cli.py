@@ -80,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["trace", "debug", "info", "warn", "err", "critical", "off"],
                    help="log level (default: critical)")
     p.add_argument("--time", action="store_true", dest="time_kernel",
-                   help="print the pipeline's device time (median of 10 runs, "
-                        "CUDA events) like the OpenCL --time flag")
+                   help="print the pipeline's device time per run (the slope "
+                        "between 4 and 36 back-to-back runs, CUDA events) like "
+                        "the OpenCL --time flag")
     p.add_argument("--soft", action="store_true",
                    help="differentiable soft pipeline: sigmoid threshold + "
                         "soft-min EDT (no reference analogue). Output is the "
@@ -114,6 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ppermute", "rdma"],
                    help="halo-exchange implementation for sharded runs "
                         "(default: ppermute)")
+    # the JAX CLI's compilation-cache switch: PyTorch runs eagerly, nothing
+    # to cache, so it is accepted and ignored
+    p.add_argument("--no-jit-cache", action="store_true", help=argparse.SUPPRESS)
     return p
 
 

@@ -80,8 +80,6 @@
 
 #include <cuda_runtime.h>
 
-#include <cmath>
-
 #include "soft_tails.cuh"
 #include "staged.cuh"
 
@@ -369,13 +367,6 @@ int prepare(int n, int h_in, int h_out, int w, int row_off, int ylo, int yhi, in
     taps->w2[i] = taps_host[kTaps + i];
   }
   return 0;
-}
-
-// 1/v where v is a power of two whose inverse is a normal float (x / v is
-// then x (1/v) bit for bit), else 0.
-float pow2_inverse(float v) {
-  int e = 0;
-  return v > 0.0f && std::frexp(v, &e) == 0.5f && e >= -124 && e <= 126 ? std::ldexp(1.0f, 1 - e) : 0.0f;
 }
 
 // Launches a strip kernel: strips of whole chunks, one block per SM slot in

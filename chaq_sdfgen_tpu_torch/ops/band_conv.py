@@ -27,6 +27,7 @@ launches, one per launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -38,7 +39,10 @@ LAUNCHES = {"p2_fused_fwd": 0, "p2_fused_bwd": 0, "cols_conv": 0}
 MAX_TAPS = 128  # tap radius the kernels take
 
 
+@functools.lru_cache(maxsize=64)
 def _taps(k: int, temperature: float):
+    """The launchers' tap array, built once per (k, T): a launch needs it on
+    the host every time."""
     w = soft_mxu.tap_weights(k, float(temperature))
     return (ctypes.c_float * len(w))(*w)
 
@@ -83,7 +87,7 @@ def cols_conv(e: torch.Tensor, k: int, temperature: float, row_off: Optional[int
     n, h_in, w = _build.flat_shape(e)
     if out.numel() > 0 and e.numel() > 0:
         _build.launch("chaq_cols_conv", e.device, e.data_ptr(), out.data_ptr(), n, h_in, h_out, w, k,
-                      row_off, _taps(k, temperature))
+                      row_off, _taps(k, float(temperature)))
         LAUNCHES["cols_conv"] += 1
     elif out.numel() > 0:
         out.zero_()
@@ -120,7 +124,7 @@ def p2_fused_fwd(a_in, a_out, k, temperature, shift, eps, memos=True):
     if field.numel() > 0:
         _build.launch("chaq_p2_fused_fwd", a_in.device, a_in.data_ptr(), a_out.data_ptr(), field.data_ptr(),
                       d2i.data_ptr() if memos else None, d2o.data_ptr() if memos else None,
-                      n, h_in, shape[-2], w, k, k, _taps(k, temperature), float(temperature), float(eps),
+                      n, h_in, shape[-2], w, k, k, _taps(k, float(temperature)), float(temperature), float(eps),
                       float(shift))
         LAUNCHES["p2_fused_fwd"] += 1
     return (field, d2i, d2o) if memos else field
@@ -150,7 +154,7 @@ def p2_fused_bwd(ct, d2_in, d2_out, k, temperature, shift, eps):
     if da_in.numel() > 0 and ct.numel() > 0:
         _build.launch("chaq_p2_fused_bwd", ct.device, ct.data_ptr(), d2_in.data_ptr(), d2_out.data_ptr(),
                       da_in.data_ptr(), da_out.data_ptr(), n, h_in, shape[-2], w, k, -k,
-                      _taps(k, temperature), float(temperature), float(eps), float(shift))
+                      _taps(k, float(temperature)), float(temperature), float(eps), float(shift))
         LAUNCHES["p2_fused_bwd"] += 1
     elif da_in.numel() > 0:
         da_in.zero_()

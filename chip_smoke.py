@@ -198,8 +198,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
      1 of 4096x4096 at T 8 (k2 = 29); the declared kernels on halo'd blocks
      with live windows (soft_mm_fwd/bwd, phase 8's tolerances) and F1/B1
      with a live-row window that is not (0, H); each timed beside its plain
-     version, and cols_conv also beside F.conv2d (cuDNN, no TF32), the one
-     PyTorch call that computes its function (library_ms);
+     version (rows 17-19 also as CUDA graphs of 10 calls, graph_ms, logged
+     beside ms: their host launch cost nears their device time), and cols_conv beside F.conv2d
+     (cuDNN, no TF32), the one PyTorch call that computes its function,
+     p2_fused_fwd/bwd beside their two convs as F.conv2d (convs only: no
+     PyTorch call computes the tails or their VJP around them) (library_ms,
+     each checked against the plain cols conv within 1e-5 of the scale);
  27. sharded soft steps (the summed field, its gradient and an SGD update)
      over logical shards of the card, each under ppermute and rdma, against
      the single-device step: tier 1a on the bench's u8 noise at 4096x4096
@@ -222,14 +226,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
      glyph PNG byte for byte the unsharded SDFGenerator.
 `python3 chip_smoke.py --kernel-turn` times rows 2, 4, 5, 6, 7, 8, 9, 10,
-11, 15 and 16 and what they serve alone (kernel_turn: edt_turn first), on
-this tree or (copied in) its parent.
+11, 15, 16 and 17-19 and what they serve alone (kernel_turn: edt_turn
+first; band_conv_turn on phase 26's inputs, each as a CUDA graph too, since
+their host launch cost nears their device time), on this tree or (copied
+in) its parent.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
 inputs at 67 T/s (the H100 SXM's HBM3 rate and float32 rate outside the
-tensor cores; the hard kernels' integer operations are counted at the
-same rate); for the adaptive and the column soft-min kernels the
+tensor cores, which counts an FMA as two operations; the hard kernels'
+integer operations are counted at the same rate; the cols-conv kernels'
+unfused _rn multiplies and adds count as an FMA's issue slot each,
+band_conv_bounds); for the adaptive and the column soft-min kernels the
 operations count the taps that this run's data puts inside the cut; for
 the column searches
 (edt_band_bytes, brute_scan_bytes, edt_dist) the count is what a
@@ -501,6 +509,49 @@ def profile_device(label: str, fn, runs: int = 10) -> None:
             f"{e.self_device_time_total / e.count / 1e3:.4f} ms each)  {e.key[:90]}")
     log(f"profile {label}: device busy {busy_us / runs / 1e3:.4f} ms/run of a "
         f"{window_us / runs / 1e3:.4f} ms/run window ({100 * busy_us / window_us:.1f}% busy, profiler on)")
+
+
+def graph_ms(fn, iters: int = TIMING_ITERS, windows: int = 5) -> float:
+    """Milliseconds per call of ``fn``: a CUDA graph of ``iters``
+    back-to-back calls replayed between CUDA events, the median of
+    ``windows`` replays, after a warm-up call: the card's time, without
+    the host's launch cost between calls."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return float(np.median(times))
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds per call of ``fn`` (its launches queued, not
+    waited for)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes: float, flops: float) -> tuple:
@@ -2561,17 +2612,18 @@ def edt_turn(dev, noise, glyph) -> None:
 
 
 def kernel_turn(dev, noise, glyph) -> None:
-    """Rows 2, 4, 5, 6, 7, 8, 9, 10, 11, 15 and 16 and what they serve,
-    alone, on any tree that has these kernels (this one or its parent, for
-    turns in one call): first edt_turn; then soft_b2, soft_f1, soft_f2
-    (row 9) and soft_b1 on the bench's noise, pm2000 and the glyph in
-    +-2040, soft_mm_bwd on the bench's noise at tap radii 10 and 16, and
+    """Rows 2, 4, 5, 6, 7, 8, 9, 10, 11, 15, 16 and 17-19 and what they
+    serve, alone, on any tree that has these kernels (this one or its
+    parent, for turns in one call): first edt_turn; then soft_b2, soft_f1,
+    soft_f2 (row 9) and soft_b1 on the bench's noise, pm2000 and the glyph
+    in +-2040, soft_mm_bwd on the bench's noise at tap radii 10 and 16, and
     soft_mm_fwd (row 6) there at 10 and 16 with and without memos (with
     digests of soft_f2's, soft_b1's and both declared kernels' outputs),
     the declared training step, the forced and gated adaptive steps and
     SoftSDFModel's step; brute_scan_bytes_halo on each shard of the glyph
     and the noise over 4 shards and at row_off 0 on the whole image beside
-    brute_scan_bytes, and sharded BRUTE over (4,)."""
+    brute_scan_bytes; the cols-conv kernels on phase 26's inputs
+    (band_conv_turn); and sharded BRUTE over (4,)."""
     edt_turn(dev, noise, glyph)
     band, tau, t = SPREAD + 2, TRAIN_TAU, TRAIN_T
     rng = np.random.default_rng(SEED + 5)
@@ -2616,6 +2668,7 @@ def kernel_turn(dev, noise, glyph) -> None:
         "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
     }
     halo_scan_shard_times(masks, count=False)
+    band_conv_turn(dev, noise, glyph)
     m4 = logical_mesh(dev, (SHARDS,))
     for name, b in masks.items():
         strips = cuda_brute.seed_strips(b, SPREAD)
@@ -3045,14 +3098,89 @@ def soft_rows_sums(gray: torch.Tensor, tau: float, t: float):
 def band_conv_bounds(h: int, k: int, w: int = SIZE) -> dict:
     """Bounds of rows 17-19 for one launch on one shard: h output rows of a
     k-row halo'd slab, w columns, float32. Bytes: each operand read once,
-    each output written once; operations: a multiply and an add per tap and
-    field, plus the tails (22) or their VJP (35) per pixel."""
+    each output written once. Operations as FP32 issue slots (lane
+    instructions): the sums must stay bit for bit the plain versions', so
+    each tap and field is an unfused _rn multiply and an _rn add, two slots,
+    plus the tails (22 a pixel) or their VJP (35). The 67 T/s rate counts an
+    FMA, one slot, as two operations, so each slot counts as two of them."""
     hx, conv = h + 2 * k, 2 * (2 * k + 1)
     return {
-        "p2_fused_fwd": bound(4 * w * (2 * hx + 3 * h), w * h * (2 * conv + 22)),
-        "p2_fused_bwd": bound(4 * w * (3 * h + 2 * hx), w * (hx * 2 * conv + h * 35)),
-        "cols_conv": bound(4 * w * (hx + h), w * h * conv),
+        "p2_fused_fwd": bound(4 * w * (2 * hx + 3 * h), 2 * w * h * (2 * conv + 22)),
+        "p2_fused_bwd": bound(4 * w * (3 * h + 2 * hx), 2 * w * (hx * 2 * conv + h * 35)),
+        "cols_conv": bound(4 * w * (hx + h), 2 * w * h * conv),
     }
+
+
+def band_conv_inputs(dev, u8, alpha, rng) -> dict:
+    """Phase 26's inputs of rows 17-19: shard 1 of the 4000x4096 tier-1b
+    image (``u8``, the noise) over 4, the 1020-row slabs of both pass-1
+    sums (k2 10), a cotangent of its 1000 rows and the pair's arguments;
+    shard 1 of the 4096² glyph's alpha (``alpha``) at T 8, the 1082-row
+    slab of the in-field's pass-1 sums (k2 29) and a cotangent of its 1024
+    rows. The cotangents come from ``rng``."""
+    hb, h4 = SOFT_ROWS_1B // SHARDS, SIZE // SHARDS
+    (a_in, a_out), (k1, k2, c) = soft_rows_sums(u8[:SOFT_ROWS_1B], TRAIN_TAU, TRAIN_T)
+    s_in, s_out = shard_slab(a_in, k2, 1, hb), shard_slab(a_out, k2, 1, hb)
+    del a_in, a_out
+    ct = torch.from_numpy(rng.standard_normal((hb, SIZE)).astype(np.float32)).to(dev)
+    (w_in, _), (_, wk2, _) = soft_rows_sums(alpha, TRAIN_TAU, WIDE_T)
+    e = shard_slab(w_in, wk2, 1, h4)
+    ctw = torch.from_numpy(rng.standard_normal((h4, SIZE)).astype(np.float32)).to(dev)
+    return dict(s_in=s_in, s_out=s_out, ct=ct, p2=(k2, TRAIN_T, c, EPS), k1=k1, e=e, ctw=ctw, wk2=wk2)
+
+
+def cols_library(name, stack, k, t, row_off, h_out) -> float:
+    """A cols conv of a (n, H, W) stack as F.conv2d (cuDNN, TF32 off), the
+    one PyTorch call that computes cols_conv's function and the two convs
+    of p2_fused_fwd/bwd: the (2k + 1) x 1 taps (symmetric, so
+    cross-correlation is the conv), k - row_off zero rows each side (0 to
+    a halo'd slab's interior, 2k back onto it). ms, after a check against
+    cols_conv_plain within 1e-5 of the scale (2k + 1 float32 terms summed in
+    another order: (2k + 1) u = 3.5e-6 at k 29)."""
+    taps = torch.tensor(soft_mxu.tap_weights(k, t), dtype=torch.float32, device=stack.device).view(1, 1, -1, 1)
+    pad = k - row_off
+    conv = lambda: torch.nn.functional.conv2d(stack.unsqueeze(1), taps, padding=(pad, 0)).squeeze(1)  # noqa: E731
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = band_conv.cols_conv_plain(stack, k, t, row_off, h_out)
+        e_lib = float((conv() - want).abs().max()) / float(want.abs().max())
+        ms = cuda_ms(conv)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"check {name}'s cols conv against F.conv2d (cuDNN, no TF32) on the {tuple(stack.shape)} stack, k {k}, "
+        f"row_off {row_off}: max abs err {e_lib:.3e} of the scale {float(want.abs().max()):.4e}; F.conv2d "
+        f"{ms:.4f} ms")
+    require(e_lib <= 1e-5, f"{name}: the plain cols conv differs from F.conv2d")
+    return ms
+
+
+def band_conv_turn(dev, noise, glyph) -> None:
+    """Rows 17-19 alone on phase 26's inputs (band_conv_inputs), on any tree
+    that has these kernels (this one or its parent, for turns in one call):
+    p2_fused_fwd with and without memos, p2_fused_bwd from the forward's
+    memos, cols_conv to the slab's interior and back onto the slab; each
+    timed with CUDA events (cuda_ms) and as a CUDA graph of back-to-back
+    calls (graph_ms, out of the host's launch cost's reach), with the
+    host's time a call (host_us) and a digest of its outputs."""
+    u8 = torch.from_numpy(noise[..., 1].astype(np.float32)).to(dev)
+    alpha = torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev)
+    x = band_conv_inputs(dev, u8, alpha, np.random.default_rng(SEED + 26))
+    s_in, s_out, p2, ct, e, ctw, wk2 = (x[k] for k in ("s_in", "s_out", "p2", "ct", "e", "ctw", "wk2"))
+    _, d2i, d2o = band_conv.p2_fused_fwd(s_in, s_out, *p2)
+    h4 = SIZE // SHARDS
+    runs = {
+        f"p2_fused_fwd k {p2[0]}": lambda: band_conv.p2_fused_fwd(s_in, s_out, *p2),
+        f"p2_fused_fwd k {p2[0]} serving": lambda: band_conv.p2_fused_fwd(s_in, s_out, *p2, memos=False),
+        f"p2_fused_bwd k {p2[0]}": lambda: band_conv.p2_fused_bwd(ct, d2i, d2o, *p2),
+        f"cols_conv k {wk2}": lambda: band_conv.cols_conv(e, wk2, WIDE_T),
+        f"cols_conv k {wk2} backward": lambda: band_conv.cols_conv(ctw, wk2, WIDE_T, -wk2, h4 + 2 * wk2),
+    }
+    for name, fn in runs.items():
+        out = fn()
+        dig = " ".join(digest(t) for t in (out if isinstance(out, tuple) else (out,)))
+        log(f"time band {name}: {cuda_ms(fn):.4f} ms, graph {graph_ms(fn):.4f} ms, host {host_us(fn):.1f} us a "
+            f"call; digest {dig}")
 
 
 def bits_equal(name: str, got, want) -> int:
@@ -3109,29 +3237,38 @@ def sharded_soft_phases(dev, noise, glyph):
     h4, hb = SIZE // SHARDS, SOFT_ROWS_1B // SHARDS
     times = {}
 
-    # phase 26: rows 17-18 on shard 1 of the 4000x4096 tier-1b image
-    (a_in, a_out), (k1, k2, c) = soft_rows_sums(u8[:SOFT_ROWS_1B], TRAIN_TAU, TRAIN_T)
-    s_in, s_out = shard_slab(a_in, k2, 1, hb), shard_slab(a_out, k2, 1, hb)
-    p2_args = (k2, TRAIN_T, c, EPS)
+    # phase 26: rows 17-18 on shard 1 of the 4000x4096 tier-1b image, row 19
+    # both ways on shard 1 of the 4096² glyph at T 8 (k2 = 29)
+    x = band_conv_inputs(dev, u8, alpha, rng)
+    s_in, s_out, p2_args, ct, k2 = x["s_in"], x["s_out"], x["p2"], x["ct"], x["p2"][0]
+    k1, c = x["k1"], x["p2"][2]
     fwd = band_conv.p2_fused_fwd(s_in, s_out, *p2_args)
     err["p2_fused_fwd"] = bits_equal("p2_fused_fwd", fwd, band_conv.p2_fused_fwd_plain(s_in, s_out, *p2_args))
-    ct = torch.from_numpy(rng.standard_normal((hb, SIZE)).astype(np.float32)).to(dev)
     bwd = band_conv.p2_fused_bwd(ct, fwd[1], fwd[2], *p2_args)
     err["p2_fused_bwd"] = bits_equal("p2_fused_bwd", bwd, band_conv.p2_fused_bwd_plain(ct, fwd[1], fwd[2], *p2_args))
     log(f"check p2_fused_fwd/bwd shard 1 of {SOFT_ROWS_1B}x{SIZE} over {SHARDS}, slab {tuple(s_in.shape)} k2 {k2}: "
         f"{err['p2_fused_fwd']} / {err['p2_fused_bwd']} values differ from the plain versions; "
         f"{int((fwd[1] >= 1e29).sum())} dead windows")
-    times["p2_fused_fwd"] = cuda_ms(lambda: band_conv.p2_fused_fwd(s_in, s_out, *p2_args))
+    # rows 17-19 with CUDA events (ms, as every row) and as CUDA graphs of
+    # back-to-back calls (logged apart: their wrappers' host cost nears
+    # their device time, and a graph leaves it out)
+    runs = {"p2_fused_fwd": lambda: band_conv.p2_fused_fwd(s_in, s_out, *p2_args),
+            "p2_fused_bwd": lambda: band_conv.p2_fused_bwd(ct, fwd[1], fwd[2], *p2_args)}
+    for k, fn in runs.items():
+        times[k], times[k + "_graph"] = cuda_ms(fn), graph_ms(fn)
     times["p2_fused_fwd_plain"] = cuda_ms(lambda: band_conv.p2_fused_fwd_plain(s_in, s_out, *p2_args))
-    times["p2_fused_bwd"] = cuda_ms(lambda: band_conv.p2_fused_bwd(ct, fwd[1], fwd[2], *p2_args))
     times["p2_fused_bwd_plain"] = cuda_ms(lambda: band_conv.p2_fused_bwd_plain(ct, fwd[1], fwd[2], *p2_args))
+    # the library's form of the pair's two convs (no PyTorch call computes
+    # the tails or their VJP around them): the pass-1 sums' stack to the
+    # interior, the tails' VJP's stack back onto the slab
+    t, eps = p2_args[1], p2_args[3]
+    times["p2_fused_fwd_library"] = cols_library("p2_fused_fwd", torch.stack([s_in, s_out]), k2, t, k2, hb)
+    ds = torch.stack(soft_mxu.tails_vjp(ct, fwd[1], fwd[2], t, c, eps))
+    times["p2_fused_bwd_library"] = cols_library("p2_fused_bwd", ds, k2, t, -k2, hb + 2 * k2)
     bounds = {k: v for k, v in band_conv_bounds(hb, k2).items() if k != "cols_conv"}
-    del a_in, a_out, s_in, s_out, fwd, bwd
+    del s_in, s_out, fwd, bwd, ds
 
-    # row 19 both ways on shard 1 of the 4096² glyph at T 8 (k2 = 29)
-    (w_in, _), (wk1, wk2, _) = soft_rows_sums(alpha, TRAIN_TAU, WIDE_T)
-    e = shard_slab(w_in, wk2, 1, h4)
-    ctw = torch.from_numpy(rng.standard_normal((h4, SIZE)).astype(np.float32)).to(dev)
+    e, ctw, wk2 = x["e"], x["ctw"], x["wk2"]
     e_f = bits_equal("cols_conv", band_conv.cols_conv(e, wk2, WIDE_T),
                      band_conv.cols_conv_plain(e, wk2, WIDE_T, wk2, h4))
     e_b = bits_equal("cols_conv", band_conv.cols_conv(ctw, wk2, WIDE_T, -wk2, h4 + 2 * wk2),
@@ -3139,30 +3276,16 @@ def sharded_soft_phases(dev, noise, glyph):
     err["cols_conv"] = e_f + e_b
     log(f"check cols_conv shard 1 of {SIZE}x{SIZE} T {WIDE_T} k2 {wk2}, slab {tuple(e.shape)}: forward {e_f}, "
         f"backward {e_b} values differ from the plain version")
-    times["cols_conv"] = cuda_ms(lambda: band_conv.cols_conv(e, wk2, WIDE_T))
+    fn = lambda: band_conv.cols_conv(e, wk2, WIDE_T)  # noqa: E731
+    times["cols_conv"], times["cols_conv_graph"] = cuda_ms(fn), graph_ms(fn)
     times["cols_conv_plain"] = cuda_ms(lambda: band_conv.cols_conv_plain(e, wk2, WIDE_T, wk2, h4))
-    # the library's form: a valid (2k+1)x1 cross-correlation (the taps are
-    # symmetric), float32 without TF32
-    taps = torch.tensor(soft_mxu.tap_weights(wk2, WIDE_T), dtype=torch.float32, device=dev).view(1, 1, -1, 1)
-    conv = lambda: torch.nn.functional.conv2d(e.view(1, 1, *e.shape), taps).view(h4, SIZE)  # noqa: E731
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        want = band_conv.cols_conv(e, wk2, WIDE_T)
-        e_lib = float((conv() - want).abs().max()) / float(want.abs().max())
-        times["cols_conv_library"] = cuda_ms(conv)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    # 59 nonnegative float32 terms summed in another order: n u = 3.5e-6
-    log(f"check cols_conv against F.conv2d (cuDNN, no TF32): max abs err {e_lib:.3e} of the scale "
-        f"{float(want.abs().max()):.4e}")
-    require(e_lib <= 1e-5, "cols_conv differs from F.conv2d")
+    times["cols_conv_library"] = cols_library("cols_conv", e.unsqueeze(0), wk2, WIDE_T, wk2, h4)
     bounds["cols_conv"] = band_conv_bounds(h4, wk2)["cols_conv"]
-    del w_in, e
+    del x, e, ctw
     for k in err:
-        lib = f", F.conv2d {times[k + '_library']:.4f} ms" if k + "_library" in times else ""
-        log(f"time {k} (one shard): {times[k]:.4f} ms, plain {times[k + '_plain']:.4f} ms{lib}; bound "
-            f"{bounds[k][0]:.4f} ms ({bounds[k][1]}), roofline share {100 * bounds[k][0] / times[k]:.1f}%")
+        log(f"time {k} (one shard): {times[k]:.4f} ms (CUDA events; a CUDA graph of back-to-back calls "
+            f"{times[k + '_graph']:.4f}), plain {times[k + '_plain']:.4f} ms, F.conv2d {times[k + '_library']:.4f} ms; "
+            f"bound {bounds[k][0]:.4f} ms ({bounds[k][1]}), roofline share {100 * bounds[k][0] / times[k]:.1f}%")
     require(all(v == 0 for v in err.values()), "a cols-conv kernel differs from its plain version")
 
     # the declared kernels on halo'd blocks: shard 0 of (4,) (its top halo
@@ -3369,9 +3492,9 @@ def sharded_soft_phases(dev, noise, glyph):
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
     bounds). library_ms is the time of the halo kernels' Tensor.to form, of
-    cols_conv's F.conv2d and of the declared kernels' two convs as F.conv2d
-    (convs only); no PyTorch call computes any other kernel's function
-    (null)."""
+    cols_conv's F.conv2d and of the two convs of the declared kernels and
+    of p2_fused_fwd/bwd as F.conv2d (convs only); no PyTorch call computes
+    any other kernel's function (null)."""
     rows = []
     for k, spec in KERNELS.items():
         err, launches, times, bounds = next(p for p in paths if k in p[0])

@@ -1,12 +1,17 @@
-"""Where four soft kernels' time goes, on one NVIDIA GPU: soft_b1,
-soft_mm_bwd, soft_f2 and soft_mm_fwd timed as built, then built again from
-an edited copy of chaq_sdfgen_tpu_torch/csrc with one part stripped out or
-changed, so the difference is that part's share or that design's cost. A
-stripped kernel computes wrong values; it is timed only, never used. The
-design variants (f2_64_rows .. f2_both_fields, fwd_divide) compute the same
-values.
+"""Where seven soft kernels' time goes, on one NVIDIA GPU: soft_b1,
+soft_mm_bwd, soft_f2, soft_mm_fwd and the cols-conv kernels (cols_conv,
+p2_fused_fwd, p2_fused_bwd) timed as built, then built again from an edited
+copy of chaq_sdfgen_tpu_torch/csrc with one part stripped out or changed,
+so the difference is that part's share or that design's cost. A stripped
+kernel computes wrong values; it is timed only, never used. The design
+variants (f2_64_rows .. f2_both_fields, fwd_divide, band_vjp_div,
+band_slow_paths, band_one_chunk_strips .. band_ceiling_32) compute the
+same values.
 
-    python3 scripts/torch_kernel_parts.py
+    python3 scripts/torch_kernel_parts.py [part ...]
+
+(the parts named, or whose names start with a word given, and "as built";
+all of them with no argument)
 
 Parts (each an exact text replacement; a replacement that no longer matches
 the sources stops the script):
@@ -31,11 +36,45 @@ the sources stops the script):
   fwd_no_occ      soft_mm_fwd without the occupancies' transcendentals;
   fwd_no_tails    soft_mm_fwd without the tails (field = a sum, no memos);
   fwd_divide      soft_mm_fwd dividing by tau where it is a power of two
-                  too (the design before it; its values are right).
+                  too (the design before it; its values are right);
+  band_one_tap    the cols-conv kernels with one tap (the window's loads,
+                  the producer, the copy and the epilogue are left);
+  band_no_vjp     p2_fused_bwd without the tails' VJP (ds = the staged
+                  cotangent and the sum of the memos);
+  band_vjp_no_div, band_vjp_no_exp  the tails' VJP without its gates'
+                  reciprocals (products) or its expf;
+  band_no_sqrt    the batched tails and VJP without their square roots;
+  band_vjp_div    the VJP's gates (0.5 or 0) / d as IEEE divisions (the
+                  first design; the same bits as (0.5 or 0) rcp(d));
+  band_slow_paths the batched tails and VJP through __fsqrt_rn and
+                  __frcp_rn (a branch to a slow path each), not the fast
+                  paths written out (the same bits);
+  band_no_tails   p2_fused_fwd without the tails (the field a sum, the
+                  memos the sums);
+  band_tails_no_log   the tails without logf;
+  band_one_chunk_strips  strips of one 64-row chunk: the parent's tiling of
+                  rows, each tile producing its 2k halo rows again;
+  band_blocks_1, band_blocks_2  strips sized for 1 or 2 resident blocks
+                  an SM, not the occupancy the card reports;
+  band_no_prefetch    cols_conv's and p2_fused_fwd's next window staged
+                  after the sums, not during them;
+  band_lb_cols6, band_lb_fwd4, band_lb_bwd3, band_lb_bwd4  the kernels'
+                  registers held to 6 blocks an SM (cols_conv), 4
+                  (p2_fused_fwd), 3 or 4 (p2_fused_bwd);
+  band_load_ahead     each tap's new window value loaded a tap ahead of
+                  its use, not in the tap that first adds it;
+  band_one_batch  p2_fused_bwd's first window 64 rows at a time, not both
+                  halves' loads first;
+  band_128_threads    blocks of 4 warps, 32-row chunks;
+  band_16_rows    16 outputs a thread, blocks of 4 warps (64-row chunks);
+  band_ceiling_32     the tap loop unrolled to radius 32, not 128 (the
+                  same values at these inputs' radii, 10 and 29).
 Times: CUDA events around 10 back-to-back calls, the median of 5 windows
 (chip_smoke.cuda_ms), at 4096x4096, spread 64, tau 2, T 1, on the inputs
 chip_smoke.py uses (soft_f2 on all three, the declared kernels on the
-bench's noise at k 10); the card's name and power limit are printed first.
+bench's noise at k 10); the cols-conv kernels on phase 26's as a CUDA
+graph of 10 calls (chip_smoke.graph_ms: their host launch cost is near
+their device time); the card's name and power limit are printed first.
 """
 
 import os
@@ -50,7 +89,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from chaq_sdfgen_tpu_torch.ops import _build, cuda_soft_mm, soft_fused, soft_mxu  # noqa: E402
+from chaq_sdfgen_tpu_torch.ops import _build, band_conv, cuda_soft_mm, soft_fused, soft_mxu  # noqa: E402
 
 # soft_f2's staging of one field's window, and of both at once (f2_both_fields)
 F2_STAGE = """  for (int f = 0; f < 2; ++f) {
@@ -139,6 +178,61 @@ PARTS = {
     "fwd_no_tails": [("soft_mm.cu", "    tails(i, s_in, s_out);\n", "    tails.field[i] = __fadd_rn(s_in, s_out);\n")],
     "fwd_divide": [("soft_mm.cu", "tau, pow2_inverse(tau), shift / t, test_above != 0}",
                     "tau, 0.0f, shift / t, test_above != 0}")],
+    "band_one_tap": [("band_conv.cu", "    if (i > 2 * k) break;\n    const float wv",
+                      "    if (i > 0) break;\n    const float wv")],
+    "band_no_vjp": [("band_conv.cu", "    vjp.many(g, a, b, di, dd);\n",
+                     "    for (int n = 0; n < N; ++n) di[n] = g[n], dd[n] = __fadd_rn(a[n], b[n]);\n")],
+    "band_vjp_no_div": [("soft_tails.cuh", "__fmul_rn(a[n] > 0.0f ? 0.5f : 0.0f, r_in[n]);",
+                         "__fmul_rn(a[n] > 0.0f ? 0.5f : 0.0f, d_in[n]);"),
+                        ("soft_tails.cuh", "__fmul_rn(b[n] > 0.0f ? 0.5f : 0.0f, r_out[n]);",
+                         "__fmul_rn(b[n] > 0.0f ? 0.5f : 0.0f, d_out[n]);")],
+    "band_vjp_div": [("soft_tails.cuh", "__fmul_rn(a[n] > 0.0f ? 0.5f : 0.0f, r_in[n]);",
+                      "__fdiv_rn(a[n] > 0.0f ? 0.5f : 0.0f, d_in[n]);"),
+                     ("soft_tails.cuh", "__fmul_rn(b[n] > 0.0f ? 0.5f : 0.0f, r_out[n]);",
+                      "__fdiv_rn(b[n] > 0.0f ? 0.5f : 0.0f, d_out[n]);")],
+    "band_slow_paths": [("soft_tails.cuh", "  if (!fast) {\n", "  if (true) {\n")],
+    "band_no_sqrt": [("soft_tails.cuh", "    d[n] = sqrt_fast(x[n]);", "    d[n] = x[n];"),
+                     ("soft_tails.cuh", "  if (!fast) {\n", "  if (false) {\n")],
+    "band_vjp_no_exp": [("soft_tails.cuh", "    const float e = expf(div_by(__fsub_rn(d2, c), t, inv_t2));",
+                         "    const float e = div_by(__fsub_rn(d2, c), t, inv_t2);")],
+    "band_no_tails": [("band_conv.cu", "    tails.many(s[0], s[1], fld, a, b);\n",
+                       "    for (int n = 0; n < N; ++n)\n"
+                       "      fld[n] = __fadd_rn(s[0][n], s[1][n]), a[n] = s[0][n], b[n] = s[1][n];\n")],
+    "band_tails_no_log": [("soft_tails.cuh", "__fsub_rn(c, __fmul_rn(t, logf(s)))", "__fsub_rn(c, __fmul_rn(t, s))")],
+    "band_one_chunk_strips": [("band_conv.cu", "  return (int)((chunks + strips - 1) / strips) * kChunk;",
+                               "  return kChunk;")],
+    "band_blocks_1": [("band_conv.cu", "  long long strips = (long long)sms * (per_sm > 0 ? per_sm : 1) / tiles;",
+                       "  long long strips = (long long)sms * 1 / tiles;")],
+    "band_blocks_2": [("band_conv.cu", "  long long strips = (long long)sms * (per_sm > 0 ? per_sm : 1) / tiles;",
+                       "  long long strips = (long long)sms * 2 / tiles;")],
+    "band_no_prefetch": [
+        ("band_conv.cu", "      if (c + 1 < chunks) stage(y0 + kChunk * (c + 1), 2 * k, kChunk, nxt);"
+                         "  // in flight during the sums\n"
+                         "      finish(c, cur);\n",
+         "      finish(c, cur);\n      if (c + 1 < chunks) stage(y0 + kChunk * (c + 1), 2 * k, kChunk, nxt);\n")],
+    "band_lb_cols6": [("band_conv.cu", "__launch_bounds__(kThreads) cols_conv_kernel",
+                       "__launch_bounds__(kThreads, 6) cols_conv_kernel")],
+    "band_lb_fwd4": [("band_conv.cu", "__launch_bounds__(kThreads) p2_fused_fwd_kernel",
+                      "__launch_bounds__(kThreads, 4) p2_fused_fwd_kernel")],
+    "band_lb_bwd3": [("band_conv.cu", "__launch_bounds__(kThreads) p2_fused_bwd_kernel",
+                      "__launch_bounds__(kThreads, 3) p2_fused_bwd_kernel")],
+    "band_lb_bwd4": [("band_conv.cu", "__launch_bounds__(kThreads) p2_fused_bwd_kernel",
+                      "__launch_bounds__(kThreads, 4) p2_fused_bwd_kernel")],
+    "band_load_ahead": [
+        ("band_conv.cu", "    for (int j = 0; j < kPer - 1; ++j) v[f][j] = src[f * plane + j * kCols];",
+         "    for (int j = 0; j < kPer; ++j) v[f][j] = src[f * plane + j * kCols];"),
+        ("band_conv.cu", "      v[f][i + kPer - 1] = src[f * plane + (i + kPer - 1) * kCols];",
+         "      if (i < 2 * k) v[f][i + kPer] = src[f * plane + (i + kPer) * kCols];")],
+    "band_one_batch": [("band_conv.cu", "    for (int j = 0; j < span; j += 2 * kChunk) {\n      fetch(y0, j, raw);\n"
+                                        "      fetch(y0, j + kChunk, ahead);\n      put(y0, j, raw, smem);\n"
+                                        "      put(y0, j + kChunk, ahead, smem);\n    }",
+                        "    for (int j = 0; j < span; j += kChunk) {\n      fetch(y0, j, raw);\n"
+                        "      put(y0, j, raw, smem);\n"
+                        "    }")],
+    "band_128_threads": [("band_conv.cu", "constexpr int kWarps = 8;", "constexpr int kWarps = 4;")],
+    "band_16_rows": [("band_conv.cu", "constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
+                     ("band_conv.cu", "constexpr int kPer = 8;", "constexpr int kPer = 16;")],
+    "band_ceiling_32": [("band_conv.cu", "constexpr int kMaxK = 128;", "constexpr int kMaxK = 32;")],
 }
 
 
@@ -187,7 +281,20 @@ def main() -> int:
         _, d2i, d2o = cuda_soft_mm.mm_fused_fwd(g0, *args)
         ct = torch.ones_like(g0)
         s1s = {name: soft_fused.f1_pass(g, band, tau, t) for name, g in inputs.items()}
+        x = cs.band_conv_inputs(dev, inputs["noise"], torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev),
+                                np.random.default_rng(cs.SEED + 26))
+        p2, wk2, h4 = x["p2"], x["wk2"], cs.SIZE // cs.SHARDS
+        _, m_in, m_out = band_conv.p2_fused_fwd_plain(x["s_in"], x["s_out"], *p2)
+        band_runs = {
+            f"p2_fused_fwd k {p2[0]}": lambda: band_conv.p2_fused_fwd(x["s_in"], x["s_out"], *p2),
+            f"p2_fused_bwd k {p2[0]}": lambda: band_conv.p2_fused_bwd(x["ct"], m_in, m_out, *p2),
+            f"cols_conv k {wk2}": lambda: band_conv.cols_conv(x["e"], wk2, cs.WIDE_T),
+            f"cols_conv k {wk2} backward": lambda: band_conv.cols_conv(x["ctw"], wk2, cs.WIDE_T, -wk2, h4 + 2 * wk2),
+        }
+        chosen = sys.argv[1:]
         for part, edits in PARTS.items():
+            if chosen and part != "as built" and not any(part.startswith(a) for a in chosen):
+                continue
             build(edits, os.path.join(tmp, part.replace(" ", "_")))
             line = []
             if part == "as built" or part.startswith("b1"):
@@ -205,6 +312,9 @@ def main() -> int:
                 for memos in (True, False):
                     ms = cs.cuda_ms(lambda: cuda_soft_mm.mm_fused_fwd(g0, *args, memos=memos))
                     line.append(f"soft_mm_fwd k {k1}{'' if memos else ' serving'} {ms:.4f}")
+            if part == "as built" or part.startswith("band"):
+                for name, fn in band_runs.items():
+                    line.append(f"{name} {cs.graph_ms(fn):.4f}")
             print(f"part {part}: " + ", ".join(line) + " ms", flush=True)
     return 0
 

@@ -117,6 +117,7 @@ def test_sdf_generator_runs_both_kernels(dev):
     want = SDFGenerator(SdfConfig(spread=12), device="cpu").generate(img)
     assert torch.equal(out.cpu(), want)
     assert gen.kernel_time(img, iters=3) > 0
+    assert 0 < gen.kernel_time(img, k1=1, k2=3) < 1  # the two-count slope, CUDA events
 
 
 def test_wrappers_refuse_what_kernels_do_not_take(dev):
@@ -1264,7 +1265,14 @@ def test_sharded_generator_on_distinct_cards(dev):
 # --------------------------------------------------- sharded soft kernels
 
 
-@pytest.mark.parametrize("shape,k", [((3, 40, 70), 5), ((100, 130), 16), ((1, 300, 65), 29), ((70, 9), 128)])
+@pytest.mark.parametrize("shape,k", [
+    ((3, 40, 70), 5), ((100, 130), 16), ((1, 300, 65), 29), ((70, 9), 128),
+    # the column walker's edges: 4096-wide shards (strip boundaries inside
+    # the frame), strips of several chunks (3 images: fewer strips a tile),
+    # and radii from 0 to the unrolled tap loop's 128
+    ((300, 4096), 29), ((300, 4096), 10), ((3, 600, 4096), 17), ((2, 77, 33), 0), ((130, 100), 32),
+    ((1, 200, 40), 33), ((64, 32), 1),
+])
 def test_band_conv_kernels_match_plain(dev, shape, k):
     """Rows 17-19 (csrc/band_conv.cu) against their plain versions, bit for
     bit: the cols conv to a halo'd slab's interior and back onto it, pass 2
@@ -1293,6 +1301,82 @@ def test_band_conv_kernels_match_plain(dev, shape, k):
     torch.cuda.synchronize()
     assert {n: band_conv.LAUNCHES[n] - before[n] for n in before} == {
         "cols_conv": 2, "p2_fused_fwd": 2, "p2_fused_bwd": 1}
+
+
+def _run_classes(rng, shape, probs):
+    """A class a pixel, in runs of 1-40 rows down each column."""
+    cls = np.empty(shape, np.int64)
+    for x in range(shape[1]):
+        y = 0
+        while y < shape[0]:
+            n = int(rng.integers(1, 41))
+            cls[y : y + n, x] = rng.choice(len(probs), p=probs)
+            y += n
+    return cls
+
+
+def _sqrt_paths(d2, eps):
+    """Whether some 8-row run of a column has every argument x = max(d2, 0)
+    + eps of the tails' square roots in [2^-100, 2^100] (the fast paths),
+    and whether some run mixes such x with others (the IEEE intrinsics for
+    all 8)."""
+    x = torch.where(d2 > 0, d2, torch.zeros((), device=d2.device)) + eps
+    fast = ((x >= 2.0**-100) & (x <= 2.0**100)).cpu()
+    runs = fast[: fast.shape[0] // 8 * 8].reshape(-1, 8, fast.shape[1])
+    return bool(runs.all(1).any()), bool((runs.any(1) & ~runs.all(1)).any())
+
+
+@pytest.mark.parametrize("k", [0, 10])
+def test_band_conv_tails_fast_and_ieee_paths(dev, k):
+    """The batched tails and VJP (soft_tails.cuh: soft_dist_many) take the
+    fast paths of sqrt and rcp where all 8 arguments of a thread's batch lie
+    in [2^-100, 2^100], else __fsqrt_rn and __frcp_rn for all 8. Against the
+    plain versions bit for bit, eps 0: the forward on sums whose arguments
+    mix in-range values with 0 and with values above 2^100 (T 2^95); the
+    backward on memos log-uniform from 2^-149 (subnormal) to 2^96, every
+    live magnitude, with memos above 2^100 and dead ones (1e30) among them,
+    and on columns of memos in [2^-100, 2^96] alone, whose batches all take
+    the fast paths (T 2^91, the cotangent scaled by 2^-60 to keep every ds
+    finite)."""
+    from chaq_sdfgen_tpu_torch.ops import band_conv
+
+    rng = np.random.default_rng(200 + k)
+    h, w = 200, 512
+
+    def sums():  # in range, x = 0 (s >= 1), above 2^100 (s < 1.2e-14), dead
+        cls = _run_classes(rng, (h + 2 * k, w), [0.5, 0.2, 0.2, 0.1])
+        v = np.select([cls == 0, cls == 1, cls == 2],
+                      [10 ** rng.uniform(-13, -0.3, cls.shape), rng.uniform(1, 2, cls.shape),
+                       10 ** rng.uniform(-20, -16, cls.shape)], 0.0)
+        return torch.from_numpy(v.astype(np.float32)).to(dev)
+
+    a_in, a_out = sums(), sums()
+    fwd = (k, 2.0**95, 0.0, 0.0)
+    got = band_conv.p2_fused_fwd(a_in, a_out, *fwd)
+    want = band_conv.p2_fused_fwd_plain(a_in, a_out, *fwd)
+    for x, y in zip(got, want):
+        assert torch.isfinite(y).all() and torch.equal(x, y)
+    for d2 in want[1:]:
+        assert _sqrt_paths(d2, 0.0) == (True, True)
+        assert bool((d2 <= 0).any()) and bool((d2 > 2.0**100).any())
+
+    def memos():  # half the columns in [2^-100, 2^96] (every batch fast), the rest mixed
+        pure = rng.random(w) < 0.5
+        m = np.ldexp(rng.uniform(1, 2, (h, w)),
+                     np.floor(rng.uniform(np.where(pure, -100, -149), 96, (h, w))).astype(np.int64))
+        u = np.where(pure, 1.0, rng.random((h, w)))
+        m = np.where(u < 0.05, np.ldexp(rng.uniform(1, 2, (h, w)), rng.integers(101, 127, (h, w))), m)
+        m = np.where((u >= 0.05) & (u < 0.1), 1e30, m)
+        return torch.from_numpy(m.astype(np.float32)).to(dev)
+
+    d2i, d2o = memos(), memos()
+    ct = torch.from_numpy((rng.standard_normal((h, w)) * 2.0**-60).astype(np.float32)).to(dev)
+    bwd = (k, 2.0**91, 0.0, 0.0)
+    for x, y in zip(band_conv.p2_fused_bwd(ct, d2i, d2o, *bwd), band_conv.p2_fused_bwd_plain(ct, d2i, d2o, *bwd)):
+        assert torch.isfinite(y).all() and torch.equal(x, y)
+    for d2 in (d2i, d2o):
+        assert _sqrt_paths(d2, 0.0) == (True, True)
+        assert bool((d2 < 2.0**-126).any()) and bool((d2 > 2.0**100).any())
 
 
 def test_soft_kernels_take_halo_frames(dev):

@@ -153,6 +153,24 @@ def test_kernel_time_on_cpu_is_positive():
     assert 0 < t < 60
 
 
+def test_kernel_time_takes_the_jax_two_count_slope():
+    """kernel_time(img2ch, k1=4, k2=36) as in the JAX package: the slope
+    between k1 and k2 back-to-back runs, by keyword or by position; iters=
+    keeps the median of single runs; k2 <= k1 is refused."""
+    import inspect
+
+    want = {n: p.default for n, p in inspect.signature(jmodel.SDFGenerator.kernel_time).parameters.items()
+            if n in ("k1", "k2")}
+    got = inspect.signature(tmodel.SDFGenerator.kernel_time).parameters
+    assert {n: got[n].default for n in want} == want == {"k1": 4, "k2": 36}
+    gen = tmodel.SDFGenerator(device="cpu")
+    for t in (gen.kernel_time(_image(), k1=1, k2=3), gen.kernel_time(_image(), 1, 3)):
+        assert isinstance(t, float) and np.isfinite(t) and 0 < t < 60
+    assert 0 < gen.kernel_time(_image(), iters=2) < 60
+    with pytest.raises(ValueError):
+        gen.kernel_time(_image(), k1=3, k2=3)
+
+
 @pytest.fixture(scope="module")
 def input_png(tmp_path_factory):
     path = tmp_path_factory.mktemp("cli") / "in.png"
@@ -227,6 +245,19 @@ def test_cli_platforms_and_devices(tmp_path, input_png, capsys):
     assert "Platform specified not found." in capsys.readouterr().err
     assert tcli.main(["-i", input_png, "-o", str(out), "--platform", "cpu", "--device", "9"]) == 1
     assert tcli.main(["-i", input_png, "-o", str(out), "--device", "no-such-card"]) == 1
+
+
+def test_cli_accepts_and_ignores_no_jit_cache(tmp_path, input_png):
+    """--no-jit-cache, the JAX CLI's hidden switch, is accepted by both CLIs
+    and changes none of the port's output bytes."""
+    assert jcli.build_parser().parse_args(["-i", "a", "-o", "b", "--no-jit-cache"]).no_jit_cache
+    assert "--no-jit-cache" not in tcli.build_parser().format_help()
+    outs = []
+    for extra in ([], ["--no-jit-cache"]):
+        out = tmp_path / f"o{len(extra)}.png"
+        assert tcli.main(["-i", input_png, "-o", str(out), "--platform", "cpu", *extra]) == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
 
 
 def test_cli_time_flag(tmp_path, input_png, capsys):

@@ -6,15 +6,19 @@
 //   (row_seed_distances_ext). Per image row, side and polarity, the distance
 //   to the nearest seed (L1 at or left of x, R1 at or right of x) and to the
 //   second-nearest seed on that side (L2, R2), each clipped at
-//   sent = spread + 1: eight planes of T. Bound: bytes; the row is read once
-//   (1 B/px) and the planes written once (8 sizeof(T) B/px). Design: one
-//   block per row walks it in tiles of blockDim pixels; one block-wide scan
-//   per direction keeps, for both polarities at once, the two largest seed
-//   indices so far (left to right) or the two smallest (right to left). The
-//   TPU kernel carries the gap to the previous seed in the low bits of a
-//   packed max-scan (L2 = L1 + gap); the two nearest indices give the same
-//   L2 without the packing. No transposes (a row is contiguous on the card)
-//   and no halo rows: brute_scan_bytes reads rows outside the image itself.
+//   sent = spread + 1: eight planes of T. Bound: bytes, 1 + 8 sizeof(T) B/px:
+//   the row read once, the planes written once. Design: the warp walk of
+//   row_words.cuh (K = 2): a warp a row (or a segment of one), 16 pixels a lane
+//   and step from 16-byte loads kept as seed bitmasks; the two last seeds
+//   before and the two first after each lane's chunk, per polarity, from
+//   ballots, shuffles and clz/ffs, merged by the top-2 rule (the nearest of
+//   both firsts, then the nearer of the other first and both seconds); each
+//   plane's values computed in registers, two pixels a step, and stored
+//   once, 16 bytes a store. The TPU kernel carries the gap to the previous
+//   seed in the low bits of a packed max-scan (L2 = L1 + gap); the two
+//   nearest indices give the same L2 without the packing. No transposes (a
+//   row is contiguous on the card) and no halo rows: brute_scan_bytes reads
+//   rows outside the image itself.
 //
 // brute_scan_bytes<T> replaces pallas_brute.py:_brute_kernel_entry ->
 //   _brute_kernel_impl (brute_sdf_bytes_pallas). Per pixel, over the seeds
@@ -89,126 +93,99 @@
 #include <cuda_runtime.h>
 
 #include "refined_sqrt.cuh"
+#include "row_words.cuh"
 #include "staged.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 256;
-constexpr int kNone = -(1 << 30);  // "no seed on this side" for the max-scan
-constexpr int kFar = 1 << 30;      // "no seed on this side" for the min-scan
+namespace rw = row_words;
 constexpr unsigned kFull = 0xffffffffu;
 
-// The two nearest seed indices seen so far, per polarity: (x, y) for the
-// TRUE seeds, (z, w) for the FALSE ones; x beats y and z beats w. kMax:
-// nearest means largest (a left-to-right walk), else smallest.
-template <bool kMax>
-struct Top2 {
-  static constexpr int kIdentity = kMax ? kNone : kFar;
-
-  static __device__ __forceinline__ int best(int a, int b) { return kMax ? max(a, b) : min(a, b); }
-  static __device__ __forceinline__ int worst(int a, int b) { return kMax ? min(a, b) : max(a, b); }
-
-  // the two best of {p.a, p.b, q.a, q.b}
-  static __device__ __forceinline__ void merge(int pa, int pb, int qa, int qb, int* a, int* b) {
-    *a = best(pa, qa);
-    *b = best(worst(pa, qa), best(pb, qb));
+// One side of a chunk for one polarity: the distances of its 16 pixels to
+// the nearest and second-nearest seed at or left of them (kLeft: L1, L2) or
+// at or right (R1, R2), walked from the two nearest seeds beyond the chunk on
+// that side (n1 the nearer), clipped at sent, two pixels a step
+// (row_words.cuh's pairs; sent <= kPairMax): the nearest distance grows by
+// one a pixel and is 0 at a seed, the second takes the nearest's grown value
+// at a seed. Left to right the low half starts at pixel -1 and the high half
+// at pixel 7 (from the chunk's first 8 pixels, or pixel -1's plus 8); right to
+// left at pixel 8 and pixel 16.
+template <bool kLeft>
+__device__ __forceinline__ void side_pairs(uint32_t mp, const uint32_t* sel, int x0, int n1, int n2, int sent,
+                                           uint32_t* d1, uint32_t* d2) {
+  const int c1 = min(kLeft ? x0 - 1 - n1 : n1 - x0 - 16, sent), c2 = min(kLeft ? x0 - 1 - n2 : n2 - x0 - 16, sent);
+  const uint32_t b = kLeft ? mp & 0xffu : mp >> 8;  // the 8 pixels that the other half starts after
+  const int h1 = kLeft ? 31 - __clz(b) : __ffs(b) - 1;
+  const uint32_t rest = kLeft ? b & ~(1u << (h1 & 31)) : b & (b - 1);
+  const int h2 = kLeft ? 31 - __clz(rest) : __ffs(rest) - 1;
+  const int s1 = b ? (kLeft ? 7 - h1 : h1) : c1 + 8;
+  const int s2 = rest ? (kLeft ? 7 - h2 : h2) : b ? c1 + 8 : c2 + 8;
+  uint32_t a1 = kLeft ? rw::pair(c1, s1) : rw::pair(s1, c1), a2 = kLeft ? rw::pair(c2, s2) : rw::pair(s2, c2);
+  const uint32_t ss = rw::pair(sent, sent);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int i = kLeft ? k : 7 - k;
+    const uint32_t p1 = a1 + 0x00010001u, p2 = a2 + 0x00010001u;
+    a2 = (p2 & ~sel[i]) | (p1 & sel[i]);
+    a1 = p1 & ~sel[i];
+    d1[i] = __vminu2(a1, ss);
+    d2[i] = __vminu2(a2, ss);
   }
+}
 
-  static __device__ __forceinline__ int4 merge(int4 p, int4 q) {
-    int4 r;
-    merge(p.x, p.y, q.x, q.y, &r.x, &r.y);
-    merge(p.z, p.w, q.z, q.w, &r.z, &r.w);
-    return r;
+// The epilogue of brute_rows (row_words.cuh's walk, K = 2): per polarity and
+// side, a chunk's 16 pixels walked in registers from the two nearest seeds
+// beyond it (left to right for L1, L2; right to left for R1, R2), two pixels a
+// step; each plane's 16 values written once.
+template <typename T>
+struct RowsEpilogue {
+  T* out;
+  size_t plane;
+  int w, sent, vec;
+
+  __device__ __forceinline__ void operator()(long long j, long long e0, uint32_t m, const rw::Near& lo,
+                                             const rw::Near& hi) const {
+    const int x0 = (int)(j * rw::kChunk - e0);
+    uint32_t sel[8], d1[8], d2[8];
+#pragma unroll
+    for (int pol = 0; pol < 2; ++pol) {
+      const uint32_t mp = m >> (16 * pol) & 0xffffu;
+      T* dst = out + 4 * pol * plane;
+      rw::step_masks(mp, sel);
+      side_pairs<true>(mp, sel, x0, pol ? lo.f[0] : lo.t[0], pol ? lo.f[1] : lo.t[1], sent, d1, d2);
+      rw::put_pairs(dst, j, d1, e0, w, vec);
+      rw::put_pairs(dst + plane, j, d2, e0, w, vec);
+      side_pairs<false>(mp, sel, x0, pol ? hi.f[0] : hi.t[0], pol ? hi.f[1] : hi.t[1], sent, d1, d2);
+      rw::put_pairs(dst + 2 * plane, j, d1, e0, w, vec);
+      rw::put_pairs(dst + 3 * plane, j, d2, e0, w, vec);
+    }
   }
 };
 
-__device__ __forceinline__ int4 shfl_up4(int4 v, int o) {
-  return make_int4(__shfl_up_sync(kFull, v.x, o), __shfl_up_sync(kFull, v.y, o),
-                   __shfl_up_sync(kFull, v.z, o), __shfl_up_sync(kFull, v.w, o));
-}
-
-// Inclusive block-wide top-2 scan in thread order, seeded with `carry` (the
-// tiles before); returns the scanned value and updates the carry.
-template <bool kMax>
-__device__ __forceinline__ int4 block_scan_top2(int4 v, int4* carry, int4* warp_tot) {
-  using Op = Top2<kMax>;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int4 u = shfl_up4(v, o);
-    if (lane >= o) v = Op::merge(u, v);
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int id = Op::kIdentity;
-    int4 t = lane < nwarps ? warp_tot[lane] : make_int4(id, id, id, id);
-    for (int o = 1; o < 32; o <<= 1) {
-      const int4 u = shfl_up4(t, o);
-      if (lane >= o) t = Op::merge(u, t);
-    }
-    if (lane < nwarps) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  int4 pre = *carry;
-  if (warp > 0) pre = Op::merge(pre, warp_tot[warp - 1]);
-  v = Op::merge(pre, v);
-  *carry = Op::merge(*carry, warp_tot[nwarps - 1]);
-  __syncthreads();  // warp_tot is reused by the next tile
-  return v;
-}
-
-// grid (H, 1, N); block kRowThreads. out: planes (polarity, side) of
-// (N, H, W): 0-3 are L1, L2, R1, R2 of the TRUE seeds (code 1), 4-7 of the
-// FALSE seeds (code 0).
+// A warp a row segment (row_words.cuh). out: planes (polarity, side) of (N, H,
+// W): 0-3 are L1, L2, R1, R2 of the TRUE seeds (code 1), 4-7 of the FALSE seeds
+// (code 0). vec: the codes and every plane start 16-byte aligned.
 template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-brute_rows_kernel(const uint8_t* __restrict__ codes, T* __restrict__ out, int n, int h, int w,
-                  int sent) {
-  __shared__ int4 warp_tot[32];
-  const size_t row = (size_t)blockIdx.z * h + blockIdx.x;
-  const size_t plane = (size_t)n * h * w;
-  const uint8_t* src = codes + row * w;
-  T* dst = out + row * w;
+__global__ void __launch_bounds__(rw::kThreads)
+brute_rows_kernel(const uint8_t* __restrict__ codes, T* __restrict__ out, long long nrows, int w, int sent,
+                  int steps, int segs, int vec) {
+  RowsEpilogue<T> emit{out, (size_t)nrows * w, w, sent, vec};
+  rw::walk<2>(codes, nrows, w, sent, steps, segs, vec, emit);
+}
 
-  // left to right: the two nearest seeds at or before x
-  int4 carry = make_int4(kNone, kNone, kNone, kNone);
-  for (int base = 0; base < w; base += blockDim.x) {
-    const int x = base + threadIdx.x;
-    int4 v = make_int4(kNone, kNone, kNone, kNone);
-    if (x < w) {
-      const uint8_t c = src[x];
-      if (c == 1) v.x = x;
-      if (c == 0) v.z = x;
-    }
-    v = block_scan_top2<true>(v, &carry, warp_tot);
-    if (x < w) {
-      dst[x] = (T)min(x - v.x, sent);
-      dst[plane + x] = (T)min(x - v.y, sent);
-      dst[4 * plane + x] = (T)min(x - v.z, sent);
-      dst[5 * plane + x] = (T)min(x - v.w, sent);
-    }
-  }
-
-  // right to left: the two nearest seeds at or after x
-  carry = make_int4(kFar, kFar, kFar, kFar);
-  for (int end = w; end > 0; end -= blockDim.x) {
-    const int x = end - 1 - (int)threadIdx.x;
-    int4 v = make_int4(kFar, kFar, kFar, kFar);
-    if (x >= 0) {
-      const uint8_t c = src[x];
-      if (c == 1) v.x = x;
-      if (c == 0) v.z = x;
-    }
-    v = block_scan_top2<false>(v, &carry, warp_tot);
-    if (x >= 0) {
-      dst[2 * plane + x] = (T)min(v.x - x, sent);
-      dst[3 * plane + x] = (T)min(v.y - x, sent);
-      dst[6 * plane + x] = (T)min(v.z - x, sent);
-      dst[7 * plane + x] = (T)min(v.w - x, sent);
-    }
-  }
+// brute_rows on the (nrows, w) codes: segments and grid from row_words.cuh.
+template <typename T>
+int rows_launch(const void* codes, void* out, long long nrows, int w, int sent, cudaStream_t s) {
+  static int resident[64] = {};
+  int steps = 0, segs = 0;
+  unsigned grid = 0;
+  rw::segments(nrows, w, &steps, &segs);
+  const int e = rw::grid_of(brute_rows_kernel<T>, nrows, segs, &grid, resident);
+  if (e != 0) return e;
+  const int vec = ((size_t)codes | (size_t)out | (size_t)nrows * w * sizeof(T)) % 16 == 0;
+  brute_rows_kernel<T><<<grid, rw::kThreads, 0, s>>>((const uint8_t*)codes, (T*)out, nrows, w, sent, steps, segs,
+                                                      vec);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kScanTx = 64;
@@ -592,18 +569,11 @@ int scan_any(int elem_bytes, const void* codes, const void* strips, void* out, i
 extern "C" int chaq_brute_rows(const void* codes, void* out, int n, int h, int w, int sent,
                                int elem_bytes, void* stream) {
   if (n < 1 || h < 1 || w < 1 || n > 65535 || sent < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)h, 1, (unsigned)n);
+  const long long nrows = (long long)n * h;
   cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 1 && sent <= 255) {
-    brute_rows_kernel<uint8_t><<<grid, kRowThreads, 0, s>>>((const uint8_t*)codes,
-                                                            (uint8_t*)out, n, h, w, sent);
-  } else if (elem_bytes == 2 && sent <= 65535) {
-    brute_rows_kernel<uint16_t><<<grid, kRowThreads, 0, s>>>((const uint8_t*)codes,
-                                                             (uint16_t*)out, n, h, w, sent);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (elem_bytes == 1 && sent <= 255) return rows_launch<uint8_t>(codes, out, nrows, w, sent, s);
+  if (elem_bytes == 2 && sent <= rw::kPairMax) return rows_launch<uint16_t>(codes, out, nrows, w, sent, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int chaq_brute_scan_bytes(const void* codes, const void* strips, void* out, int n,

@@ -8,12 +8,14 @@
 //   and to the nearest FALSE pixel (code 0), clipped at min(band+1, max(T)).
 //   T is uint8, uint16 or int32: the int32 strips serve bands above 65534,
 //   where the JAX package answers through XLA (pallas_edt.py:939-945).
-//   Code 2 seeds neither field. Bound: memory; a row is read once (W bytes)
-//   and written twice (2 W sizeof(T)), plus one re-read of the outputs from
-//   L2. Design: one block per row walks it in tiles of blockDim pixels; a
-//   block-wide max-scan of seed indices (left to right) and a min-scan
-//   (right to left) give the nearest seed on each side for both polarities
-//   at once. No transposes: a row is contiguous on the card.
+//   Code 2 seeds neither field. Bound: bytes, 1 + 2 sizeof(T) B/px: the codes
+//   read once, both strips written once. Design: the warp walk of
+//   row_words.cuh (K = 1): a warp a row (or a segment of one), 16 pixels a lane
+//   and step from 16-byte loads kept as seed bitmasks, the last seed before and
+//   the first after each lane's chunk from ballots, shuffles and clz/ffs; each
+//   pixel's min(x - L, R - x, clip) computed in registers, two pixels a step,
+//   and both strips stored once, 16 bytes a store. No transposes: a row is
+//   contiguous on the card.
 //
 // edt_band_bytes<T> replaces chaq_sdfgen_tpu/ops/pallas_edt.py:
 //   _fused_kernel_looped_halo (fused_pass2_bytes_halo) and
@@ -106,114 +108,103 @@
 #include <cuda_runtime.h>
 
 #include "refined_sqrt.cuh"
+#include "row_words.cuh"
 #include "staged.cuh"
 
 namespace {
 
-constexpr int kRowThreads = 256;
-constexpr int kNone = -(1 << 30);  // "no seed on this side" for the max-scan
-constexpr int kFar = 1 << 30;      // "no seed on this side" for the min-scan
+namespace rw = row_words;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct MaxOp {
-  static constexpr int kIdentity = kNone;
-  __device__ __forceinline__ int operator()(int a, int b) const { return max(a, b); }
-};
+// The epilogue of edt_rows (row_words.cuh's walk, K = 1), per polarity: a
+// chunk's 16 pixels walked left to right from the last seed before the chunk,
+// then right to left from the first after it, in registers; each pixel's
+// min(x - L, R - x, clip) written once. Up to a clip of kPairMax the walk
+// takes two pixels a step (row_words.cuh's pairs): a distance grows by one a
+// pixel and is 0 at a seed, d = (d + 0x10001) & ~sel, from the distance at
+// pixel -1 (low half) and at pixel 7 (high half; from the chunk's first 8
+// pixels, or pixel -1's plus 8) left to right, from pixel 8 and pixel 16
+// right to left, then the two halves' minimum and the clip. Past it (int32
+// strips, uint16 clips above 65519) a pixel a step.
+template <typename T>
+struct RowsEpilogue {
+  T* din;
+  T* dout;
+  int w, clip, vec;
 
-struct MinOp {
-  static constexpr int kIdentity = kFar;
-  __device__ __forceinline__ int operator()(int a, int b) const { return min(a, b); }
-};
-
-// Inclusive block-wide scan of an int pair in thread order, seeded with
-// `carry` (the total of the tiles before); returns the scanned value and
-// writes the new carry (carry op all values of this tile).
-template <class Op>
-__device__ __forceinline__ int2 block_scan(int2 v, int2* carry, int2* warp_tot, Op op) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int a = __shfl_up_sync(kFull, v.x, o);
-    const int b = __shfl_up_sync(kFull, v.y, o);
-    if (lane >= o) {
-      v.x = op(v.x, a);
-      v.y = op(v.y, b);
+  __device__ __forceinline__ void operator()(long long j, long long e0, uint32_t m, const rw::Near& lo,
+                                             const rw::Near& hi) const {
+    const int x0 = (int)(j * rw::kChunk - e0);
+    if (sizeof(T) == 4 || clip > rw::kPairMax) {
+#pragma unroll
+      for (int pol = 0; pol < 2; ++pol) {
+        const uint32_t mp = m >> (16 * pol) & 0xffffu;
+        int d[rw::kChunk];
+        int n = pol ? lo.f[0] : lo.t[0];
+#pragma unroll
+        for (int i = 0; i < rw::kChunk; ++i) {
+          if (mp >> i & 1u) n = x0 + i;
+          d[i] = x0 + i - n;
+        }
+        n = pol ? hi.f[0] : hi.t[0];
+#pragma unroll
+        for (int i = rw::kChunk - 1; i >= 0; --i) {
+          if (mp >> i & 1u) n = x0 + i;
+          d[i] = min(min(d[i], n - x0 - i), clip);
+        }
+        rw::put_chunk(pol ? dout : din, j, d, e0, w, vec);
+      }
+      return;
     }
-  }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int2 t = lane < nwarps ? warp_tot[lane] : make_int2(Op::kIdentity, Op::kIdentity);
-    for (int o = 1; o < 32; o <<= 1) {
-      const int a = __shfl_up_sync(kFull, t.x, o);
-      const int b = __shfl_up_sync(kFull, t.y, o);
-      if (lane >= o) {
-        t.x = op(t.x, a);
-        t.y = op(t.y, b);
+    if constexpr (sizeof(T) < 4) {
+      const uint32_t cc = rw::pair(clip, clip);
+#pragma unroll
+      for (int pol = 0; pol < 2; ++pol) {
+        const uint32_t mp = m >> (16 * pol) & 0xffffu;
+        uint32_t sel[8], f[8];
+        rw::step_masks(mp, sel);
+        const int cl = min(x0 - 1 - (pol ? lo.f[0] : lo.t[0]), clip);
+        const uint32_t b = mp & 0xffu;
+        uint32_t d = rw::pair(cl, b ? __clz(b) - 24 : cl + 8);  // 7 - the last seed of pixels 0-7
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = d = (d + 0x00010001u) & ~sel[i];
+        const int cr = min((pol ? hi.f[0] : hi.t[0]) - x0 - 16, clip);
+        const uint32_t b2 = mp >> 8;
+        d = rw::pair(b2 ? __ffs(b2) - 1 : cr + 8, cr);  // the first seed of pixels 8-15, less 8
+#pragma unroll
+        for (int i = 7; i >= 0; --i) {
+          d = (d + 0x00010001u) & ~sel[i];
+          f[i] = __vminu2(__vminu2(f[i], d), cc);
+        }
+        rw::put_pairs(pol ? dout : din, j, f, e0, w, vec);
       }
     }
-    if (lane < nwarps) warp_tot[lane] = t;
   }
-  __syncthreads();
-  int2 pre = *carry;
-  if (warp > 0) {
-    pre.x = op(pre.x, warp_tot[warp - 1].x);
-    pre.y = op(pre.y, warp_tot[warp - 1].y);
-  }
-  v.x = op(v.x, pre.x);
-  v.y = op(v.y, pre.y);
-  carry->x = op(carry->x, warp_tot[nwarps - 1].x);
-  carry->y = op(carry->y, warp_tot[nwarps - 1].y);
-  __syncthreads();  // warp_tot is reused by the next tile
-  return v;
+};
+
+// A warp a row segment (row_words.cuh); vec: the codes and both strips start
+// 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(rw::kThreads)
+edt_rows_kernel(const uint8_t* __restrict__ codes, T* __restrict__ din, T* __restrict__ dout, long long nrows,
+                int w, int clip, int steps, int segs, int vec) {
+  RowsEpilogue<T> emit{din, dout, w, clip, vec};
+  rw::walk<1>(codes, nrows, w, clip, steps, segs, vec, emit);
 }
 
-// grid (H, 1, N); block kRowThreads. din/dout are written in the forward
-// walk and re-read (by other threads of the block, after the scan's
-// barriers) in the backward walk.
+// edt_rows on the (nrows, w) codes: segments and grid from row_words.cuh.
 template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-edt_rows_kernel(const uint8_t* __restrict__ codes, T* din, T* dout, int h, int w, int clip) {
-  __shared__ int2 warp_tot[32];
-  const size_t row = (size_t)blockIdx.z * h + blockIdx.x;
-  const uint8_t* src = codes + row * w;
-  T* pin = din + row * w;
-  T* pout = dout + row * w;
-
-  // left to right: index of the nearest seed at or before x
-  int2 carry = make_int2(kNone, kNone);
-  for (int base = 0; base < w; base += blockDim.x) {
-    const int x = base + threadIdx.x;
-    int2 v = make_int2(kNone, kNone);
-    if (x < w) {
-      const uint8_t c = src[x];
-      if (c == 1) v.x = x;
-      if (c == 0) v.y = x;
-    }
-    v = block_scan(v, &carry, warp_tot, MaxOp());
-    if (x < w) {
-      pin[x] = (T)min(x - v.x, clip);
-      pout[x] = (T)min(x - v.y, clip);
-    }
-  }
-
-  // right to left: index of the nearest seed at or after x
-  carry = make_int2(kFar, kFar);
-  for (int end = w; end > 0; end -= blockDim.x) {
-    const int x = end - 1 - (int)threadIdx.x;
-    int2 v = make_int2(kFar, kFar);
-    if (x >= 0) {
-      const uint8_t c = src[x];
-      if (c == 1) v.x = x;
-      if (c == 0) v.y = x;
-    }
-    v = block_scan(v, &carry, warp_tot, MinOp());
-    if (x >= 0) {
-      pin[x] = (T)min((int)pin[x], v.x - x);
-      pout[x] = (T)min((int)pout[x], v.y - x);
-    }
-  }
+int rows_launch(const void* codes, void* din, void* dout, long long nrows, int w, int clip, cudaStream_t s) {
+  static int resident[64] = {};
+  int steps = 0, segs = 0;
+  unsigned grid = 0;
+  rw::segments(nrows, w, &steps, &segs);
+  const int e = rw::grid_of(edt_rows_kernel<T>, nrows, segs, &grid, resident);
+  if (e != 0) return e;
+  const int vec = ((size_t)codes | (size_t)din | (size_t)dout) % 16 == 0;
+  edt_rows_kernel<T><<<grid, rw::kThreads, 0, s>>>((const uint8_t*)codes, (T*)din, (T*)dout, nrows, w, clip, steps,
+                                                    segs, vec);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------- pass 2 (band)
@@ -883,21 +874,12 @@ __global__ void refined_sqrt_kernel(const float* __restrict__ in, float* __restr
 extern "C" int chaq_edt_rows(const void* codes, void* din, void* dout, int n, int h, int w,
                              int clip, int elem_bytes, void* stream) {
   if (n < 1 || h < 1 || w < 1 || n > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)h, 1, (unsigned)n);
+  const long long nrows = (long long)n * h;
   cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 1) {
-    edt_rows_kernel<uint8_t><<<grid, kRowThreads, 0, s>>>(
-        (const uint8_t*)codes, (uint8_t*)din, (uint8_t*)dout, h, w, clip);
-  } else if (elem_bytes == 2) {
-    edt_rows_kernel<uint16_t><<<grid, kRowThreads, 0, s>>>(
-        (const uint8_t*)codes, (uint16_t*)din, (uint16_t*)dout, h, w, clip);
-  } else if (elem_bytes == 4) {
-    edt_rows_kernel<int32_t><<<grid, kRowThreads, 0, s>>>(
-        (const uint8_t*)codes, (int32_t*)din, (int32_t*)dout, h, w, clip);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (elem_bytes == 1) return rows_launch<uint8_t>(codes, din, dout, nrows, w, clip, s);
+  if (elem_bytes == 2) return rows_launch<uint16_t>(codes, din, dout, nrows, w, clip, s);
+  if (elem_bytes == 4) return rows_launch<int32_t>(codes, din, dout, nrows, w, clip, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // h: the strips' rows; output row y reads strip row y + row_off, for

@@ -22,7 +22,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
   6. hard times with CUDA events (per call over 10 back-to-back calls, the
      median of 5 such windows, after a warm-up): each pass and
      the whole pipeline, kernels against plain versions, at 4096x4096
-     spread 64 on both inputs; the path pass 2 takes on each input and at
+     spread 64 on both inputs (edt_rows, and its uint16 instance at spread
+     300, also as a CUDA graph of 10 calls and the host's time a call:
+     graph_ms, host_us); the path pass 2 takes on each input and at
      spread 300 on the glyph, the rows a pixel reads and the segments it
      tests (band_walk_counts, whose minima must be the per-pixel walk's);
   7. where the hard main path's device time goes: torch.profiler over 10
@@ -110,7 +112,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
      its plain version;
  18. BRUTE, JFA and exact-distance times (CUDA events, as in phase 6) at
      4096x4096 spread 64 on both inputs: each kernel against its plain
-     version and the three pipelines; edt_dist on both strips of the
+     version (brute_rows also as a CUDA graph and the host's time a call)
+     and the three pipelines; edt_dist on both strips of the
      signed field (each exact_dist two launches), edt_dist_core (the first)
      and edt_dist (the second, from the first's table and flags) alone, and
      on each strip the tiles' paths, the
@@ -225,11 +228,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
      scale, the parameters after 3 steps within 1e-5), and the CLI
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
      glyph PNG byte for byte the unsharded SDFGenerator.
-`python3 chip_smoke.py --kernel-turn` times rows 2, 4, 5, 6, 7, 8, 9, 10,
-11, 15, 16 and 17-19 and what they serve alone (kernel_turn: edt_turn
-first; band_conv_turn on phase 26's inputs, each as a CUDA graph too, since
-their host launch cost nears their device time), on this tree or (copied
-in) its parent.
+`python3 chip_smoke.py --kernel-turn` times rows 1-11 and 14-19 and what
+they serve alone (kernel_turn: edt_turn first, with the row passes, rows
+1, 3 and 14, at 4096^2 on the glyph and the noise: edt_rows at bands 66,
+302 and the exact field's 8190, brute_rows at spread 64, each as CUDA
+events, a CUDA graph and the host's time a call, since the wrappers' host
+cost nears their device time, with digests of their outputs;
+band_conv_turn on phase 26's inputs, as CUDA graphs too), on this tree or
+(copied in) its parent.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -721,6 +727,7 @@ def hard_phases(dev, noise, glyph):
         times[name] = t
         for k, ms in t.items():
             log(f"time {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+        rows_time(f"{name} edt_rows band {band}", lambda: cuda_edt.row_distances_u8(b, band))
         log_band_walk(f"{name} spread {SPREAD}", din, dout, band)
 
     # bounds on the main path's (glyph) input
@@ -746,6 +753,7 @@ def hard_phases(dev, noise, glyph):
     }
     for k, ms in t16.items():
         log(f"time glyph spread 300 {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+    rows_time(f"glyph edt_rows band {band16}", lambda: cuda_edt.row_distances_u8(b, band16))
     log_band_walk("glyph spread 300", din, dout, band16)
     times["glyph"].update(t16)
     bounds.update(b16)
@@ -2100,6 +2108,7 @@ def brute_dist_phases(dev, noise, glyph):
         times[name] = t
         for k, ms in t.items():
             log(f"time {name} {k}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+        rows_time(f"{name} brute_rows spread {SPREAD}", lambda: cuda_brute.seed_strips(b, SPREAD))
         e = max_abs_err(cuda_brute.brute_scan_bytes_halo(b, strips, SPREAD, 0),
                         cuda_brute.brute_scan_bytes(b, strips, SPREAD))
         old_taps = scan_walk_taps(b, strips, SPREAD, 0, pixel=True)[0]
@@ -2572,10 +2581,23 @@ def composed_turn(dev, glyph) -> None:
     profile_device("composed step, pm2000", lambda: composed_step(inputs["pm2000"]))
 
 
+def rows_time(label: str, fn) -> None:
+    """A row pass's time (rows 1, 3, 14): CUDA events (cuda_ms, the kernels
+    line's ms), a CUDA graph of 10 calls (graph_ms: the wrapper's host cost
+    nears the device time) and the host's time a call (host_us), with a
+    digest of each output."""
+    out = fn()
+    digests = " ".join(digest(o) for o in (out if isinstance(out, tuple) else (out,)))
+    log(f"time {label}: {cuda_ms(fn):.4f} ms, graph {graph_ms(fn):.4f} ms, host {host_us(fn):.1f} us a call; "
+        f"digest {digests}")
+
+
 def edt_turn(dev, noise, glyph) -> None:
-    """Rows 2, 4 and 5 and what they serve, on the glyph and the noise at
-    4096^2: edt_band_bytes at spreads 64 (uint8 strips) and 300 (uint16),
-    edt_dist on both strips of the signed field, the EXACT pipeline
+    """Rows 1-5 and what they serve, on the glyph and the noise at 4096^2:
+    edt_rows at bands 66 (uint8 strips), 302 and the exact field's
+    dist_sat(4096) - 1 (uint16; rows_time: CUDA events, graph, host),
+    edt_band_bytes at spreads 64 (uint8 strips) and 300 (uint16), edt_dist
+    on both strips of the signed field, the EXACT pipeline
     (SDFGenerator.generate), signed_distance_field_exact and sharded EXACT
     over (4,) logical shards under rdma; each time with a digest of the
     output, so that turns of two trees in one call can be compared."""
@@ -2583,6 +2605,9 @@ def edt_turn(dev, noise, glyph) -> None:
     for name, img2ch in (("glyph", glyph), ("noise", noise)):
         img = torch.from_numpy(img2ch).to(dev)
         b = threshold.hard_threshold(img)
+        for band in (SPREAD + 2, 302, cuda_edt.dist_sat(SIZE) - 1):
+            rows_time(f"{name} edt_rows band {band} ({cuda_edt.strip_dtype(band)})",
+                      lambda: cuda_edt.row_distances_u8(b, band))
         for spread in (SPREAD, 300):
             band = spread + 2
             din, dout = cuda_edt.row_distances_u8(b, band)
@@ -2612,15 +2637,16 @@ def edt_turn(dev, noise, glyph) -> None:
 
 
 def kernel_turn(dev, noise, glyph) -> None:
-    """Rows 2, 4, 5, 6, 7, 8, 9, 10, 11, 15, 16 and 17-19 and what they
-    serve, alone, on any tree that has these kernels (this one or its
-    parent, for turns in one call): first edt_turn; then soft_b2, soft_f1,
+    """Rows 1-11 and 14-19 and what they serve, alone, on any tree that has
+    these kernels (this one or its parent, for turns in one call): first
+    edt_turn; then soft_b2, soft_f1,
     soft_f2 (row 9) and soft_b1 on the bench's noise, pm2000 and the glyph
     in +-2040, soft_mm_bwd on the bench's noise at tap radii 10 and 16, and
     soft_mm_fwd (row 6) there at 10 and 16 with and without memos (with
     digests of soft_f2's, soft_b1's and both declared kernels' outputs),
     the declared training step, the forced and gated adaptive steps and
-    SoftSDFModel's step; brute_scan_bytes_halo on each shard of the glyph
+    SoftSDFModel's step; brute_rows at spread 64 on the glyph and the noise
+    (rows_time); brute_scan_bytes_halo on each shard of the glyph
     and the noise over 4 shards and at row_off 0 on the whole image beside
     brute_scan_bytes; the cols-conv kernels on phase 26's inputs
     (band_conv_turn); and sharded BRUTE over (4,)."""
@@ -2667,6 +2693,8 @@ def kernel_turn(dev, noise, glyph) -> None:
         "glyph": threshold.hard_threshold(torch.from_numpy(glyph).to(dev)),
         "noise": threshold.hard_threshold(torch.from_numpy(noise).to(dev)),
     }
+    for name, b in masks.items():
+        rows_time(f"{name} brute_rows spread {SPREAD}", lambda: cuda_brute.seed_strips(b, SPREAD))
     halo_scan_shard_times(masks, count=False)
     band_conv_turn(dev, noise, glyph)
     m4 = logical_mesh(dev, (SHARDS,))

@@ -1,12 +1,12 @@
-"""Where seven soft kernels' time goes, on one NVIDIA GPU: soft_b1,
-soft_mm_bwd, soft_f2, soft_mm_fwd and the cols-conv kernels (cols_conv,
-p2_fused_fwd, p2_fused_bwd) timed as built, then built again from an edited
-copy of chaq_sdfgen_tpu_torch/csrc with one part stripped out or changed,
-so the difference is that part's share or that design's cost. A stripped
-kernel computes wrong values; it is timed only, never used. The design
-variants (f2_64_rows .. f2_both_fields, fwd_divide, band_vjp_div,
-band_slow_paths, band_one_chunk_strips .. band_ceiling_32) compute the
-same values.
+"""Where nine kernels' time goes, on one NVIDIA GPU: soft_b1, soft_mm_bwd,
+soft_f2, soft_mm_fwd, the cols-conv kernels (cols_conv, p2_fused_fwd,
+p2_fused_bwd) and the row passes (edt_rows, brute_rows) timed as built,
+then built again from an edited copy of chaq_sdfgen_tpu_torch/csrc with one
+part stripped out or changed, so the difference is that part's share or
+that design's cost. A stripped kernel computes wrong values; it is timed
+only, never used. The design variants (f2_64_rows .. f2_both_fields,
+fwd_divide, band_vjp_div, band_slow_paths, band_one_chunk_strips ..
+band_ceiling_32, rows_scalar_walk .. rows_lb4) compute the same values.
 
     python3 scripts/torch_kernel_parts.py [part ...]
 
@@ -68,13 +68,32 @@ the sources stops the script):
   band_128_threads    blocks of 4 warps, 32-row chunks;
   band_16_rows    16 outputs a thread, blocks of 4 warps (64-row chunks);
   band_ceiling_32     the tap loop unrolled to radius 32, not 128 (the
-                  same values at these inputs' radii, 10 and 29).
+                  same values at these inputs' radii, 10 and 29);
+  rows_no_scan    the row passes without their ballot-and-shuffle scans
+                  (each chunk walked from no seed outside it);
+  rows_copy       the row passes' loads, masks and stores only (no scan,
+                  no walk);
+  rows_scalar_walk    the epilogues a pixel a step, not two (row_words.cuh's
+                  pairs);
+  rows_no_bool_path   every word's masks by the tri-state byte tests;
+  rows_no_prefetch    a warp a segment, its codes staged when it starts
+                  (not during the walk of its previous one);
+  rows_unroll_1, rows_walk_unroll_1  the mask loop, or the right-to-left
+                  walk, not unrolled;
+  rows_byte_stores    every output stored a byte or element at a time;
+  rows_one_step   segments of one step (512 pixels), each with a look
+                  around its ends;
+  rows_whole_rows     a warp a whole row at any launch size (no segments);
+  rows_lb3, rows_lb4  the row kernels' registers held to 3 or 4 blocks an
+                  SM.
 Times: CUDA events around 10 back-to-back calls, the median of 5 windows
 (chip_smoke.cuda_ms), at 4096x4096, spread 64, tau 2, T 1, on the inputs
 chip_smoke.py uses (soft_f2 on all three, the declared kernels on the
-bench's noise at k 10); the cols-conv kernels on phase 26's as a CUDA
-graph of 10 calls (chip_smoke.graph_ms: their host launch cost is near
-their device time); the card's name and power limit are printed first.
+bench's noise at k 10); the cols-conv kernels on phase 26's and the row
+passes on the glyph (edt_rows at bands 66 and 302, brute_rows at spread
+64, whole and on a 1024-row shard) as a CUDA graph of 10 calls
+(chip_smoke.graph_ms: their host launch cost is near their device time);
+the card's name and power limit are printed first.
 """
 
 import os
@@ -89,7 +108,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
-from chaq_sdfgen_tpu_torch.ops import _build, band_conv, cuda_soft_mm, soft_fused, soft_mxu  # noqa: E402
+from chaq_sdfgen_tpu_torch.ops import (  # noqa: E402
+    _build, band_conv, cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, soft_mxu,
+)
 
 # soft_f2's staging of one field's window, and of both at once (f2_both_fields)
 F2_STAGE = """  for (int f = 0; f < 2; ++f) {
@@ -136,6 +157,52 @@ F2_STAGE_BOTH = """  for (int k = w; k < 2 * segs; k += kF2Warps) {
     if (nw > 0) {
       const float* col = win + f * segs * kSeg * kLanes + tx;
       const float vmin = f2_window_min(col, segm + f * segs * kLanes + tx, ow, ow + nw - 1 + 2 * band);"""
+
+# the row passes' scans: the carries before each step, and each lane's nearest
+# seeds outside its chunk (the walk then reads only what the look-arounds give)
+ROWS_NO_SCAN = [
+    ("row_words.cuh", "        take<true, K>(c, m, bt, bf, kAll, (int)((js + s * kLanes) * kChunk - e0));\n", ""),
+    ("row_words.cuh", "        take<true, K>(lo, m, bt, bf, below, x0);\n        take<false, K>(hi, m, bt, bf, above, x0);\n"
+                      "        take<false, K>(after, m, bt, bf, kAll, x0);\n", ""),
+]
+# brute_rows' epilogue a pixel a step (the pairs' design before it)
+BRUTE_SCALAR_SIDE = """template <bool kLeft>
+__device__ __forceinline__ void side(uint32_t mp, int x0, int n1, int n2, int sent, int* d1, int* d2) {
+#pragma unroll
+  for (int k = 0; k < rw::kChunk; ++k) {
+    const int i = kLeft ? k : rw::kChunk - 1 - k;
+    if (mp >> i & 1u) n2 = n1, n1 = x0 + i;
+    d1[i] = min(kLeft ? x0 + i - n1 : n1 - x0 - i, sent);
+    d2[i] = min(kLeft ? x0 + i - n2 : n2 - x0 - i, sent);
+  }
+}
+
+// The epilogue of brute_rows (row_words.cuh's walk, K = 2)"""
+BRUTE_PAIRS_BODY = """    uint32_t sel[8], d1[8], d2[8];
+#pragma unroll
+    for (int pol = 0; pol < 2; ++pol) {
+      const uint32_t mp = m >> (16 * pol) & 0xffffu;
+      T* dst = out + 4 * pol * plane;
+      rw::step_masks(mp, sel);
+      side_pairs<true>(mp, sel, x0, pol ? lo.f[0] : lo.t[0], pol ? lo.f[1] : lo.t[1], sent, d1, d2);
+      rw::put_pairs(dst, j, d1, e0, w, vec);
+      rw::put_pairs(dst + plane, j, d2, e0, w, vec);
+      side_pairs<false>(mp, sel, x0, pol ? hi.f[0] : hi.t[0], pol ? hi.f[1] : hi.t[1], sent, d1, d2);
+      rw::put_pairs(dst + 2 * plane, j, d1, e0, w, vec);
+      rw::put_pairs(dst + 3 * plane, j, d2, e0, w, vec);
+    }"""
+BRUTE_SCALAR_BODY = """    int d1[rw::kChunk], d2[rw::kChunk];
+#pragma unroll
+    for (int pol = 0; pol < 2; ++pol) {
+      const uint32_t mp = m >> (16 * pol) & 0xffffu;
+      T* dst = out + 4 * pol * plane;
+      side<true>(mp, x0, pol ? lo.f[0] : lo.t[0], pol ? lo.f[1] : lo.t[1], sent, d1, d2);
+      rw::put_chunk(dst, j, d1, e0, w, vec);
+      rw::put_chunk(dst + plane, j, d2, e0, w, vec);
+      side<false>(mp, x0, pol ? hi.f[0] : hi.t[0], pol ? hi.f[1] : hi.t[1], sent, d1, d2);
+      rw::put_chunk(dst + 2 * plane, j, d1, e0, w, vec);
+      rw::put_chunk(dst + 3 * plane, j, d2, e0, w, vec);
+    }"""
 
 PARTS = {
     "as built": [],
@@ -233,6 +300,38 @@ PARTS = {
     "band_16_rows": [("band_conv.cu", "constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),
                      ("band_conv.cu", "constexpr int kPer = 8;", "constexpr int kPer = 16;")],
     "band_ceiling_32": [("band_conv.cu", "constexpr int kMaxK = 128;", "constexpr int kMaxK = 32;")],
+    "rows_no_scan": ROWS_NO_SCAN,
+    "rows_copy": ROWS_NO_SCAN + [
+        ("edt.cu", "        for (int i = 0; i < 8; ++i) f[i] = d = (d + 0x00010001u) & ~sel[i];",
+         "        for (int i = 0; i < 8; ++i) f[i] = sel[i];"),
+        ("edt.cu", "          d = (d + 0x00010001u) & ~sel[i];\n          f[i] = __vminu2(__vminu2(f[i], d), cc);",
+         "          f[i] &= cc;"),
+        ("brute.cu", "    const uint32_t p1 = a1 + 0x00010001u, p2 = a2 + 0x00010001u;\n"
+                     "    a2 = (p2 & ~sel[i]) | (p1 & sel[i]);\n    a1 = p1 & ~sel[i];\n"
+                     "    d1[i] = __vminu2(a1, ss);\n    d2[i] = __vminu2(a2, ss);",
+         "    d1[i] = sel[i] & ss;\n    d2[i] = d1[i];")],
+    "rows_scalar_walk": [
+        ("edt.cu", "    if (sizeof(T) == 4 || clip > rw::kPairMax) {", "    if (true) {"),
+        ("brute.cu", "// The epilogue of brute_rows (row_words.cuh's walk, K = 2)", BRUTE_SCALAR_SIDE),
+        ("brute.cu", BRUTE_PAIRS_BODY, BRUTE_SCALAR_BODY)],
+    "rows_no_bool_path": [("row_words.cuh", "  if (((v.x | v.y | v.z | v.w) & 0xfefefefeu) == 0) {", "  if (false) {")],
+    "rows_no_prefetch": [("row_words.cuh", "  *grid = (unsigned)(need < per_sm ? need : per_sm);",
+                          "  *grid = (unsigned)need;")],
+    "rows_unroll_1": [("row_words.cuh", "#pragma unroll 4\n      for (int s = 0; s < nsteps; ++s) {",
+                       "#pragma unroll 1\n      for (int s = 0; s < nsteps; ++s) {")],
+    "rows_walk_unroll_1": [("row_words.cuh", "#pragma unroll 2\n      for (int s = nsteps - 1; s >= 0; --s) {",
+                            "#pragma unroll 1\n      for (int s = nsteps - 1; s >= 0; --s) {")],
+    "rows_byte_stores": [("row_words.cuh", "  if (vec && full_chunk(j, e0, w)) {\n    uint4* out",
+                          "  if (false) {\n    uint4* out")],
+    "rows_one_step": [("row_words.cuh", "  while (s > 1 && nrows * count(s) < kTargetWarps) s = (s + 1) / 2;",
+                       "  s = 1;")],
+    "rows_whole_rows": [("row_words.cuh", "kTargetWarps = 2048;", "kTargetWarps = 0;")],
+    "rows_lb3": [("edt.cu", "__launch_bounds__(rw::kThreads)\nedt_rows_kernel", "__launch_bounds__(rw::kThreads, 3)\nedt_rows_kernel"),
+                 ("brute.cu", "__launch_bounds__(rw::kThreads)\nbrute_rows_kernel",
+                  "__launch_bounds__(rw::kThreads, 3)\nbrute_rows_kernel")],
+    "rows_lb4": [("edt.cu", "__launch_bounds__(rw::kThreads)\nedt_rows_kernel", "__launch_bounds__(rw::kThreads, 4)\nedt_rows_kernel"),
+                 ("brute.cu", "__launch_bounds__(rw::kThreads)\nbrute_rows_kernel",
+                  "__launch_bounds__(rw::kThreads, 4)\nbrute_rows_kernel")],
 }
 
 
@@ -291,6 +390,15 @@ def main() -> int:
             f"cols_conv k {wk2}": lambda: band_conv.cols_conv(x["e"], wk2, cs.WIDE_T),
             f"cols_conv k {wk2} backward": lambda: band_conv.cols_conv(x["ctw"], wk2, cs.WIDE_T, -wk2, h4 + 2 * wk2),
         }
+        b = cs.threshold.hard_threshold(torch.from_numpy(glyph).to(dev))
+        shard = b[: cs.SIZE // cs.SHARDS].contiguous()
+        rows_runs = {
+            "edt_rows u8 band 66": lambda: cuda_edt.row_distances_u8(b, band),
+            "edt_rows u16 band 302": lambda: cuda_edt.row_distances_u8(b, 302),
+            f"brute_rows spread {cs.SPREAD}": lambda: cuda_brute.seed_strips(b, cs.SPREAD),
+            "edt_rows u8 shard": lambda: cuda_edt.row_distances_u8(shard, band),
+            "brute_rows shard": lambda: cuda_brute.seed_strips(shard, cs.SPREAD),
+        }
         chosen = sys.argv[1:]
         for part, edits in PARTS.items():
             if chosen and part != "as built" and not any(part.startswith(a) for a in chosen):
@@ -314,6 +422,9 @@ def main() -> int:
                     line.append(f"soft_mm_fwd k {k1}{'' if memos else ' serving'} {ms:.4f}")
             if part == "as built" or part.startswith("band"):
                 for name, fn in band_runs.items():
+                    line.append(f"{name} {cs.graph_ms(fn):.4f}")
+            if part == "as built" or part.startswith("rows"):
+                for name, fn in rows_runs.items():
                     line.append(f"{name} {cs.graph_ms(fn):.4f}")
             print(f"part {part}: " + ", ".join(line) + " ms", flush=True)
     return 0

@@ -42,13 +42,27 @@ def _codes(shape, seed, tri_state=False, density=0.3):
 
 
 SHAPES = [(1, 17), (17, 1), (139, 131), (3, 32, 32), (300, 1100)]
+# the row passes' edges too (csrc/row_words.cuh): a partial 16-pixel word, one
+# word, rows wider than a warp's 4096-pixel segment (a row cut into segments),
+# a batch whose rows do not fill the last block's 8 warps, a 1024-wide mask
+ROW_SHAPES = SHAPES + [(5, 15), (5, 16), (7, 4097), (3, 20000), (3, 7, 33), (64, 1024)]
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("band", [3, 66, 302])
+def _at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """t's values in a tensor whose data starts ``offset`` elements into its
+    storage (not 16-byte aligned for a byte tensor and offset 3)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+@pytest.mark.parametrize("band", [3, 66, 302, 65530, 65600])
 @pytest.mark.parametrize("tri_state", [False, True])
-def test_edt_rows_matches_plain(dev, shape, band, tri_state):
-    codes = _codes(shape, band, tri_state, density=0.05).to(dev)
+@pytest.mark.parametrize("offset", [0, 3])
+def test_edt_rows_matches_plain(dev, shape, band, tri_state, offset):
+    codes = _at_offset(_codes(shape, band, tri_state, density=0.05).to(dev), offset)
     before = cuda_edt.LAUNCHES["edt_rows"]
     din, dout = cuda_edt.row_distances_u8(codes, band)
     assert cuda_edt.LAUNCHES["edt_rows"] == before + 1
@@ -138,10 +152,11 @@ def test_wrappers_refuse_what_kernels_do_not_take(dev):
 BRUTE_SHAPES = [(1, 17), (17, 1), (139, 131), (3, 64, 80), (300, 1100)]
 
 
-@pytest.mark.parametrize("shape", BRUTE_SHAPES)
+@pytest.mark.parametrize("shape", BRUTE_SHAPES + ROW_SHAPES[len(SHAPES):])
 @pytest.mark.parametrize("spread", [1, 12, 254, 300])
-def test_brute_rows_matches_plain(dev, shape, spread):
-    b = _codes(shape, spread, density=0.05).to(dev)
+@pytest.mark.parametrize("offset", [0, 3])
+def test_brute_rows_matches_plain(dev, shape, spread, offset):
+    b = _at_offset(_codes(shape, spread, density=0.05).to(dev), offset)
     before = cuda_brute.LAUNCHES["brute_rows"]
     got = cuda_brute.seed_strips(b, spread)
     assert cuda_brute.LAUNCHES["brute_rows"] == before + 1

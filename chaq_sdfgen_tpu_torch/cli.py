@@ -13,9 +13,10 @@ OpenMP binary's bytes), brute (the OpenCL binary's) or jfa (jump flood).
 range (--gray-range, default 0 255) where it lies inside the gamut of
 --soft-tau and --soft-temperature, else as an undeclared range (a range
 such as -1000000000 1000000000 forces it): the runtime gate up to spread 110 (band 112),
-the composed path above. --soft-prec is not ported yet. A spread that the
-kernels refuse (EXACT above 2^30 - 3, BRUTE above 32766) ends the run with
-one line on stderr and exit code 1. --shard-y/--shard-x/--halo-impl run the
+the composed path above. --soft-prec takes highest or high, and both run
+the same float32 kernels (there is no lower-precision form to opt into).
+A spread that the kernels refuse (EXACT above 2^30 - 3, BRUTE above 32766)
+ends the run with one line on stderr and exit code 1. --shard-y/--shard-x/--halo-impl run the
 hard algorithms, or with --soft the soft field, over a device mesh
 (ShardingConfig): distinct cards on cuda (exit code 1 when there are too
 few, or when --device selects another card than the first), logical shards
@@ -98,6 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output clamping of the soft remap (default: hard)")
     p.add_argument("--soft-field", default=None, metavar="FILE.npy",
                    help="with --soft: also save the raw float32 signed field as .npy")
+    p.add_argument("--soft-prec", default="highest", choices=("highest", "high"),
+                   help="soft-path precision, accepted as in the JAX CLI: both "
+                        "values run the port's float32 soft kernels (there is no "
+                        "lower-precision form)")
     p.add_argument("--gray-range", nargs=2, type=float, default=(0.0, 255.0),
                    metavar=("LO", "HI"),
                    help="declared input-value bound for the soft path (default: "

@@ -1,1 +1,3 @@
-"""Model layer: config-driven SDF generation pipelines (EXACT so far)."""
+"""Model layer: config-driven SDF generation pipelines (EXACT, BRUTE, JFA
+and the soft field), the batched glyph atlas, the trainable soft model and
+its checkpoints."""

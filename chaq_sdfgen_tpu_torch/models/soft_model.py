@@ -14,7 +14,9 @@ The model passes no gray_range, so its field takes the undeclared-range
 paths of ops/softsdf.py: up to band 112 the runtime gate (the
 declared-range kernels with a runtime shift while the mixed values stay in
 gamut, the adaptive kernels otherwise), above it the composed path.
-``params_from_jax`` carries a flax parameter tree over. With ``mesh`` the
+``params_from_jax`` carries a flax parameter tree over, and
+``opt_state_from_jax`` an optax.adam state, so that a JAX training run
+resumes here (models/checkpoint.py). With ``mesh`` the
 field runs over a device mesh (parallel/sharded.sharded_soft_sdf_field,
 the undeclared tiers: the adaptive kernels or the composed path), the
 batch over ``batch_axis``, and the parameters live on the mesh's first
@@ -82,7 +84,11 @@ def create_train_state(model: SoftSDFModel, example: torch.Tensor = None,
     holds its parameters, so ``example`` (flax's init input) is not read;
     it stays for the JAX signature."""
     del example
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return _adam(model.parameters(), lr)
+
+
+def _adam(params, lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def make_train_step(model: SoftSDFModel, opt: torch.optim.Optimizer):
@@ -120,3 +126,39 @@ def params_from_jax(flax_params: Mapping[str, Any]) -> dict:
             raise ValueError(f"params_from_jax: {k} has shape {a.shape}, expected {shapes[k]}")
         out[k] = torch.from_numpy(a.copy())
     return out
+
+
+def _adam_moments(opt_state: Any):
+    """(count, mu, nu) of the first Adam state in an optax state: the
+    ScaleByAdamState itself, or a chain tuple (as optax.adam builds) that
+    holds it; else None."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    for part in opt_state if isinstance(opt_state, (list, tuple)) else ():
+        found = _adam_moments(part)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_jax(opt_state: Any, params_tree: Mapping[str, Any], lr: float = 1e-2) -> dict:
+    """An optax.adam state (the chain tuple holding a ScaleByAdamState with
+    count, mu and nu; arrays or anything numpy reads) of a flax
+    SoftSDFModel whose parameters are ``params_tree`` -> a
+    torch.optim.Adam state_dict for the port's SoftSDFModel, in
+    PARAM_NAMES order: step from count, exp_avg from mu, exp_avg_sq from
+    nu, and create_train_state's param_groups at ``lr``. Reads only numpy;
+    ``load_state_dict`` moves the moments to the parameters' device."""
+    found = _adam_moments(opt_state)
+    if found is None:
+        raise ValueError("opt_state_from_jax: no Adam state (count, mu, nu) in the optax state")
+    count, mu, nu = found
+    params = params_from_jax(params_tree)
+    mu, nu = params_from_jax(mu), params_from_jax(nu)
+    groups = _adam([torch.zeros_like(params[k]) for k in PARAM_NAMES], lr).state_dict()["param_groups"]
+    state = {
+        i: {"step": torch.tensor(float(np.asarray(count)), dtype=torch.float32),
+            "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+        for i, k in enumerate(PARAM_NAMES)
+    }
+    return {"state": state, "param_groups": groups}

@@ -1,2 +1,3 @@
-"""The sharded tier: device meshes, halo exchange and the sharded hard
-pipelines (chaq_sdfgen_tpu/parallel)."""
+"""The sharded tier: device meshes, halo exchange, the sharded hard and
+soft pipelines, and the batched tier's mesh and startup checks
+(chaq_sdfgen_tpu/parallel)."""

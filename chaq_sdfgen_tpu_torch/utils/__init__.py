@@ -1,1 +1,2 @@
-"""Utilities: image I/O (stb-parity gray+alpha loading, 1-channel writers)."""
+"""Utilities: image I/O (stb-parity gray+alpha loading, 1-channel writers)
+and timing and tracing."""

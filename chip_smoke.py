@@ -227,7 +227,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
      relative, the first step's parameter gradients within 1e-6 of their
      scale, the parameters after 3 steps within 1e-5), and the CLI
      --soft --shard-y N --halo-impl rdma (N: the cards, up to 4) on the
-     glyph PNG byte for byte the unsharded SDFGenerator.
+     glyph PNG byte for byte the unsharded SDFGenerator;
+ 29. the batched glyph atlas (models/atlas.py) at full width, spread 64: a
+     (4, 4096, 4096, 2) stack of glyph pages (atlas_pages: the glyph image
+     turned and mirrored) and the JAX bench's (8, 1024, 1024) glyphs
+     (bench_glyphs), each atlas_sdf call one edt_rows and one edt_band_bytes
+     launch (read from the counters), every image byte for byte per-image
+     SDFGenerator.generate, both kernels on each stack's mask against their
+     plain versions; times (CUDA events, as in phase 6; time_compiled's best
+     of 5) against per-image generate;
+ 30. atlas_sdf over a (2, 2) ('data', 'y') global_mesh of logical shards of
+     the card, byte for byte one device (4 launches of each kernel), and
+     timed; atlas_sdf_spread_sweep over spreads 8, 64, 128 and 300 (pass 1
+     at band 304, uint16 strips; pass 2 at each spread + 2): 1 edt_rows and
+     4 edt_band_bytes launches, every level byte for byte per-spread
+     atlas_sdf, the uint16 kernels on the stack against their plain
+     versions (pass 2 also at band 66 on the band-304 strips); timed beside
+     the per-spread calls and JAX's form, every level at the shared band;
+ 31. checkpoint.save_train_state after two Adam steps of SoftSDFModel
+     (spread 64, the glyph's 1024x1024 corner), restore_train_state into a
+     fresh model and optimizer, and the third step bit for bit the
+     uninterrupted one (loss, parameters, Adam state); profiling.device_trace
+     around one atlas call (inside kernel_timer) in this process, logged
+     (after phases 3-28 torch.profiler loses a session's first kernel
+     records here), and in a fresh process, whose Chrome trace must name
+     edt_rows and edt_band_staged kernels (their device time logged).
 `python3 chip_smoke.py --kernel-turn` times rows 1-11 and 14-19 and what
 they serve alone (kernel_turn: edt_turn first, with the row passes, rows
 1, 3 and 14, at 4096^2 on the glyph and the noise: edt_rows at bands 66,
@@ -235,7 +259,8 @@ they serve alone (kernel_turn: edt_turn first, with the row passes, rows
 events, a CUDA graph and the host's time a call, since the wrappers' host
 cost nears their device time, with digests of their outputs;
 band_conv_turn on phase 26's inputs, as CUDA graphs too), on this tree or
-(copied in) its parent.
+(copied in) its parent. `python3 chip_smoke.py --atlas-turn` runs phases
+29-31 alone.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -268,6 +293,8 @@ import numpy as np
 import torch
 
 from chaq_sdfgen_tpu_torch.config import SdfConfig, ShardingConfig, SoftConfig
+from chaq_sdfgen_tpu_torch.models import checkpoint
+from chaq_sdfgen_tpu_torch.models.atlas import atlas_sdf, atlas_sdf_spread_sweep, sweep_band
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
 from chaq_sdfgen_tpu_torch.ops import (
@@ -275,9 +302,10 @@ from chaq_sdfgen_tpu_torch.ops import (
     softsdf, threshold,
 )
 from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo, sharded
+from chaq_sdfgen_tpu_torch.parallel.distributed import global_mesh
 from chaq_sdfgen_tpu_torch.parallel.mesh import make_mesh
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, softplus
-from chaq_sdfgen_tpu_torch.utils import imageio, sdfio_native
+from chaq_sdfgen_tpu_torch.utils import imageio, profiling, sdfio_native
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE = 4096
@@ -3517,6 +3545,198 @@ def sharded_soft_phases(dev, noise, glyph):
     return err, launches, times, bounds
 
 
+# ------------------------------------------------------------- atlas phases
+
+ATLAS_SPREADS = (8, 64, 128, 300)  # the sweep: band 304, uint16 strips for every spread
+
+
+# one traced atlas call on the glyph pages, in a process of its own: python -c TRACE_CHILD <dir>
+TRACE_CHILD = """
+import sys
+import torch
+import chip_smoke as cs
+from chaq_sdfgen_tpu_torch.models.atlas import atlas_sdf
+from chaq_sdfgen_tpu_torch.utils import profiling
+x = torch.from_numpy(cs.atlas_pages(cs.glyph_image(cs.SIZE, cs.SEED + 1))).to("cuda")
+atlas_sdf(x)
+with profiling.kernel_timer("atlas 4x4096 traced in a fresh process"):
+    with profiling.device_trace(sys.argv[1]):
+        atlas_sdf(x)
+"""
+
+
+def atlas_pages(glyph: np.ndarray) -> np.ndarray:
+    """(4, 4096, 4096, 2): the glyph page turned and mirrored, four distinct
+    atlas pages (BASELINE config 5's 4K shape)."""
+    return np.ascontiguousarray(np.stack([glyph, np.rot90(glyph), glyph[::-1], glyph[:, ::-1]]))
+
+
+def bench_glyphs() -> np.ndarray:
+    """(8, 1024, 1024, 2): the JAX bench's atlas stack (bench.py:263-271),
+    six filled ellipses and a bar a glyph, in alpha."""
+    glyphs = np.zeros((8, 1024, 1024), dtype=bool)
+    yy, xx = np.mgrid[0:1024, 0:1024]
+    for gi in range(8):
+        grng = np.random.default_rng(gi)
+        for _ in range(6):
+            cy, cx = grng.integers(128, 896, 2)
+            ry, rx = grng.integers(30, 160, 2)
+            glyphs[gi] |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+        x0, w0 = grng.integers(100, 800), grng.integers(40, 90)
+        glyphs[gi][:, x0 : x0 + w0] = True
+    return np.stack([np.zeros(glyphs.shape, np.uint8), glyphs.astype(np.uint8) * 255], -1)
+
+
+def check_passes(label: str, b: torch.Tensor, spread: int, band: int) -> None:
+    """Both EXACT kernels on a stack's mask against their plain versions,
+    byte for byte (checks: not counted as main-path launches)."""
+    din, dout = cuda_edt.row_distances_u8(b, band)
+    pin, pout = cuda_edt.row_distances_u8_plain(b, band)
+    e1 = max(max_abs_err(din, pin), max_abs_err(dout, pout))
+    got = cuda_edt.fused_pass2_bytes(din, dout, spread, False, band)
+    e2 = max_abs_err(got, cuda_edt.fused_pass2_bytes_plain(pin, pout, spread, False, band))
+    log(f"check atlas {label} {tuple(b.shape)} {din.dtype} band {band} spread {spread}: edt_rows err {e1}, "
+        f"edt_band_bytes err {e2}")
+    require(e1 == 0 and e2 == 0, f"an EXACT kernel disagrees with its plain version on the atlas {label}")
+
+
+def atlas_phases(dev, glyph):
+    """Phases 29-31. Every kernel of these paths is a row of the hard path,
+    so they add no row to the kernels line: an empty path."""
+    cfg = SdfConfig(spread=SPREAD)
+    gen = SDFGenerator(cfg, device=dev)
+    stacks = {"4x4096": torch.from_numpy(atlas_pages(glyph)).to(dev),
+              "8x1024": torch.from_numpy(bench_glyphs()).to(dev)}
+    # phase 29: the atlas at full width, one launch of each kernel a call
+    outs = {}
+    for label, x in stacks.items():
+        n, npix = x.shape[0], x[..., 0].numel()
+        reset_launches()
+        out = atlas_sdf(x, cfg)
+        c = read_launches()
+        log(f"main path atlas {label}: launches { {k: v for k, v in c.items() if v} }")
+        require(c["edt_rows"] == 1 and c["edt_band_bytes"] == 1 and sum(c.values()) == 2,
+                f"atlas {label} did not run one edt_rows and one edt_band_bytes launch")
+        require(out.shape == x.shape[:-1] and out.dtype == torch.uint8 and out.device == x.device,
+                f"atlas {label} output {tuple(out.shape)} {out.dtype} {out.device}")
+        bad = [i for i in range(n) if not torch.equal(out[i], gen.generate(x[i]))]
+        log(f"check atlas {label}: images differing from per-image SDFGenerator.generate: {bad}")
+        require(not bad, f"atlas {label} differs from per-image generate")
+        check_passes(label, threshold.hard_threshold(x), SPREAD, SPREAD + 2)
+        ms = cuda_ms(lambda: atlas_sdf(x, cfg))
+        best = profiling.time_compiled(atlas_sdf, x, cfg, iters=5) * 1e3
+        per_image = cuda_ms(lambda: [gen.generate(x[i]) for i in range(n)])
+        log(f"time atlas {label} spread {SPREAD}: {ms:.4f} ms ({npix / ms / 1e6:.3f} Gpix/s; time_compiled best "
+            f"of 5 {best:.4f} ms); per-image generate {per_image:.4f} ms ({npix / per_image / 1e6:.3f} Gpix/s)")
+        outs[label] = out
+
+    # phase 30: the atlas over a ('data', 'y') mesh of logical shards; the sweep
+    x, want = stacks["4x4096"], outs["4x4096"]
+    mesh = global_mesh(y_per_host=2, devices=[dev] * 4)
+    require(mesh.shape == {"data": 2, "y": 2}, f"global_mesh shape {mesh.shape}")
+    reset_launches()
+    got = atlas_sdf(x, cfg, mesh=mesh)
+    c = read_launches()
+    e = max_abs_err(got, want)
+    log(f"check atlas 4x4096 over {mesh.shape}: max abs err vs one device {e}, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    require(e == 0 and c["edt_rows"] == 4 and c["edt_band_bytes"] == 4,
+            "the atlas over the mesh differs from one device or skipped its kernels")
+    ms = cuda_ms(lambda: atlas_sdf(x, cfg, mesh=mesh))
+    log(f"time atlas 4x4096 over {mesh.shape}: {ms:.4f} ms ({x[..., 0].numel() / ms / 1e6:.3f} Gpix/s)")
+
+    reset_launches()
+    sweep = atlas_sdf_spread_sweep(x, ATLAS_SPREADS)
+    c = read_launches()
+    log(f"main path atlas sweep {ATLAS_SPREADS} (band {sweep_band(ATLAS_SPREADS)}): launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    n_s = len(ATLAS_SPREADS)
+    require(c["edt_rows"] == 1 and c["edt_rows_u16"] == 1 and c["edt_band_bytes"] == n_s
+            and c["edt_band_bytes_u16"] == n_s, "the sweep did not run 1 + 4 uint16 launches")
+    per_spread = [lambda s=s: atlas_sdf(x, SdfConfig(spread=s)) for s in ATLAS_SPREADS]
+    bad = [s for s, one, f in zip(ATLAS_SPREADS, sweep, per_spread) if not torch.equal(one, f())]
+    log(f"check atlas sweep: spreads differing from per-spread atlas_sdf: {bad}")
+    require(sweep.shape == (n_s,) + want.shape and not bad, "the sweep differs from per-spread atlas_sdf")
+    check_passes("sweep", threshold.hard_threshold(x), max(ATLAS_SPREADS), sweep_band(ATLAS_SPREADS))
+    din, dout = cuda_edt.row_distances_u8(threshold.hard_threshold(x), sweep_band(ATLAS_SPREADS))
+    e = max_abs_err(cuda_edt.fused_pass2_bytes(din, dout, 64, False, 66),
+                    cuda_edt.fused_pass2_bytes_plain(din, dout, 64, False, 66))
+    log(f"check atlas sweep: uint16 strips at band {sweep_band(ATLAS_SPREADS)}, pass 2 at band 66: "
+        f"edt_band_bytes err {e}")
+    require(e == 0, "pass 2 on the sweep's wider strips disagrees with its plain version")
+    band = sweep_band(ATLAS_SPREADS)
+    b = threshold.hard_threshold(x)
+
+    def shared_band():
+        # JAX's form: every level's pass 2 at the shared band
+        din, dout = cuda_edt.row_distances_u8(b, band)
+        return [cuda_edt.fused_pass2_bytes(din, dout, s, False, band) for s in ATLAS_SPREADS]
+
+    require(all(torch.equal(u, v) for u, v in zip(shared_band(), sweep)), "the shared-band form differs")
+    ms = cuda_ms(lambda: atlas_sdf_spread_sweep(x, ATLAS_SPREADS), 3, 3)
+    each = cuda_ms(lambda: [f() for f in per_spread], 3, 3)
+    shared = cuda_ms(shared_band, 3, 3)
+    log(f"time atlas sweep 4x4096 {ATLAS_SPREADS}: {ms:.4f} ms; per-spread atlas_sdf {each:.4f} ms; every "
+        f"level at the shared band {band} {shared:.4f} ms")
+
+    # phase 31: checkpoint and resume on the card; a trace of one atlas call
+    img = torch.from_numpy(glyph[:1024, :1024]).to(dev).to(torch.float32)
+    d_in, d_out = edt.dual_edt_banded(img[..., 1] > 127, SPREAD + 2)
+    target = merge.signed_merge(d_out, d_in)
+
+    def trainer():
+        model = SoftSDFModel(SPREAD, SoftConfig(tau=TRAIN_TAU, temperature=TRAIN_T), device=dev)
+        opt = create_train_state(model, img, lr=ADAM_LR)
+        return model, opt, make_train_step(model, opt)
+
+    model, opt, train = trainer()
+    losses = [float(train(img, target)) for _ in range(2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.pt")
+        checkpoint.save_train_state(path, model, opt, step=2)
+        loss3 = train(img, target)
+        model2, opt2, train2 = trainer()
+        params, opt_state, step = checkpoint.restore_train_state(path, like_params=model2, like_opt=opt2)
+        model2.load_state_dict(params)
+        opt2.load_state_dict(opt_state)
+        resumed = train2(img, target)
+        same = (step == 2 and torch.equal(resumed, loss3)
+                and all(torch.equal(a, b) for a, b in zip(model2.parameters(), model.parameters()))
+                and all(torch.equal(opt2.state[a][k], opt.state[b][k]) for a, b in
+                        zip(model2.parameters(), model.parameters()) for k in ("step", "exp_avg", "exp_avg_sq")))
+        log(f"check checkpoint: SoftSDFModel (1024, 1024) losses {losses + [float(loss3)]}, the resumed third "
+            f"step {'bit for bit' if same else 'DIFFERS from'} the uninterrupted one")
+        require(same, "a restored train state does not step like the uninterrupted one")
+
+        # in this process, after phases 3-28, torch.profiler loses a session's first kernel
+        # records (PERF.md §7): logged here; the check runs in a fresh process
+        for label, run in (("this process", None), ("a fresh process", TRACE_CHILD)):
+            trace_dir = os.path.join(tmp, label.replace(" ", "_"))
+            if run is None:
+                with profiling.kernel_timer(f"atlas 4x4096 traced in {label}", emit=log):
+                    with profiling.device_trace(trace_dir):
+                        atlas_sdf(x, cfg)
+            else:
+                res = subprocess.run([sys.executable, "-c", run, trace_dir], cwd=ROOT, capture_output=True,
+                                     text=True, timeout=300)
+                require(res.returncode == 0, f"the traced atlas call failed: {res.stderr[-2000:]}")
+                log(res.stdout.strip())
+            files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+            require(len(files) == 1, f"device_trace wrote {files}")
+            with open(os.path.join(trace_dir, files[0])) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = {}
+            for e in events:
+                if e.get("cat") == "kernel":
+                    kernels[e["name"]] = kernels.get(e["name"], 0.0) + e.get("dur", 0.0)
+            log(f"check device_trace in {label}: kernel events (us) "
+                f"{ {n[:60]: round(us, 1) for n, us in kernels.items()} }")
+        require(any("edt_rows" in n for n in kernels) and any("edt_band_staged" in n for n in kernels),
+                "the trace of an atlas call names no edt_rows or edt_band_staged kernel")
+    return {}, {}, {}, {}
+
+
+
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
     bounds). library_ms is the time of the halo kernels' Tensor.to form, of
@@ -3569,11 +3789,14 @@ def main() -> int:
     if sys.argv[1:] == ["--kernel-turn"]:
         kernel_turn(dev, noise, glyph)
         return 0
+    if sys.argv[1:] == ["--atlas-turn"]:
+        atlas_phases(dev, glyph)
+        return 0
     paths = []
     for label, phases, args in (("3-7", hard_phases, (noise, glyph)), ("8-11", soft_phases, (glyph,)),
                                 ("12-15", fused_phases, (glyph,)), ("16-19", brute_dist_phases, (noise, glyph)),
                                 ("20-22", composed_phases, (glyph,)), ("23-25", sharded_phases, (noise, glyph)),
-                                ("26-28", sharded_soft_phases, (noise, glyph))):
+                                ("26-28", sharded_soft_phases, (noise, glyph)), ("29-31", atlas_phases, (glyph,))):
         t0 = time.perf_counter()
         paths.append(phases(dev, *args))
         log(f"phases {label}: {time.perf_counter() - t0:.1f} s")

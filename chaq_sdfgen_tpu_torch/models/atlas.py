@@ -6,7 +6,9 @@ stack of glyph images made into (N, H, W) uint8 SDF bitmaps with the
 single-image CLI's bytes. On one device each of the EXACT pipeline's two
 kernels runs once over the whole stack (ops/cuda_edt.py takes (..., H, W));
 over a ('data', 'y') mesh the batch is split over 'data' and rows over
-'y' (parallel/sharded.sharded_hard_sdf_bytes).
+'y' (parallel/sharded.sharded_hard_sdf_bytes). Over a mesh that spans
+processes (parallel/distributed.global_mesh), every process is given the
+global stack and computes its own 'data' rows alone.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from chaq_sdfgen_tpu_torch.config import SdfConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import hard_sdf_exact_from_bool, resolve_device
 from chaq_sdfgen_tpu_torch.ops import cuda_edt, threshold
 from chaq_sdfgen_tpu_torch.parallel.distributed import check_mesh
-from chaq_sdfgen_tpu_torch.parallel.mesh import Mesh
+from chaq_sdfgen_tpu_torch.parallel.mesh import Mesh, localize
 from chaq_sdfgen_tpu_torch.parallel.sharded import sharded_hard_sdf_bytes
 
 
@@ -46,7 +48,10 @@ def atlas_sdf(
     only an explicit ``device="cpu"`` runs), one launch of each EXACT
     kernel over the stack. With a mesh (parallel/mesh.Mesh): the batch over
     'data' where the mesh has it, rows over 'y', the result joined on the
-    mesh's first device (the mesh's devices decide where it runs).
+    mesh's first device (the mesh's devices decide where it runs). On a
+    mesh that spans processes, ``images`` is the global stack, checked
+    against the global mesh, and the result is this process's rows of it
+    (parallel/mesh.local_index), joined on its first device.
     ``sharding``: alternatively a ShardingConfig, whose
     mesh is built over the cards (or logical CPU shards with
     ``device="cpu"``); mesh and sharding are mutually exclusive."""
@@ -54,18 +59,21 @@ def atlas_sdf(
         if mesh is not None:
             raise ValueError("pass either mesh or sharding, not both")
         mesh = sharding.build_mesh("cpu" if resolve_device(device).type == "cpu" else None)
-    dev = mesh.devices.flat[0] if mesh is not None else resolve_device(device)
-    images = _as_stack(images).to(dev)
-    b = threshold.hard_threshold(images, channel=config.channel_offset, test_above=not config.invert)
+    images = _as_stack(images)
     if mesh is None:
+        b = threshold.hard_threshold(images.to(resolve_device(device)), channel=config.channel_offset,
+                                     test_above=not config.invert)
         return hard_sdf_exact_from_bool(b, config.spread, asymmetric=config.asymmetric,
                                         band=config.effective_band)
-    n, h, _ = b.shape
+    n, h = images.shape[:2]
     check_mesh(mesh, n, h)
-    return sharded_hard_sdf_bytes(
-        b, config.spread, mesh, asymmetric=config.asymmetric, band=config.effective_band,
-        batch_axis="data" if "data" in mesh.axis_names else None,
-    )
+    batch_axis = "data" if "data" in mesh.axis_names else None
+    # on a mesh that spans processes, this process's images from the threshold on
+    images, mesh = localize(images, mesh, (batch_axis, "y", None, None), along=("y",))
+    b = threshold.hard_threshold(images.to(mesh.devices.flat[0]), channel=config.channel_offset,
+                                 test_above=not config.invert)
+    return sharded_hard_sdf_bytes(b, config.spread, mesh, asymmetric=config.asymmetric,
+                                  band=config.effective_band, batch_axis=batch_axis)
 
 
 def sweep_band(spreads: Sequence[int]) -> int:

@@ -27,10 +27,18 @@ def _state_dict(x: Any) -> Any:
 
 def save_train_state(path: str, params: Any, opt_state: Any, step: int) -> None:
     """Write (params, opt_state, step) to ``path`` in one file. params and
-    opt_state: state_dicts, or the model and the optimizer themselves."""
-    path = os.path.abspath(path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({"params": _state_dict(params), "opt_state": _state_dict(opt_state), "step": int(step)}, path)
+    opt_state: state_dicts, or the model and the optimizer themselves. In
+    a run of several processes (torch.distributed), whose train states are
+    the same, process 0 writes, and every process waits at a barrier
+    before it returns, so that the file is there for any of them."""
+    dist = torch.distributed
+    several = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    if not several or dist.get_rank() == 0:
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save({"params": _state_dict(params), "opt_state": _state_dict(opt_state), "step": int(step)}, path)
+    if several:
+        dist.barrier()
 
 
 def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -68,7 +76,8 @@ def _check_like(name: str, got: Any, like: Any) -> None:
 
 
 def restore_train_state(path: str, like_params: Any = None, like_opt: Any = None):
-    """Read (params, opt_state, step) back, tensors on the CPU. ``like_*``
+    """Read (params, opt_state, step) back, tensors on the CPU (in each
+    process of a run that calls it). ``like_*``
     (state_dicts, or the model and the optimizer) are templates: names,
     shapes and dtypes must match them, else ValueError (an optimizer that
     has not stepped yet checks its param_groups alone). A file that is not

@@ -20,7 +20,11 @@ resumes here (models/checkpoint.py). With ``mesh`` the
 field runs over a device mesh (parallel/sharded.sharded_soft_sdf_field,
 the undeclared tiers: the adaptive kernels or the composed path), the
 batch over ``batch_axis``, and the parameters live on the mesh's first
-device.
+device. Over a mesh that spans processes (parallel/distributed.global_mesh,
+the batch over 'data'), each process is given the global batch, computes
+its own rows and returns them; its training step sums the parameters'
+gradients over the processes (one all_reduce a step), so the parameters
+stay the same in every process.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from chaq_sdfgen_tpu_torch.config import SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import resolve_device
 from chaq_sdfgen_tpu_torch.ops import softsdf
+from chaq_sdfgen_tpu_torch.parallel.mesh import local_index, localize
 
 PARAM_NAMES = ("threshold_bias", "log_tau", "channel_mix")
 
@@ -43,8 +48,10 @@ class SoftSDFModel(torch.nn.Module):
     forward(img2ch float32 (..., H, W, 2)) -> signed soft SDF (..., H, W).
     The parameters live on ``device`` (default: the first CUDA device;
     with no card, only an explicit ``device="cpu"`` runs), or with a
-    ``mesh`` (parallel/mesh.Mesh) on its first device; ``batch_axis`` names
-    the mesh axis that shards the batch of a (N, H, W, 2) input."""
+    ``mesh`` (parallel/mesh.Mesh) on its first device (this process's);
+    ``batch_axis`` names the mesh axis that shards the batch of a (N, H,
+    W, 2) input. On a mesh that spans processes, forward takes the global
+    batch and returns this process's rows (parallel/mesh.local_index)."""
 
     def __init__(self, spread: int = 16, soft: SoftConfig = SoftConfig(), mesh=None,
                  device: Union[str, torch.device, None] = None, batch_axis: Optional[str] = None):
@@ -53,16 +60,38 @@ class SoftSDFModel(torch.nn.Module):
         self.soft = soft
         self.mesh = mesh
         self.batch_axis = batch_axis
-        dev = mesh.devices.flat[0] if mesh is not None and device is None else resolve_device(device)
-        if mesh is not None and dev != mesh.devices.flat[0]:
-            raise ValueError(f"the parameters live on the mesh's first device {mesh.devices.flat[0]}, "
-                             f"not {dev}")
+        if mesh is not None and mesh.spans_processes:
+            # each row computed by one process alone: only the batch axis may cross them
+            crossing = [a for a in mesh.axis_names if a != batch_axis and mesh.crosses(a)]
+            if batch_axis is None or crossing:
+                raise ValueError(f"mesh axis {(crossing or mesh.axis_names)[0]!r} crosses processes "
+                                 f"({mesh._layout()}): on a mesh that spans processes the batch axis "
+                                 f"(batch_axis={batch_axis!r}) must be the one that crosses them")
+        first = mesh.local().devices.flat[0] if mesh is not None else None
+        dev = first if mesh is not None and device is None else resolve_device(device)
+        if mesh is not None and dev != first:
+            raise ValueError(f"the parameters live on the mesh's first device {first}, not {dev}")
         f32 = dict(dtype=torch.float32, device=dev)
         self.threshold_bias = torch.nn.Parameter(torch.zeros((), **f32))
         self.log_tau = torch.nn.Parameter(torch.log(torch.tensor(soft.tau, **f32)))
         self.channel_mix = torch.nn.Parameter(torch.tensor([0.0, 4.0], **f32))
 
+    def own_rows(self, shape) -> tuple:
+        """The global index of this process's rows of a (..., H, W[, 2])
+        tensor of ``shape`` (all of it but on a mesh that spans processes)."""
+        spec = (self.batch_axis,) + (None,) * (len(shape) - 1)
+        return local_index(shape, self.mesh, spec) if self._spans else tuple(slice(None) for _ in shape)
+
+    @property
+    def _spans(self) -> bool:
+        return self.mesh is not None and self.mesh.spans_processes
+
     def forward(self, img2ch: torch.Tensor) -> torch.Tensor:
+        mesh = self.mesh
+        if mesh is not None:
+            # on a mesh that spans processes, this process's rows from the front end on
+            spec = (self.batch_axis,) + (None,) * (img2ch.dim() - 1)
+            img2ch, mesh = localize(img2ch, mesh, spec)
         mix = torch.softmax(self.channel_mix, dim=0)
         gray = (img2ch.to(torch.float32) * mix).sum(-1) - self.threshold_bias
         tau = torch.exp(self.log_tau)
@@ -70,10 +99,10 @@ class SoftSDFModel(torch.nn.Module):
         # run at the configured tau: logits (v - 127.5) / tau_static
         v = (gray - 127.5) / tau * self.soft.tau + 127.5
         kw = dict(tau=self.soft.tau, temperature=self.soft.temperature, eps=self.soft.eps)
-        if self.mesh is not None:
+        if mesh is not None:
             from chaq_sdfgen_tpu_torch.parallel import sharded
 
-            return sharded.sharded_soft_sdf_field(v, self.spread, self.mesh, batch_axis=self.batch_axis, **kw)
+            return sharded.sharded_soft_sdf_field(v, self.spread, mesh, batch_axis=self.batch_axis, **kw)
         return softsdf.soft_sdf_field(v, self.spread, **kw)
 
 
@@ -94,16 +123,40 @@ def _adam(params, lr: float) -> torch.optim.Adam:
 def make_train_step(model: SoftSDFModel, opt: torch.optim.Optimizer):
     """train_step(img2ch, target) -> loss: the mean squared error between
     the model's signed soft field and ``target``, its gradient, and one
-    optimizer step (in place on the model's parameters)."""
+    optimizer step (in place on the model's parameters). On a mesh that
+    spans processes both are the global batch: each process's loss is its
+    rows' sum of squares over the global element count, and one
+    all_reduce sums the parameters' gradients and the losses over the
+    processes before the step, which returns the global loss."""
+    params = list(model.parameters())
 
     def train_step(img2ch: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         opt.zero_grad(set_to_none=True)
-        loss = torch.mean((model(img2ch) - target) ** 2)
-        loss.backward()
+        if not model._spans:
+            loss = torch.mean((model(img2ch) - target) ** 2)
+            loss.backward()
+        else:
+            pred = model(img2ch)
+            loss = ((pred - target[model.own_rows(target.shape)].to(pred.device)) ** 2).sum() / target.numel()
+            loss.backward()
+            loss = _sum_over_processes(params, loss.detach())
         opt.step()
         return loss.detach()
 
     return train_step
+
+
+def _sum_over_processes(params: list, loss: torch.Tensor) -> torch.Tensor:
+    """Sum the parameters' gradients (in place) and ``loss`` over the
+    processes, flattened into one tensor and one all_reduce; returns the
+    summed loss."""
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1)])
+    torch.distributed.all_reduce(flat)
+    at = 0
+    for p in params:
+        p.grad.copy_(flat[at : at + p.numel()].view_as(p.grad))
+        at += p.numel()
+    return flat[at]
 
 
 def params_from_jax(flax_params: Mapping[str, Any]) -> dict:

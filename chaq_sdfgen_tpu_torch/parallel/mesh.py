@@ -10,6 +10,14 @@ A mesh may name one device several times: n logical shards of one card,
 or of the CPU, stand in for the JAX tests' virtual CPU devices and run
 every shard, halo and kernel on one device. On distinct cards the same
 code runs the shards on each card.
+
+A mesh may span the processes of a torch.distributed run (one process a
+host, parallel/distributed.global_mesh): each entry records the process
+that drives it. A pipeline given the global tensor runs on ``localize``'s
+part of it, over the mesh of this process's entries, as a process of a
+JAX run computes only its addressable shards. This process's entries
+must form one block of the mesh, and no 'y' or 'x' line (a chain a halo
+runs along) may cross processes: the halos stay on the host.
 """
 
 from __future__ import annotations
@@ -23,15 +31,56 @@ CPU_SHARDS = 8  # the CPU default, as the JAX tests' jax_num_cpu_devices=8
 
 
 class Mesh:
-    """``devices``: an ndarray of torch.device, one axis per name."""
+    """``devices``: an ndarray of torch.device, one axis per name.
+    ``processes``: an ndarray of the same shape, the rank of the process
+    that drives each entry, and ``process`` this process's rank; by
+    default every entry is this process's. The entries of other processes
+    name the devices on their own hosts."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...]):
+    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...],
+                 processes: Optional[np.ndarray] = None, process: int = 0):
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names) or len(set(axis_names)) != len(axis_names):
             raise ValueError(f"mesh of shape {devices.shape} needs {devices.ndim} distinct axis names, "
                              f"got {axis_names}")
+        processes = np.full(devices.shape, process) if processes is None else np.asarray(processes)
+        if processes.shape != devices.shape:
+            raise ValueError(f"processes of shape {processes.shape} for a mesh of shape {devices.shape}")
         self.devices = devices
         self.axis_names = axis_names
+        self.processes = processes
+        self.process = process
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether other processes drive some of the entries."""
+        return bool((self.processes != self.process).any())
+
+    def crosses(self, axis: str) -> bool:
+        """Whether the process changes along ``axis``: a line of the mesh
+        along it crosses processes."""
+        k = self.axis_names.index(axis)
+        return bool((self.processes != self.processes.take([0], axis=k)).any())
+
+    def local_box(self) -> Tuple[slice, ...]:
+        """The block of mesh indices this process drives, a slice per axis.
+        Raises ValueError when it drives none or they form no block."""
+        own = np.argwhere(self.processes == self.process)
+        if not len(own):
+            raise ValueError(f"process {self.process} drives no entry of {self!r}")
+        lo, hi = own.min(0), own.max(0) + 1
+        if len(own) != int(np.prod(hi - lo)):
+            raise ValueError(f"the entries of process {self.process} form no block of the mesh: {self._layout()}")
+        return tuple(slice(int(a), int(b)) for a, b in zip(lo, hi))
+
+    def local(self) -> "Mesh":
+        """This process's part: a mesh of the entries it drives."""
+        if not self.spans_processes:
+            return self
+        return Mesh(self.devices[self.local_box()], self.axis_names, process=self.process)
+
+    def _layout(self) -> str:
+        return f"axes {self.shape}, the process of each entry {self.processes.tolist()}"
 
     @property
     def shape(self) -> dict:
@@ -46,7 +95,8 @@ class Mesh:
         return self.shape[axis]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]})"
+        procs = f", processes={self.processes.tolist()}" if self.spans_processes else ""
+        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]}{procs})"
 
 
 def make_mesh(
@@ -91,6 +141,67 @@ def image_spec(ndim: int, y_axis: str, x_axis: Optional[str] = None,
     return tuple(lead) + (y_axis, x_axis)
 
 
+def _check_spec(shape: Tuple[int, ...], mesh: Mesh, spec: Sequence[Optional[str]]) -> Tuple[Optional[str], ...]:
+    """``spec`` as a tuple, after checking it against a tensor's shape."""
+    spec = tuple(spec)
+    if len(spec) != len(shape):
+        raise ValueError(f"spec {spec} for a tensor of shape {shape}")
+    named = [a for a in spec if a is not None]
+    if len(set(named)) != len(named):
+        raise ValueError(f"spec {spec} names an axis twice")
+    for dim, ax in enumerate(spec):
+        if ax is not None and shape[dim] % mesh.size(ax):
+            raise ValueError(f"dimension {dim} of shape {shape} ({shape[dim]}) is not "
+                             f"divisible by mesh axis {ax!r} ({mesh.size(ax)})")
+    return spec
+
+
+def local_index(shape: Sequence[int], mesh: Mesh, spec: Sequence[Optional[str]]) -> Tuple[slice, ...]:
+    """The global index of this process's part of a tensor of ``shape``
+    split over ``mesh`` by ``spec``, a slice per dim (the counterpart of a
+    JAX shard's ``index``): the rows of its entries of the mesh."""
+    shape = tuple(shape)
+    spec = _check_spec(shape, mesh, spec)
+    box = mesh.local_box()
+    index = []
+    for dim, ax in enumerate(spec):
+        if ax is None:
+            index.append(slice(0, shape[dim]))
+        else:
+            k = mesh.axis_names.index(ax)
+            step = shape[dim] // mesh.devices.shape[k]
+            index.append(slice(box[k].start * step, box[k].stop * step))
+    return tuple(index)
+
+
+def localize(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]],
+             along: Sequence[Optional[str]] = ()) -> Tuple[torch.Tensor, Mesh]:
+    """What a pipeline runs on to compute this process's shards alone: on
+    a mesh that spans processes, ``x`` (the global tensor, split by
+    ``spec``) at ``local_index`` and the mesh of the entries this process
+    drives, whose shards are the global mesh's at those entries, so the
+    pipeline's result is the global one's at ``local_index``. ``along``:
+    the axes halos run along (None: skipped), whose lines must lie within
+    one process (whole_lines). On any other mesh, ``(x, mesh)``."""
+    if not mesh.spans_processes:
+        return x, mesh
+    whole_lines(mesh, *along)
+    return x[local_index(x.shape, mesh, spec)], mesh.local()
+
+
+def whole_lines(mesh: Mesh, *axes: Optional[str]) -> None:
+    """Raise ValueError where a line of the mesh along one of ``axes``
+    (None: skipped) crosses processes: a halo along it would cross the
+    network, which the port does not exchange."""
+    for axis in axes:
+        if axis is None or not mesh.spans_processes:
+            continue
+        mesh.size(axis)  # raises for a name the mesh lacks
+        if mesh.crosses(axis):
+            raise ValueError(f"mesh axis {axis!r} crosses processes ({mesh._layout()}): each {axis!r} line must "
+                             f"lie within one process, so that its halos stay on the host")
+
+
 def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]) -> np.ndarray:
     """Split ``x`` over the mesh (the port's NamedSharding): spec names a
     mesh axis (or None, whole) for each dim of x. Returns an ndarray shaped
@@ -98,16 +209,7 @@ def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]) -> np.ndar
     contiguous, on its device; a mesh axis the spec does not name holds a
     copy of the same block at each of its indices. Raises ValueError where
     a dim is not divisible by its axis."""
-    spec = tuple(spec)
-    if len(spec) != x.dim():
-        raise ValueError(f"spec {spec} for a tensor of shape {tuple(x.shape)}")
-    named = [a for a in spec if a is not None]
-    if len(set(named)) != len(named):
-        raise ValueError(f"spec {spec} names an axis twice")
-    for dim, ax in enumerate(spec):
-        if ax is not None and x.shape[dim] % mesh.size(ax):
-            raise ValueError(f"dimension {dim} of shape {tuple(x.shape)} ({x.shape[dim]}) is not "
-                             f"divisible by mesh axis {ax!r} ({mesh.size(ax)})")
+    spec = _check_spec(tuple(x.shape), mesh, spec)
     out = np.empty(mesh.devices.shape, dtype=object)
     for idx in np.ndindex(*mesh.devices.shape):
         blk = x

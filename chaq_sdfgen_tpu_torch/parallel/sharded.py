@@ -23,6 +23,14 @@ pass, then the halos, then every shard's column pass, so that on distinct
 cards the cards work at once. The result is joined onto the mesh's first
 device.
 
+On a mesh that spans processes (parallel/distributed.global_mesh: the
+batch over 'data' across hosts), each function takes the global tensor,
+checks its shape against the global mesh and runs the pipeline on this
+process's part of it, over its part of the mesh (parallel/mesh.localize),
+with no collective: the halos run along 'y' and 'x' lines, which must lie
+within one process (else ValueError). It returns this process's part of
+the result, at parallel/mesh.local_index.
+
 The soft field (sharded_soft_sdf_field) is differentiable with respect to
 the image: the shards, the halos and the join are autograd operations, the
 ppermute halo by torch autograd and the rdma halo by its own VJP (the
@@ -81,7 +89,9 @@ from chaq_sdfgen_tpu_torch.ops import (
 )
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo
-from chaq_sdfgen_tpu_torch.parallel.mesh import Mesh, along, image_spec, lines, per_shard, shard, unshard
+from chaq_sdfgen_tpu_torch.parallel.mesh import (
+    Mesh, along, image_spec, lines, localize, per_shard, shard, unshard,
+)
 
 
 class XShardingRefused(NotImplementedError):
@@ -143,6 +153,7 @@ def sharded_hard_sdf_bytes(
     exchange = _halo_fn(halo)
     b = threshold.as_mask(b)
     spec = image_spec(b.dim(), y_axis, x_axis, batch_axis)
+    b, mesh = localize(b, mesh, spec, along=(y_axis, x_axis))
     h_loc = _local_height(b, mesh, y_axis)
     blocks = shard(b, mesh, spec)
     w_loc = blocks.flat[0].shape[-1]
@@ -185,6 +196,7 @@ def sharded_brute_sdf_bytes(
     exchange = _halo_fn(halo)
     b = threshold.as_mask(b)
     spec = image_spec(b.dim(), y_axis, x_axis, batch_axis)
+    b, mesh = localize(b, mesh, spec, along=(y_axis, x_axis))
     h_loc = _local_height(b, mesh, y_axis)
     if h_loc % 8 != 0 or h_loc < 2:
         raise ValueError(f"sharded brute needs an 8-aligned per-shard height >= 8, "
@@ -223,6 +235,7 @@ def sharded_jfa_distance(
         raise ValueError(f"sharded_jfa_distance takes one (H, W) image, got shape {tuple(seeds.shape)}")
     h, w = seeds.shape
     spec = (y_axis, x_axis)
+    seeds, mesh = localize(seeds, mesh, spec, along=(y_axis, x_axis))
     h_loc = _local_height(seeds, mesh, y_axis)
     blocks = shard(seeds.to(torch.bool), mesh, spec)
     w_loc = blocks.flat[0].shape[-1]
@@ -405,6 +418,7 @@ def sharded_soft_sdf_field(
     exchange = _halo_fn(halo)
     g = gray.to(torch.float32)
     spec = image_spec(g.dim(), y_axis, x_axis, batch_axis)
+    g, mesh = localize(g, mesh, spec, along=(y_axis, x_axis))
     h_loc = _local_height(g, mesh, y_axis)
     w_loc = g.shape[-1] // mesh.size(x_axis)
     stats = soft_mxu.range_stats(band, tau, temperature, gray_range)

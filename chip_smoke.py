@@ -251,7 +251,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
      around one atlas call (inside kernel_timer) in this process, logged
      (after phases 3-28 torch.profiler loses a session's first kernel
      records here), and in a fresh process, whose Chrome trace must name
-     edt_rows and edt_band_staged kernels (their device time logged).
+     edt_rows and edt_band_staged kernels (their device time logged);
+ 32. the multi-host tier in two processes on the card: two workers of this
+     script (--dcn-worker), joined by distributed.initialize over gloo (one
+     card cannot hold two NCCL ranks), each driving 2 logical shards of
+     cuda:0; atlas_sdf on the glyph pages over global_mesh(y_per_host=2)
+     and (y_per_host=1), each process's pages byte for byte per-image
+     SDFGenerator.generate with 2 edt_rows and 2 edt_band_bytes launches;
+     SoftSDFModel(mesh=global mesh, batch_axis="data") 2 Adam steps on a
+     (2, 4096, 4096, 2) batch in +-2000, F1, F2, B2 and B1 launched in
+     each process, against the same steps in this process over a (2, 2)
+     logical mesh (losses within 1e-6 relative, the first step's
+     gradients within 1e-6 of their scale, the parameters within 1e-5; the
+     same parameters in both workers); times (CUDA events: the atlas call
+     alone and with the other process at work, the step; the host's time
+     of the step's all_reduce). Both workers must exit 0 with their OK
+     line; past a timeout both are killed and the run fails.
 `python3 chip_smoke.py --kernel-turn` times rows 1-11 and 14-19 and what
 they serve alone (kernel_turn: edt_turn first, with the row passes, rows
 1, 3 and 14, at 4096^2 on the glyph and the noise: edt_rows at bands 66,
@@ -260,7 +275,7 @@ events, a CUDA graph and the host's time a call, since the wrappers' host
 cost nears their device time, with digests of their outputs;
 band_conv_turn on phase 26's inputs, as CUDA graphs too), on this tree or
 (copied in) its parent. `python3 chip_smoke.py --atlas-turn` runs phases
-29-31 alone.
+29-31 alone, `python3 chip_smoke.py --dcn-turn` phase 32.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -282,6 +297,7 @@ import functools
 import json
 import math
 import os
+import socket
 import struct
 import subprocess
 import sys
@@ -302,8 +318,8 @@ from chaq_sdfgen_tpu_torch.ops import (
     softsdf, threshold,
 )
 from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo, sharded
-from chaq_sdfgen_tpu_torch.parallel.distributed import global_mesh
-from chaq_sdfgen_tpu_torch.parallel.mesh import make_mesh
+from chaq_sdfgen_tpu_torch.parallel.distributed import global_mesh, initialize
+from chaq_sdfgen_tpu_torch.parallel.mesh import local_index, make_mesh
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, softplus
 from chaq_sdfgen_tpu_torch.utils import imageio, profiling, sdfio_native
 
@@ -3737,6 +3753,175 @@ def atlas_phases(dev, glyph):
 
 
 
+# ------------------------------------------------------------- multi-host phase
+
+DCN_PROCS = 2  # worker processes, each a "host"
+DCN_SHARDS = 2  # logical shards of the card a worker drives
+DCN_TIMEOUT = 420  # seconds the parent waits for both workers
+
+
+def dcn_batch(dev) -> tuple:
+    """Phase 32's training batch, (2, 4096, 4096, 2) in +-2000 (phase 28's
+    input, two images), and a zero target, on ``dev``."""
+    x = np.stack([np.stack([pm_noise((SIZE, SIZE), SEED + 32 + 2 * i), pm_noise((SIZE, SIZE), SEED + 33 + 2 * i)],
+                           -1) for i in range(2)])
+    return torch.from_numpy(x).to(dev), torch.zeros((2, SIZE, SIZE), device=dev)
+
+
+def dcn_steps(model, batch, target) -> tuple:
+    """2 Adam steps: (losses, the first step's parameter gradients, the
+    parameters after both and the launches of the adaptive kernels; the
+    step function)."""
+    step = make_train_step(model, create_train_state(model, lr=ADAM_LR))
+    reset_soft_launches()
+    losses = [float(step(batch, target))]
+    grads = [p.grad.detach().cpu().reshape(-1).tolist() for p in model.parameters()]
+    losses.append(float(step(batch, target)))
+    launches = read_soft_launches()
+    params = [p.detach().cpu().reshape(-1).tolist() for p in model.parameters()]
+    return dict(losses=losses, grads=grads, params=params, launches=launches), step
+
+
+def dcn_worker(pid: int, port: str, tmp: str) -> int:
+    """One process of phase 32: joins the run over gloo, computes its own
+    pages and rows, checks the pages against per-image generate and the
+    kernels' launches, writes its results to worker<pid>.json."""
+    initialize(f"127.0.0.1:{port}", DCN_PROCS, pid, backend="gloo")
+    dist = torch.distributed
+    require(dist.get_backend() == "gloo" and dist.get_rank() == pid, "the run did not form over gloo")
+    dev = torch.device("cuda", 0)
+    cfg = SdfConfig(spread=SPREAD)
+    gen = SDFGenerator(cfg, device=dev)
+    pages = torch.from_numpy(atlas_pages(glyph_image(SIZE, SEED + 1))).to(dev)
+    res = {}
+    for y in (DCN_SHARDS, 1):
+        mesh = global_mesh(y_per_host=y, devices=[dev] * DCN_SHARDS)
+        reset_launches()
+        out = atlas_sdf(pages, cfg, mesh=mesh)
+        c = {k: v for k, v in read_launches().items() if v}
+        rows = local_index(pages.shape[:-1], mesh, ("data", "y", None))[0]
+        bad = [i for i in range(rows.start, rows.stop) if not torch.equal(out[i - rows.start], gen.generate(pages[i]))]
+        log(f"worker {pid}: atlas over {mesh.shape} (processes {mesh.processes.tolist()}): pages {rows.start}-"
+            f"{rows.stop - 1}, {tuple(out.shape)}; differing from per-image generate: {bad}; launches {c}")
+        require(out.shape == (rows.stop - rows.start,) + tuple(pages.shape[1:3]) and not bad,
+                f"worker {pid}: the atlas over {mesh.shape} differs from per-image generate")
+        require(c == {"edt_rows": DCN_SHARDS, "edt_band_bytes": DCN_SHARDS},
+                f"worker {pid}: the atlas over {mesh.shape} launched {c}")
+        # alone (the other process waits at the barrier), then both at once
+        times = {}
+        for turn in range(DCN_PROCS):
+            dist.barrier()
+            if turn == pid:
+                times["alone"] = cuda_ms(lambda: atlas_sdf(pages, cfg, mesh=mesh))
+            torch.cuda.synchronize()
+        dist.barrier()
+        times["together"] = cuda_ms(lambda: atlas_sdf(pages, cfg, mesh=mesh))
+        res[f"atlas_y{y}"] = dict(rows=[rows.start, rows.stop], launches=c, **times)
+    del pages, out
+
+    batch, target = dcn_batch(dev)
+    mesh = global_mesh(y_per_host=DCN_SHARDS, devices=[dev] * DCN_SHARDS)
+    model = SoftSDFModel(SPREAD, SoftConfig(tau=TRAIN_TAU, temperature=TRAIN_T), mesh=mesh, batch_axis="data")
+    run, step = dcn_steps(model, batch, target)
+    log(f"worker {pid}: SoftSDFModel over {mesh.shape}: rows {model.own_rows(target.shape)[0]}, losses "
+        f"{run['losses']}, launches {run['launches']}")
+    require(all(run["launches"].get(k, 0) > 0 for k in ("soft_f1", "soft_f2", "soft_b2", "soft_b1")),
+            f"worker {pid}: the step did not launch the four adaptive kernels: {run['launches']}")
+    dist.barrier()
+    run["step_ms"] = cuda_ms(lambda: step(batch, target), 2, 3)
+    buf = torch.zeros(5, device=dev)
+    run["all_reduce_host_us"] = host_us(lambda: dist.all_reduce(buf))
+    cpu_buf = torch.zeros(5)
+    run["all_reduce_cpu_host_us"] = host_us(lambda: dist.all_reduce(cpu_buf))
+    res["model"] = run
+    with open(os.path.join(tmp, f"worker{pid}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    log(f"DCN_OK p{pid}")
+    return 0
+
+
+def dcn_phases(dev, glyph):
+    """Phase 32 (the parent). Its kernels are rows of the hard and adaptive
+    paths, so it adds no row to the kernels line: an empty path."""
+    cfg = SdfConfig(spread=SPREAD)
+    pages = torch.from_numpy(atlas_pages(glyph)).to(dev)
+    one_ms = cuda_ms(lambda: atlas_sdf(pages, cfg))
+    logical = global_mesh(y_per_host=2, devices=[dev] * 4)
+    mesh_ms = cuda_ms(lambda: atlas_sdf(pages, cfg, mesh=logical))
+    log(f"time atlas 4x4096 in one process: one device {one_ms:.4f} ms, over {logical.shape} {mesh_ms:.4f} ms")
+    del pages
+
+    # the one-process reference: the same steps over a (2, 2) logical mesh
+    batch, target = dcn_batch(dev)
+    model = SoftSDFModel(SPREAD, SoftConfig(tau=TRAIN_TAU, temperature=TRAIN_T),
+                         mesh=logical_mesh(dev, (2, 2), ("data", "y")), batch_axis="data")
+    ref, step = dcn_steps(model, batch, target)
+    ref_ms = cuda_ms(lambda: step(batch, target), 2, 3)
+    log(f"main path multi-host reference: SoftSDFModel over (2, 2) logical shards, losses {ref['losses']}, "
+        f"step {ref_ms:.4f} ms")
+    del model, batch, target, step
+    torch.cuda.empty_cache()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"worker{pid}.log"), "w+") for pid in range(DCN_PROCS)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--dcn-worker", str(pid),
+                                   str(port), tmp], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True)
+                 for pid, f in enumerate(logs)]
+        try:
+            for p in procs:
+                p.wait(timeout=max(DCN_TIMEOUT - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+        for pid, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.strip().splitlines()[-40:]:
+                log(f"  [{pid}] {line}")
+            require(p.returncode == 0 and f"DCN_OK p{pid}" in out,
+                    f"phase 32 worker {pid} exited {p.returncode} without its OK line")
+        res = []
+        for pid in range(DCN_PROCS):
+            with open(os.path.join(tmp, f"worker{pid}.json")) as f:
+                res.append(json.load(f))
+    log(f"phase 32: both workers exited 0 in {wall:.1f} s wall")
+
+    for pid, r in enumerate(res):
+        for y in (DCN_SHARDS, 1):
+            a = r[f"atlas_y{y}"]
+            log(f"time atlas 2 of 4 pages in worker {pid}, global_mesh(y_per_host={y}): alone {a['alone']:.4f} ms, "
+                f"with the other worker at work {a['together']:.4f} ms (one process, 4 pages: {one_ms:.4f})")
+        m = r["model"]
+        e_l = max(abs(a - b) / abs(b) for a, b in zip(m["losses"], ref["losses"]))
+        e_g = max(float(np.abs(np.subtract(a, b)).max()) / float(np.abs(b).max())
+                  for a, b in zip(m["grads"], ref["grads"]))
+        e_p = max(float(np.abs(np.subtract(a, b)).max()) / max(float(np.abs(b).max()), 1.0)
+                  for a, b in zip(m["params"], ref["params"]))
+        log(f"main path multi-host: worker {pid} SoftSDFModel 2 Adam steps, losses {m['losses']} (within {e_l:.3e} "
+            f"relative of one process), first step's gradients within {e_g:.3e} of their scale, parameters within "
+            f"{e_p:.3e}; launches {m['launches']}; step {m['step_ms']:.4f} ms (one process over (2, 2) "
+            f"{ref_ms:.4f}); all_reduce of the 5 floats {m['all_reduce_host_us']:.1f} us host time a call (a "
+            f"CPU tensor {m['all_reduce_cpu_host_us']:.1f})")
+        require(e_l <= 1e-6 and e_g <= 1e-6 and e_p <= 1e-5 and all(math.isfinite(v) for v in m["losses"]),
+                f"worker {pid}'s steps differ from one process")
+    require(res[0]["model"]["params"] == res[1]["model"]["params"], "the workers' parameters differ")
+    return {}, {}, {}, {}
+
+
 def summary(*paths) -> dict:
     """The kernels' JSON line from each path's (errors, launches, times,
     bounds). library_ms is the time of the halo kernels' Tensor.to form, of
@@ -3759,6 +3944,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dcn-worker"]:
+        return dcn_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     smi = nvidia_smi()
     log(f"card: {smi}")
     dev = torch.device("cuda", 0)
@@ -3792,11 +3979,15 @@ def main() -> int:
     if sys.argv[1:] == ["--atlas-turn"]:
         atlas_phases(dev, glyph)
         return 0
+    if sys.argv[1:] == ["--dcn-turn"]:
+        dcn_phases(dev, glyph)
+        return 0
     paths = []
     for label, phases, args in (("3-7", hard_phases, (noise, glyph)), ("8-11", soft_phases, (glyph,)),
                                 ("12-15", fused_phases, (glyph,)), ("16-19", brute_dist_phases, (noise, glyph)),
                                 ("20-22", composed_phases, (glyph,)), ("23-25", sharded_phases, (noise, glyph)),
-                                ("26-28", sharded_soft_phases, (noise, glyph)), ("29-31", atlas_phases, (glyph,))):
+                                ("26-28", sharded_soft_phases, (noise, glyph)), ("29-31", atlas_phases, (glyph,)),
+                                ("32", dcn_phases, (glyph,))):
         t0 = time.perf_counter()
         paths.append(phases(dev, *args))
         log(f"phases {label}: {time.perf_counter() - t0:.1f} s")

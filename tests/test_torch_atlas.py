@@ -104,17 +104,37 @@ def test_atlas_errors():
 
 def test_global_mesh(monkeypatch):
     """('data', 'y') over the host's devices; y_per_host must divide them;
-    several processes are refused; with no card only "cpu" runs."""
+    initialize with one process does nothing; in a faked run of two
+    processes (as rank 1) the device counts are exchanged once and the
+    mesh is laid out process by process, unequal counts raising; with no
+    card only "cpu" runs."""
     mesh = distributed.global_mesh(y_per_host=4, devices="cpu")
     assert mesh.shape == {"data": 2, "y": 4} and mesh.axis_names == ("data", "y")
+    assert not mesh.spans_processes and mesh.local() is mesh
     assert distributed.global_mesh(devices="cpu").shape == {"data": 1, "y": 8}
     assert distributed.global_mesh(2, devices=["cpu"] * 6).shape == {"data": 3, "y": 2}
     with pytest.raises(ValueError, match="does not divide"):
         distributed.global_mesh(y_per_host=3, devices="cpu")
+    for n in (None, 1):
+        distributed.initialize("127.0.0.1:1", n, 0)
+        assert not torch.distributed.is_initialized()
+    gathered, counts = [], [4, 4]
+
+    def all_gather_object(out, value):
+        gathered.append(value)
+        out[:] = counts
+
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="11c"):
-        distributed.global_mesh(devices="cpu")
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(torch.distributed, "all_gather_object", all_gather_object)
+    mesh = distributed.global_mesh(y_per_host=2, devices=["cpu"] * 4)
+    assert gathered == [4] and mesh.shape == {"data": 4, "y": 2} and mesh.process == 1
+    assert mesh.processes.tolist() == [[0, 0], [0, 0], [1, 1], [1, 1]] and mesh.spans_processes
+    assert mesh.local_box() == (slice(2, 4), slice(0, 2)) and mesh.local().shape == {"data": 2, "y": 2}
+    counts[:] = [4, 2]
+    with pytest.raises(ValueError, match="unequal device counts"):
+        distributed.global_mesh(devices=["cpu"] * 4)
     monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -154,7 +154,10 @@ class ShardingConfig:
     def build_mesh(self, devices=None):
         """make_mesh(mesh_shape, axis_names): by default over the visible
         cards, raising when too few; ``devices="cpu"`` for logical CPU
-        shards, or a list of devices (parallel/mesh.make_mesh)."""
+        shards, or a list of devices (parallel/mesh.make_mesh). In a
+        torch.distributed run of several processes the default sets (None,
+        "cpu") are every process's devices in rank order, as JAX's
+        make_mesh over jax.devices(): its lines may cross processes."""
         from chaq_sdfgen_tpu_torch.parallel.mesh import make_mesh
 
         return make_mesh(self.mesh_shape, self.axis_names, devices)

@@ -7,8 +7,11 @@ single-image CLI's bytes. On one device each of the EXACT pipeline's two
 kernels runs once over the whole stack (ops/cuda_edt.py takes (..., H, W));
 over a ('data', 'y') mesh the batch is split over 'data' and rows over
 'y' (parallel/sharded.sharded_hard_sdf_bytes). Over a mesh that spans
-processes (parallel/distributed.global_mesh), every process is given the
-global stack and computes its own 'data' rows alone.
+processes (parallel/distributed.global_mesh, or any layout whose 'y'
+lines cross them too), every process is given the global stack and
+computes its own part of it: its 'data' rows, and of a 'y' line that
+crosses processes its own image rows, the halos' rows of other
+processes' shards coming by point-to-point.
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ def atlas_sdf(
     'data' where the mesh has it, rows over 'y', the result joined on the
     mesh's first device (the mesh's devices decide where it runs). On a
     mesh that spans processes, ``images`` is the global stack, checked
-    against the global mesh, and the result is this process's rows of it
-    (parallel/mesh.local_index), joined on its first device.
+    against the global mesh, and the result is this process's part of it
+    (parallel/mesh.local_index: its images, and its image rows where 'y'
+    crosses processes), joined on its first device.
     ``sharding``: alternatively a ShardingConfig, whose
     mesh is built over the cards (or logical CPU shards with
     ``device="cpu"``); mesh and sharding are mutually exclusive."""
@@ -69,7 +73,7 @@ def atlas_sdf(
     check_mesh(mesh, n, h)
     batch_axis = "data" if "data" in mesh.axis_names else None
     # on a mesh that spans processes, this process's images from the threshold on
-    images, mesh = localize(images, mesh, (batch_axis, "y", None, None), along=("y",))
+    images, mesh = localize(images, mesh, (batch_axis, "y", None, None))
     b = threshold.hard_threshold(images.to(mesh.devices.flat[0]), channel=config.channel_offset,
                                  test_above=not config.invert)
     return sharded_hard_sdf_bytes(b, config.spread, mesh, asymmetric=config.asymmetric,

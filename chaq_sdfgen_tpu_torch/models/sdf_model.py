@@ -127,7 +127,12 @@ class SDFGenerator:
     its mesh (parallel/sharded.py): on ``device="cpu"`` mesh_shape logical
     CPU shards, on a card distinct cards cuda:0..n-1, raising when there
     are too few or when ``device`` names another card than cuda:0. The
-    result is joined onto the mesh's first device."""
+    result is joined onto the mesh's first device. In a torch.distributed
+    run of several processes the mesh spans every process's devices
+    (parallel/mesh.make_mesh), each process is given the whole image, and
+    ``generate`` and ``generate_field`` return its part of the result, at
+    ``own_index`` (as a JAX process holds its addressable shards), on its
+    first device of the mesh."""
 
     def __init__(
         self,
@@ -148,7 +153,19 @@ class SDFGenerator:
                     f"device {self.device} is not the mesh's first card"
                 )
             self._mesh = sharding.build_mesh("cpu" if self.device.type == "cpu" else None)
-            self.device = self._mesh.devices.flat[0]
+            self.device = self._mesh.local().devices.flat[0]
+
+    def own_index(self, shape) -> tuple:
+        """The global index of this process's part of a (..., H, W) result
+        of ``generate``: all of it but on a mesh that spans processes."""
+        shape = tuple(shape)
+        if self._mesh is None or not self._mesh.spans_processes:
+            return tuple(slice(0, n) for n in shape)
+        from chaq_sdfgen_tpu_torch.parallel.mesh import image_spec, local_index
+
+        sh = self.sharding
+        spec = image_spec(len(shape), sh.y_axis, sh.x_axis, sh.data_axis if len(shape) > 2 else None)
+        return local_index(shape, self._mesh, spec)
 
     def _as_input(self, img2ch) -> torch.Tensor:
         if isinstance(img2ch, np.ndarray):

@@ -21,10 +21,13 @@ field runs over a device mesh (parallel/sharded.sharded_soft_sdf_field,
 the undeclared tiers: the adaptive kernels or the composed path), the
 batch over ``batch_axis``, and the parameters live on the mesh's first
 device. Over a mesh that spans processes (parallel/distributed.global_mesh,
-the batch over 'data'), each process is given the global batch, computes
-its own rows and returns them; its training step sums the parameters'
-gradients over the processes (one all_reduce a step), so the parameters
-stay the same in every process.
+the batch over 'data'; or a mesh whose 'y' lines cross processes too),
+each process is given the global batch, computes its own part (its
+images, and its image rows where 'y' crosses processes: the halos' rows
+of other processes' shards come by point-to-point, and their cotangents
+go back the same way) and returns it; its training step sums the
+parameters' gradients over the processes (one all_reduce a step), so the
+parameters stay the same in every process.
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ class SoftSDFModel(torch.nn.Module):
     ``mesh`` (parallel/mesh.Mesh) on its first device (this process's);
     ``batch_axis`` names the mesh axis that shards the batch of a (N, H,
     W, 2) input. On a mesh that spans processes, forward takes the global
-    batch and returns this process's rows (parallel/mesh.local_index)."""
+    batch and returns this process's part of the field (parallel/mesh.
+    local_index over (batch_axis, 'y')); only ``batch_axis`` and 'y' may
+    cross the processes."""
 
     def __init__(self, spread: int = 16, soft: SoftConfig = SoftConfig(), mesh=None,
                  device: Union[str, torch.device, None] = None, batch_axis: Optional[str] = None):
@@ -61,12 +66,12 @@ class SoftSDFModel(torch.nn.Module):
         self.mesh = mesh
         self.batch_axis = batch_axis
         if mesh is not None and mesh.spans_processes:
-            # each row computed by one process alone: only the batch axis may cross them
-            crossing = [a for a in mesh.axis_names if a != batch_axis and mesh.crosses(a)]
-            if batch_axis is None or crossing:
-                raise ValueError(f"mesh axis {(crossing or mesh.axis_names)[0]!r} crosses processes "
-                                 f"({mesh._layout()}): on a mesh that spans processes the batch axis "
-                                 f"(batch_axis={batch_axis!r}) must be the one that crosses them")
+            # each pixel computed by one process alone: only the batch axis and 'y' may cross them
+            crossing = [a for a in mesh.axis_names if a not in (batch_axis, "y") and mesh.crosses(a)]
+            if crossing:
+                raise ValueError(f"mesh axis {crossing[0]!r} crosses processes ({mesh._layout()}): on a mesh "
+                                 f"that spans processes only the batch axis (batch_axis={batch_axis!r}) and "
+                                 f"'y' may cross them, else every process would compute every row")
         first = mesh.local().devices.flat[0] if mesh is not None else None
         dev = first if mesh is not None and device is None else resolve_device(device)
         if mesh is not None and dev != first:
@@ -77,10 +82,19 @@ class SoftSDFModel(torch.nn.Module):
         self.channel_mix = torch.nn.Parameter(torch.tensor([0.0, 4.0], **f32))
 
     def own_rows(self, shape) -> tuple:
-        """The global index of this process's rows of a (..., H, W[, 2])
-        tensor of ``shape`` (all of it but on a mesh that spans processes)."""
-        spec = (self.batch_axis,) + (None,) * (len(shape) - 1)
-        return local_index(shape, self.mesh, spec) if self._spans else tuple(slice(None) for _ in shape)
+        """The global index of this process's part of a (..., H, W) field
+        of ``shape`` (all of it but on a mesh that spans processes)."""
+        return local_index(shape, self.mesh, self._spec(len(shape), 0)) if self._spans else \
+            tuple(slice(None) for _ in shape)
+
+    def _spec(self, ndim: int, channels: int) -> tuple:
+        """The split of a (..., H, W) field (channels 0) or (..., H, W, 2)
+        input (channels 1): the batch over batch_axis, rows over 'y'."""
+        spec = [None] * ndim
+        if ndim > 2 + channels:
+            spec[0] = self.batch_axis
+        spec[ndim - 2 - channels] = "y" if "y" in self.mesh.axis_names else None
+        return tuple(spec)
 
     @property
     def _spans(self) -> bool:
@@ -89,9 +103,8 @@ class SoftSDFModel(torch.nn.Module):
     def forward(self, img2ch: torch.Tensor) -> torch.Tensor:
         mesh = self.mesh
         if mesh is not None:
-            # on a mesh that spans processes, this process's rows from the front end on
-            spec = (self.batch_axis,) + (None,) * (img2ch.dim() - 1)
-            img2ch, mesh = localize(img2ch, mesh, spec)
+            # on a mesh that spans processes, this process's part from the front end on
+            img2ch, mesh = localize(img2ch, mesh, self._spec(img2ch.dim(), 1))
         mix = torch.softmax(self.channel_mix, dim=0)
         gray = (img2ch.to(torch.float32) * mix).sum(-1) - self.threshold_bias
         tau = torch.exp(self.log_tau)
@@ -125,8 +138,9 @@ def make_train_step(model: SoftSDFModel, opt: torch.optim.Optimizer):
     the model's signed soft field and ``target``, its gradient, and one
     optimizer step (in place on the model's parameters). On a mesh that
     spans processes both are the global batch: each process's loss is its
-    rows' sum of squares over the global element count, and one
-    all_reduce sums the parameters' gradients and the losses over the
+    part's sum of squares over the global element count (its backward
+    returns the halo rows' cotangents to the processes that own them), and
+    one all_reduce sums the parameters' gradients and the losses over the
     processes before the step, which returns the global loss."""
     params = list(model.parameters())
 

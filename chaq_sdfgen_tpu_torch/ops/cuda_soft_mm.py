@@ -239,15 +239,18 @@ class _MmFused(torch.autograd.Function):
 
 
 class _MmFusedChain(torch.autograd.Function):
-    """The kernels over one chain of shards along 'y' (the custom VJP of
-    pallas_soft_mm._mm_fused inside shard_map). Forward: each shard's gray
-    block with a k2-row gray halo of its neighbours ([k2 | block | k2],
-    live in its window), the field of its own rows. Backward: each shard
-    pulls its neighbours' k2 edge rows of the cotangent (fill 0) and of both
-    memos (fill 1e30), the three in one exchange, and writes the complete
-    dgray of its own rows (the contributions through the neighbours'
-    outputs included), so the halo inputs take no cotangent and each
-    pixel's gradient sums its taps in the single-device order."""
+    """The kernels over the shards of a mesh's chains along 'y', one node
+    for every local shard (the custom VJP of pallas_soft_mm._mm_fused
+    inside shard_map). Forward: each shard's gray block with a k2-row gray
+    halo of its neighbours ([k2 | block | k2], live in its window), the
+    field of its own rows. Backward: each shard pulls its neighbours' k2
+    edge rows of the cotangent (fill 0) and of both memos (fill 1e30), the
+    three in one exchange, and writes the complete dgray of its own rows
+    (the contributions through the neighbours' outputs included), so the
+    halo inputs take no cotangent and each pixel's gradient sums its taps
+    in the single-device order. Where a chain crosses processes, both
+    exchanges take the other processes' rows by point-to-point, and the
+    fills arrive only where the image ends."""
 
     @staticmethod
     def forward(ctx, params, frames, windows, *blocks):
@@ -279,17 +282,18 @@ class _MmFusedChain(torch.autograd.Function):
 
 
 def sharded_mm_fused(blocks, frames, windows, k1, k2, shift, tau, temperature, eps, test_above=True):
-    """The declared-range field of each shard of a chain along 'y' (a list
-    of (..., H_local, W) float32 blocks in chain order) through the two
-    kernels, differentiable with respect to every block (the sharded tier's
-    pallas_soft_mm.sharded_local_mm_fused(_2d)). ``frames(arrays, rows,
-    fills)`` is the halo exchange's form for several chains
-    (halo.exchange_row_halo_many or cuda_halo.exchange_row_halo_rdma_many):
-    each chain's [rows | block | rows] frames, each with its fill;
-    ``windows`` each shard's live (ylo, yhi, xlo, xhi) in its [k2 | block |
-    k2] frame (sharded._live_span: the image's rows and, for a 2-D tile
-    with its column halo, columns). Bitwise the single-device field on the
-    shards' rows, and its gradient too."""
+    """The declared-range field of each local shard of a mesh (a list of
+    (..., H_local, W) float32 blocks, the mesh's in flat order) through the
+    two kernels, differentiable with respect to every block (the sharded
+    tier's pallas_soft_mm.sharded_local_mm_fused(_2d)). ``frames(arrays,
+    rows, fills)`` is the halo exchange along 'y' for several such lists
+    (sharded._soft_mm_fused over halo.halo_frames_many or
+    cuda_halo.halo_frames_rdma_many): each list's [rows | block | rows]
+    frames, each list with its fill; ``windows`` each shard's live (ylo,
+    yhi, xlo, xhi) in its [k2 | block | k2] frame (sharded._live_span at
+    its global position: the image's rows and, for a 2-D tile with its
+    column halo, columns). Bitwise the single-device field on the shards'
+    rows, and its gradient too."""
     _check_taps("sharded_mm_fused", k1, k2)
     blocks = [b.to(torch.float32).contiguous() for b in blocks]
     params = (float(shift), int(k1), int(k2), float(tau), float(temperature), float(eps), bool(test_above))

@@ -8,17 +8,21 @@ launchers named after the TPU kernels, and the exchange built on them.
   halo_ring_shift  each shard receives the whole block of its neighbour on
                    each chain, a periodic ring (launcher
                    ``halo_ring_shift``, for pallas_halo._ring_shift_kernel);
-  exchange_row_halo_rdma  the halo'd frames [up | block | down], written in
-                   place: one ``halo_slab`` launch where the band fits in a
-                   shard, else the multi-hop ring of
-                   pallas_halo._rdma_halo_fwd_impl, one ``halo_ring_shift``
-                   launch per hop whose jobs read the neighbour's frame;
-                   differentiable: its VJP (pallas_halo._rdma_halo_bwd)
-                   ships each halo's cotangent back round the reverse ring
-                   through the same launchers and adds it to its owner's
-                   rows;
-  exchange_row_halo_rdma_many  the frames of several chains of one shape
-                   (each with its fill) in the same launches.
+  halo_frames_rdma  the halo'd frames [up | block | down] on every line of
+                   a mesh (parallel/halo.plan's runs), written in place by
+                   one launch a device: ``halo_slab`` where the band fits
+                   in a shard, else ``halo_ring_shift``, every hop of the
+                   multi-hop chain (pallas_halo._rdma_halo_fwd_impl) in the
+                   same launch, its jobs reading the blocks that hold the
+                   rows; where the lines cross processes, the rows of
+                   other processes' shards come by point-to-point
+                   (halo.receive_legs). Differentiable: its VJP
+                   (pallas_halo._rdma_halo_bwd) gathers each halo's
+                   cotangent through the same launchers and adds it to its
+                   owner's rows, in halo._scatter's order;
+  halo_frames_rdma_many  the frames of several arrays of one shape (each
+                   with its fill) in the same launches;
+  exchange_row_halo_rdma(_many)  the same on a chain of blocks.
 
 A job is one run of rows in every image of a block: (src, src_row0,
 src_rows, dst, dst_row0, dst_rows, rows, fill), where src and dst are
@@ -49,6 +53,8 @@ import numpy as np
 import torch
 
 from chaq_sdfgen_tpu_torch.ops import _build
+from chaq_sdfgen_tpu_torch.parallel import halo
+from chaq_sdfgen_tpu_torch.parallel.mesh import mesh_array
 
 LAUNCHES = {"halo_slab": 0, "halo_ring_shift": 0}
 
@@ -259,163 +265,156 @@ def halo_ring_shift(ups: Sequence[torch.Tensor], downs: Sequence[torch.Tensor]):
 # ------------------------------------------------------------------ frames
 
 
-def _frame_jobs(blocks, frames, fill, i: int, hop: int, band: int, h: int) -> list:
-    """Shard i's jobs of one hop (pallas_halo._rdma_halo_fwd_impl): the rows
-    of block i - hop in its up halo and of block i + hop in its down halo,
-    clipped to the halo, ``fill`` past the image; on the first hop from the
-    neighbours' blocks, with the centre rows, on later hops from the
-    neighbours' frames, where the previous hop left those blocks."""
-    n, p = len(blocks), h + 2 * band
-    jobs = [(blocks[i], 0, h, frames[i], band, p, h, None)] if hop == 1 else []
-    start = band - hop * h  # frame row of block i - hop's first row
-    lo = max(start, 0)
-    if i < hop:
-        src = None, 0, 1
-    elif hop == 1:
-        src = blocks[i - 1], lo - start, h
-    else:
-        src = frames[i - 1], band - (hop - 1) * h + lo - start, p
-    jobs.append((*src, frames[i], lo, p, start + h - lo, fill))
-    start = band + hop * h  # frame row of block i + hop's first row
-    if i >= n - hop:
-        src = None, 0, 1
-    elif hop == 1:
-        src = blocks[i + 1], 0, h
-    else:
-        src = frames[i + 1], start - h, p
-    jobs.append((*src, frames[i], start, p, min(start + h, p) - start, fill))
-    return [job for job in jobs if job[6] > 0]
-
-
-def _frames(arrays: Sequence[Sequence[torch.Tensor]], band: int, fills: Sequence) -> List[List[torch.Tensor]]:
-    """Each array's (..., H_local + 2 band, W) frames, allocated once per
-    shard and written in place: one ``halo_slab`` launch per device where
-    band <= H_local, else one ``halo_ring_shift`` launch per hop and
-    device, every array's jobs in the same launches."""
-    if band < 0:
-        raise ValueError(f"exchange_row_halo_rdma: negative band {band}")
+def _frames(plan, arrays: Sequence[Sequence[torch.Tensor]], band: int, fills: Sequence) -> tuple:
+    """Each array's frames [band | block | band] of the local blocks of a
+    plan (halo.plan): the crossing legs by point-to-point, then per device
+    one table of every array's runs (the local blocks, received slabs and
+    the fill) written in place: ``halo_slab`` where band <= H_local, else
+    ``halo_ring_shift``, every hop in the same launch. Returns the frames
+    and the exchange's number (halo.receive_legs)."""
+    bufs, seq = halo.receive_legs(plan, arrays)
     g0 = arrays[0][0]
     h, w = g0.shape[-2:]
+    p = h + 2 * band
     n_img, row_bytes = _img_and_row_bytes(g0)
-    frames = [[torch.empty(g.shape[:-2] + (h + 2 * band, w), dtype=g.dtype, device=g.device) for g in blocks]
+    frames = [[torch.empty(g.shape[:-2] + (p, w), dtype=g.dtype, device=g.device) for g in blocks]
               for blocks in arrays]
-    hops = 1 if band <= h else -(-band // h)
-    kernel = "halo_slab" if hops == 1 else "halo_ring_shift"
+    kernel = "halo_slab" if band <= h else "halo_ring_shift"
     groups = _by_device(arrays[0])
-    for hop in range(1, hops + 1):
-        for device, idx in groups.items():
-            jobs = [job for blocks, fr, fill in zip(arrays, frames, fills) for i in idx
-                    for job in _frame_jobs(blocks, fr, fill, i, hop, band, h)]
-            _run(kernel, jobs, n_img, row_bytes, device, len(groups) == 1)
-    return frames
+    for device, idx in groups.items():
+        jobs = []
+        for blocks, fr, bf, fill in zip(arrays, frames, bufs, fills):
+            for i in idx:
+                for dst, cnt, kind, ref, src in plan.segs[i]:
+                    if kind == halo.FILL:
+                        jobs.append((None, 0, 1, fr[i], dst, p, cnt, fill))
+                    elif kind == halo.LOCAL:
+                        jobs.append((blocks[ref], src, h, fr[i], dst, p, cnt, None))
+                    else:
+                        jobs.append((bf[ref], src, bf[ref].shape[-2], fr[i], dst, p, cnt, None))
+        _run(kernel, jobs, n_img, row_bytes, device, len(groups) == 1)
+    return frames, seq
 
 
-def _rdma_halo_vjp(cts: Sequence[torch.Tensor], band: int, h: int) -> List[torch.Tensor]:
-    """The exchange's VJP (pallas_halo._rdma_halo_bwd): each shard's
-    cotangent of its (..., h + 2 band, W) halo'd block -> that of its (...,
-    h, W) block: its own rows' part plus the halo cotangents that other
-    shards hold for its rows, shipped back round the reverse ring. One hop:
-    one halo_slab launch per device copies each shard's own rows and pulls
-    the last ``band`` rows of shard i - 1's cotangent, its down halo, for
-    its head rows and the first of shard i + 1's, its up halo, for its tail
-    rows (0 beyond the image); two adds over the device's shards place
-    them. Multi-hop: the hop blocks of both halos (0 where the forward read
-    the fill) ride hops ring shifts the reverse way, each hop's block added
-    on its way back to its owner."""
-    n = len(cts)
+def _rdma_vjp(plan, cts: Sequence[torch.Tensor], band: int, meta: Sequence[tuple], seq: int) -> List[torch.Tensor]:
+    """The exchange's VJP (pallas_halo._rdma_halo_bwd): per device one
+    launch copies each frame's cotangent of its own rows into its block's
+    gradient and every other run that read a block or a received slab into
+    one scratch; the scratch's runs are added onto their owners' rows and
+    onto the received slabs' cotangents in the plan's order (halo._scatter's
+    order), which go back to their senders by point-to-point and are added
+    there (halo.return_legs, halo.add_returned)."""
+    h = plan.h
     cts = [c.contiguous() for c in cts]
-    if n == 1 or band < 1:
-        return [c[..., band : band + h, :].clone() for c in cts]
-    if band <= h:
-        return _rdma_halo_vjp_one_hop(cts, band, h)
-    dgs = [c[..., band : band + h, :].clone() for c in cts]
-    hops = -(-band // h)
-    pad = [c.new_zeros(c.shape[:-2] + (hops * h - band, c.shape[-1])) for c in cts]
-    up_full = [torch.cat([p, c[..., :band, :]], dim=-2) for p, c in zip(pad, cts)]
-    dn_full = [torch.cat([c[..., band + h :, :], p], dim=-2) for p, c in zip(pad, cts)]
-    zero = cts[0].new_zeros(cts[0].shape[:-2] + (h, cts[0].shape[-1]))
-
-    def piece_up(i, k):  # hop k's up-halo block of shard i: shard i - k's rows
-        return up_full[i][..., (hops - k) * h : (hops - k + 1) * h, :] if i >= k else zero.to(cts[i].device)
-
-    def piece_dn(i, k):  # hop k's down-halo block of shard i: shard i + k's rows
-        return dn_full[i][..., (k - 1) * h : k * h, :] if i < n - k else zero.to(cts[i].device)
-
-    # Horner over the hops: the up-halo cotangents travel toward lower
-    # indices, the down-halo ones toward higher, one ring step per hop
-    back_up = [piece_up(i, hops).contiguous() for i in range(n)]
-    back_dn = [piece_dn(i, hops).contiguous() for i in range(n)]
-    for k in range(hops - 1, -1, -1):
-        back_dn, back_up = halo_ring_shift(back_dn, back_up)
-        back_up[n - 1] = torch.zeros_like(back_up[n - 1])  # wrapped round the ring
-        back_dn[0] = torch.zeros_like(back_dn[0])
-        if k:
-            back_up = [(b + piece_up(i, k)).contiguous() for i, b in enumerate(back_up)]
-            back_dn = [(b + piece_dn(i, k)).contiguous() for i, b in enumerate(back_dn)]
-    return [dg + u + d for dg, u, d in zip(dgs, back_up, back_dn)]
-
-
-def _rdma_halo_vjp_one_hop(cts: Sequence[torch.Tensor], band: int, h: int) -> List[torch.Tensor]:
-    """_rdma_halo_vjp where band <= h: per device the shards' own rows, one
-    (shards, ..., h, W) tensor, and halo_slab's slabs of the cotangents, one
-    (2, shards, ..., band, W) tensor, in one launch; then my tail rows plus
-    shard i + 1's up halo and my head rows plus shard i - 1's down halo."""
-    _check_blocks("exchange_row_halo_rdma", cts)
-    n, g0 = len(cts), cts[0]
+    g0 = cts[0]
     p, w = g0.shape[-2:]
     n_img, row_bytes = _img_and_row_bytes(g0)
-    dgs = [None] * n
+    dbufs = halo.leg_zeros(plan, meta)
+    own_at = [band] * len(cts)
+    extra: dict = {}  # destination device -> [(frame, dst, count, kind, ref, src)]
+    for i, segs in enumerate(plan.segs):
+        for seg in segs:
+            dst, cnt, kind, ref, src = seg
+            if plan.is_own(i, seg):
+                own_at[i] = dst
+            elif kind != halo.FILL:
+                dev = meta[ref][2] if kind == halo.LOCAL else dbufs[ref].device
+                extra.setdefault(dev, []).append((i, dst, cnt, kind, ref, src))
+    kernel = "halo_slab" if band <= h else "halo_ring_shift"
     groups = _by_device(cts)
+    dgs, scratch = [None] * len(cts), {}
     for device, idx in groups.items():
-        m = len(idx)
-        own = torch.empty((m,) + g0.shape[:-2] + (h, w), dtype=g0.dtype, device=device)
-        slabs = torch.empty((2, m) + g0.shape[:-2] + (band, w), dtype=g0.dtype, device=device)
-        jobs = []
+        own = torch.empty((len(idx),) + g0.shape[:-2] + (h, w), dtype=g0.dtype, device=device)
+        runs = extra.get(device, [])
+        rows = sum(r[2] for r in runs)
+        sc = torch.empty(g0.shape[:-2] + (rows, w), dtype=g0.dtype, device=device)
+        jobs = [(cts[i], own_at[i], p, own, k * n_img * h, h, h, None) for k, i in enumerate(idx)]
+        at = 0
+        for i, dst, cnt, _, _, _ in runs:
+            jobs.append((cts[i], dst, p, sc, at, rows, cnt, None))
+            at += cnt
+        _run(kernel, jobs, n_img, row_bytes, device, len(groups) == 1)
         for k, i in enumerate(idx):
-            jobs.append((cts[i], band, p, own, k * n_img * h, h, h, None))
-            jobs.append((cts[i - 1] if i > 0 else None, p - band, p, slabs, k * n_img * band, band, band, 0))
-            jobs.append((cts[i + 1] if i < n - 1 else None, 0, p, slabs, (m + k) * n_img * band, band, band, 0))
-        _run("halo_slab", jobs, n_img, row_bytes, device, len(groups) == 1)
-        own[..., h - band :, :] += slabs[1]
-        own[..., :band, :] += slabs[0]
-        for i, dg in zip(idx, own.unbind(0)):
-            dgs[i] = dg
+            dgs[i] = own[k]
+        scratch[device] = sc
+    for device, runs in extra.items():
+        at = 0
+        for _, _, cnt, kind, ref, src in runs:
+            target = dgs[ref] if kind == halo.LOCAL else dbufs[ref]
+            target.narrow(-2, src, cnt).add_(scratch[device].narrow(-2, at, cnt))
+            at += cnt
+    if plan.legs:
+        halo.add_returned(plan, dgs, halo.return_legs(plan, dbufs, meta, seq))
     return dgs
 
 
 class _RdmaHalo(torch.autograd.Function):
-    """exchange_row_halo_rdma under autograd: the forward's frames through
-    the kernel, the backward _rdma_halo_vjp (the kernel again)."""
+    """halo_frames_rdma under autograd: the forward's frames through the
+    legs and the kernel, the backward _rdma_vjp (the kernel and the legs
+    reversed)."""
 
     @staticmethod
-    def forward(ctx, band, fill, *blocks):
-        ctx.band, ctx.h = band, blocks[0].shape[-2]
-        return tuple(_frames([blocks], band, [fill])[0])
+    def forward(ctx, plan, band, fill, *blocks):
+        ctx.plan, ctx.band = plan, band
+        ctx.meta = [(b.shape, b.dtype, b.device) for b in blocks]
+        frames, ctx.seq = _frames(plan, [blocks], band, [fill])
+        return tuple(frames[0])
 
     @staticmethod
     def backward(ctx, *cts):
-        return (None, None, *_rdma_halo_vjp(cts, ctx.band, ctx.h))
+        cts = [torch.zeros(shape[:-2] + (shape[-2] + 2 * ctx.band, shape[-1]), dtype=dtype, device=device)
+               if c is None else c for c, (shape, dtype, device) in zip(cts, ctx.meta)]
+        return (None, None, None, *_rdma_vjp(ctx.plan, cts, ctx.band, ctx.meta, ctx.seq))
+
+
+def _frames_of(flats: Sequence[Sequence[torch.Tensor]], plan_of, band: int, fills: Sequence) -> list:
+    """Each array's frames of its local blocks (flat lists of one shape
+    and type), ``plan_of(h)`` the exchange's halo.Plan for shards of h
+    rows: differentiable, one node an array, where a block needs a
+    gradient, else every array's legs in one p2p and its frames in the
+    same launches."""
+    if band < 0:
+        raise ValueError(f"exchange_row_halo_rdma: negative band {band}")
+    flats = [[g.contiguous() for g in fl] for fl in flats]
+    _check_blocks("exchange_row_halo_rdma", [g for fl in flats for g in fl])
+    h = flats[0][0].shape[-2]
+    plan = plan_of(h)
+    if torch.is_grad_enabled() and any(g.requires_grad for fl in flats for g in fl):
+        return [list(_RdmaHalo.apply(plan, int(band), fill, *fl)) for fl, fill in zip(flats, fills)]
+    return _frames(plan, flats, band, fills)[0]
+
+
+def halo_frames_rdma(blocks: np.ndarray, mesh, axis: str, band: int, fill) -> np.ndarray:
+    """halo.halo_frames (rows) through the kernel, differentiable: every
+    frame of a device written by one launch whose jobs read the local
+    blocks, the slabs received from other processes where the lines cross
+    them, and the fill; its VJP gathers the halo rows' cotangents by one
+    launch a device, adds them on their owners' rows and returns the
+    received rows' cotangents to their senders."""
+    return halo_frames_rdma_many([blocks], mesh, axis, band, [fill])[0]
+
+
+def halo_frames_rdma_many(arrays: Sequence[np.ndarray], mesh, axis: str, band: int, fills: Sequence) -> list:
+    """halo.halo_frames_many through the kernel: every array's legs in one
+    p2p and every frame of a device in one launch."""
+    frames = _frames_of([list(a.flat) for a in arrays],
+                        lambda h: halo.plan(mesh, axis, h, [(-band, h + 2 * band)], -2), band, fills)
+    return [mesh_array(fr, arrays[0].shape) for fr in frames]
 
 
 def exchange_row_halo_rdma_many(arrays: Sequence[Sequence[torch.Tensor]], band: int,
                                 fills: Sequence) -> List[List[torch.Tensor]]:
-    """Drop-in for [halo.exchange_row_halo(a, band, f) for a, f in zip(arrays,
-    fills)] through the kernel, for chains of blocks of one shape and type
-    (shard i of every chain on one device): each chain's frames, the
-    chains' jobs in the same launches. Not differentiable."""
-    arrays = [[g.contiguous() for g in blocks] for blocks in arrays]
-    _check_blocks("exchange_row_halo_rdma", [g for blocks in arrays for g in blocks])
+    """Drop-in for halo.exchange_row_halo_many through the kernel, for
+    chains of blocks of one shape and type (shard i of every chain on one
+    device): each chain's frames, the chains' jobs in the same launch."""
     if any(len(b) != len(arrays[0]) or any(g.device != g0.device for g, g0 in zip(b, arrays[0])) for b in arrays):
         raise ValueError("exchange_row_halo_rdma: the chains' shards differ in number or device")
-    return _frames(arrays, band, fills)
+    n = len(arrays[0])
+    return _frames_of(arrays, lambda h: halo.chain_plan(n, h, [(-band, h + 2 * band)], -2), band, fills)
 
 
 def exchange_row_halo_rdma(blocks: Sequence[torch.Tensor], band: int, fill) -> List[torch.Tensor]:
     """Drop-in for halo.exchange_row_halo through the kernel: each shard's
     (..., H_local, W) block with ``band`` halo rows above and below,
     differentiable with respect to the blocks."""
-    blocks = [g.contiguous() for g in blocks]
-    _check_blocks("exchange_row_halo_rdma", blocks)
-    if torch.is_grad_enabled() and any(g.requires_grad for g in blocks):
-        return list(_RdmaHalo.apply(int(band), fill, *blocks))
-    return _frames([blocks], band, [fill])[0]
+    return exchange_row_halo_rdma_many([blocks], band, [fill])[0]

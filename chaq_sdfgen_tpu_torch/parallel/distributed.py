@@ -5,8 +5,12 @@ One process a host drives every device of its host (parallel/mesh.py).
 ``initialize`` joins the processes of a run into one torch.distributed
 group; ``global_mesh`` then lays out every process's devices, process by
 process, as ('data', 'y'): the batch over the hosts (the network between
-them), the rows over the devices of each host. Each process computes its
-own entries of that mesh alone; the halos stay within a host.
+them), the rows over the devices of each host. ``make_mesh`` in such a
+run lays any shape over every process's devices in rank order, so a 'y'
+(or 'x') line may cross hosts. Each process computes its own entries of
+a mesh alone; a halo that a shard needs from another process's shard
+comes by point-to-point over the group (parallel/halo.py), and its
+cotangent goes back the same way.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from chaq_sdfgen_tpu_torch.parallel.mesh import CPU_SHARDS, Mesh, make_mesh
+from chaq_sdfgen_tpu_torch.parallel.mesh import Mesh, host_devices, make_mesh
 
 log = logging.getLogger("chaq_sdfgen_tpu_torch")
 
@@ -27,14 +31,15 @@ log = logging.getLogger("chaq_sdfgen_tpu_torch")
 TIMEOUT = datetime.timedelta(seconds=120)
 
 
-def _world_size() -> int:
+def world_size() -> int:
+    """The processes of the run: 1 outside an initialized group."""
     dist = torch.distributed
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def _gather(value) -> list:
+def gather(value) -> list:
     """``value`` of every process, in rank order (one collective)."""
-    out = [None] * _world_size()
+    out = [None] * world_size()
     torch.distributed.all_gather_object(out, value)
     return out
 
@@ -65,8 +70,9 @@ def initialize(
         timeout=TIMEOUT,
     )
     local = torch.cuda.device_count()
-    log.info("distributed: process %d/%d (%s), %d local / %d global cards", torch.distributed.get_rank(),
-             num_processes, backend, local, sum(_gather(local)))
+    log.info("distributed: process %d/%d (%s), %d local / %d global cards; halos across processes by "
+             "point-to-point over %s", torch.distributed.get_rank(), num_processes, backend, local,
+             sum(gather(local)), backend)
 
 
 def global_mesh(
@@ -80,7 +86,7 @@ def global_mesh(
     ``y_per_host`` below a host's count a process holds several
     consecutive 'data' rows. ``devices``: this host's devices (None or
     "cuda" the visible cards, "cpu" CPU_SHARDS logical CPU shards, or a
-    list, parallel/mesh.make_mesh). In a run of several processes the
+    list, parallel/mesh.host_devices). In a run of several processes the
     counts are exchanged once and must be equal. ``data_axis`` is accepted
     for the JAX signature, whose mesh always has both axes. Raises
     ValueError when ``y_per_host`` does not divide a host's devices."""
@@ -89,15 +95,11 @@ def global_mesh(
         from chaq_sdfgen_tpu_torch.models.sdf_model import resolve_device
 
         resolve_device(None)  # raises without a card
-        n = torch.cuda.device_count()
-    elif devices == "cpu":
-        n = CPU_SHARDS
-    else:
-        devices = list(devices)
-        n = len(devices)
-    hosts = _world_size()
+    host = host_devices(devices)
+    n = len(host)
+    hosts = world_size()
     if hosts > 1:
-        counts = _gather(n)
+        counts = gather(n)
         if len(set(counts)) != 1:
             raise ValueError(f"the processes drive unequal device counts {counts}: global_mesh needs one count a "
                              f"host")
@@ -109,7 +111,7 @@ def global_mesh(
     if hosts == 1:
         return make_mesh(shape, ("data", "y"), devices)
     devs = np.empty(hosts * n, dtype=object)
-    devs[:] = list(make_mesh((n,), ("y",), devices).devices.flat) * hosts
+    devs[:] = host * hosts
     procs = np.repeat(np.arange(hosts), n)
     return Mesh(devs.reshape(shape), ("data", "y"), procs.reshape(shape), torch.distributed.get_rank())
 

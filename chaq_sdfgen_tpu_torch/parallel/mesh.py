@@ -12,16 +12,25 @@ every shard, halo and kernel on one device. On distinct cards the same
 code runs the shards on each card.
 
 A mesh may span the processes of a torch.distributed run (one process a
-host, parallel/distributed.global_mesh): each entry records the process
-that drives it. A pipeline given the global tensor runs on ``localize``'s
-part of it, over the mesh of this process's entries, as a process of a
-JAX run computes only its addressable shards. This process's entries
-must form one block of the mesh, and no 'y' or 'x' line (a chain a halo
-runs along) may cross processes: the halos stay on the host.
+host; ``make_mesh`` in such a run lays out every process's devices in
+rank order for its default device sets, as ``jax.devices()`` does,
+``spanning_mesh`` over each process's own list, and
+parallel/distributed.global_mesh as ('data', 'y')): each entry records
+the process that drives it. A pipeline given the global tensor runs on
+``localize``'s part of it, over the mesh of this process's entries, as a
+process of a JAX run computes only its addressable shards. This process's
+entries must form one block of the mesh. That part remembers where it
+lies in the global mesh (``Mesh.origin``, ``Mesh.offset``): a 'y' or 'x'
+line of it that continues in other processes' entries takes the rows its
+halos need from their shards by torch.distributed point-to-point
+(parallel/halo.py's plans read the origin's layout), and its shards'
+positions, which decide where the image ends, are global ones
+(``Mesh.position``, ``Mesh.extent``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -35,10 +44,13 @@ class Mesh:
     ``processes``: an ndarray of the same shape, the rank of the process
     that drives each entry, and ``process`` this process's rank; by
     default every entry is this process's. The entries of other processes
-    name the devices on their own hosts."""
+    name the devices on their own hosts. ``origin`` and ``offset``: for
+    this process's part of a mesh that spans processes (``local``), that
+    mesh and the global index of this part's first entry."""
 
     def __init__(self, devices: np.ndarray, axis_names: Tuple[str, ...],
-                 processes: Optional[np.ndarray] = None, process: int = 0):
+                 processes: Optional[np.ndarray] = None, process: int = 0,
+                 origin: Optional["Mesh"] = None, offset: Optional[Sequence[int]] = None):
         axis_names = tuple(axis_names)
         if devices.ndim != len(axis_names) or len(set(axis_names)) != len(axis_names):
             raise ValueError(f"mesh of shape {devices.shape} needs {devices.ndim} distinct axis names, "
@@ -50,6 +62,8 @@ class Mesh:
         self.axis_names = axis_names
         self.processes = processes
         self.process = process
+        self.origin = origin
+        self.offset = tuple(int(o) for o in offset) if offset is not None else (0,) * devices.ndim
 
     @property
     def spans_processes(self) -> bool:
@@ -74,10 +88,22 @@ class Mesh:
         return tuple(slice(int(a), int(b)) for a, b in zip(lo, hi))
 
     def local(self) -> "Mesh":
-        """This process's part: a mesh of the entries it drives."""
+        """This process's part: a mesh of the entries it drives, which
+        remembers this mesh as its ``origin`` and its box's corner as its
+        ``offset``."""
         if not self.spans_processes:
             return self
-        return Mesh(self.devices[self.local_box()], self.axis_names, process=self.process)
+        box = self.local_box()
+        return Mesh(self.devices[box], self.axis_names, process=self.process, origin=self,
+                    offset=[b.start for b in box])
+
+    def extent(self, axis: str) -> int:
+        """The global extent of ``axis``: the origin's on a part, else size."""
+        return (self.origin or self).size(axis)
+
+    def position(self, idx: Sequence[int]) -> Tuple[int, ...]:
+        """The global mesh index of entry ``idx`` of this mesh."""
+        return tuple(int(i) + o for i, o in zip(idx, self.offset))
 
     def _layout(self) -> str:
         return f"axes {self.shape}, the process of each entry {self.processes.tolist()}"
@@ -99,23 +125,62 @@ class Mesh:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.flat]}{procs})"
 
 
+def host_devices(devices: Union[str, Sequence, None], count: Optional[int] = None) -> list:
+    """This process's devices: None or "cuda" its visible cards
+    cuda:0..n-1; "cpu" ``count`` logical CPU shards (CPU_SHARDS by
+    default); or a list of devices, which may repeat one (logical shards of
+    one card)."""
+    if devices is None or devices == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if devices == "cpu":
+        return [torch.device("cpu")] * (CPU_SHARDS if count is None else count)
+    return [torch.device(d) for d in devices]
+
+
 def make_mesh(
     shape: Optional[Tuple[int, ...]] = None,
     axis_names: Tuple[str, ...] = ("y",),
     devices: Union[str, Sequence, None] = None,
 ) -> Mesh:
     """A mesh over the given devices, filled in order. ``devices``: None or
-    "cuda" for the visible cards cuda:0..n-1; "cpu" for logical CPU shards
-    (as many as the shape needs, CPU_SHARDS by default); or a list of
-    devices, which may repeat one (logical shards of one card). Default
-    shape: a 1-D mesh over every device. Raises ValueError when the shape
-    needs more devices than there are."""
-    if devices is None or devices == "cuda":
-        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    elif devices == "cpu":
-        devs = [torch.device("cpu")] * (int(np.prod(shape)) if shape is not None else CPU_SHARDS)
-    else:
-        devs = [torch.device(d) for d in devices]
+    "cuda" the visible cards, "cpu" logical CPU shards (as many as the
+    shape needs, CPU_SHARDS by default), or a list of devices, which may
+    repeat one (host_devices). In an initialized torch.distributed run of
+    several processes the default sets (None, "cuda", "cpu") are every
+    process's, as ``jax.devices()`` holds them (spanning_mesh; "cpu" then
+    gives each process its share of the shape, rounded up); a list is this
+    process's alone, and so is the mesh over it. Default shape: a 1-D mesh over every device. Raises
+    ValueError when the shape needs more devices than there are."""
+    from chaq_sdfgen_tpu_torch.parallel import distributed
+
+    world = distributed.world_size()
+    span = world > 1 and (devices is None or isinstance(devices, str))
+    count = None if shape is None else -(-int(np.prod(shape)) // (world if span else 1))
+    if span:
+        return spanning_mesh(shape, axis_names, host_devices(devices, count))
+    rank = torch.distributed.get_rank() if world > 1 else 0
+    return _filled(shape, axis_names, host_devices(devices, count), [rank], rank)
+
+
+def spanning_mesh(
+    shape: Optional[Tuple[int, ...]],
+    axis_names: Tuple[str, ...],
+    devices: Sequence,
+) -> Mesh:
+    """A mesh over the devices of every process of an initialized
+    torch.distributed run, filled in rank order: ``devices`` this
+    process's (a list, which may repeat a device), their names exchanged
+    once in one collective every process makes; each entry records its
+    process. Default shape: a 1-D mesh over every device. Raises ValueError
+    when the shape needs more devices than there are."""
+    from chaq_sdfgen_tpu_torch.parallel import distributed
+
+    names = distributed.gather([str(torch.device(d)) for d in devices])
+    return _filled(shape, axis_names, [torch.device(d) for part in names for d in part],
+                   [p for p, part in enumerate(names) for _ in part], torch.distributed.get_rank())
+
+
+def _filled(shape, axis_names, devs: list, procs: list, rank: int) -> Mesh:
     if shape is None:
         shape = (len(devs),)
     n = int(np.prod(shape))
@@ -123,7 +188,8 @@ def make_mesh(
         raise ValueError(f"mesh shape {tuple(shape)} needs {n} devices, have {len(devs)}")
     arr = np.empty(n, dtype=object)
     arr[:] = devs[:n]
-    return Mesh(arr.reshape(tuple(shape)), axis_names)
+    processes = np.asarray((procs * n)[:n] if len(procs) == 1 else procs[:n]).reshape(tuple(shape))
+    return Mesh(arr.reshape(tuple(shape)), axis_names, processes, rank)
 
 
 def image_spec(ndim: int, y_axis: str, x_axis: Optional[str] = None,
@@ -174,32 +240,17 @@ def local_index(shape: Sequence[int], mesh: Mesh, spec: Sequence[Optional[str]])
     return tuple(index)
 
 
-def localize(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]],
-             along: Sequence[Optional[str]] = ()) -> Tuple[torch.Tensor, Mesh]:
+def localize(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]) -> Tuple[torch.Tensor, Mesh]:
     """What a pipeline runs on to compute this process's shards alone: on
     a mesh that spans processes, ``x`` (the global tensor, split by
     ``spec``) at ``local_index`` and the mesh of the entries this process
-    drives, whose shards are the global mesh's at those entries, so the
-    pipeline's result is the global one's at ``local_index``. ``along``:
-    the axes halos run along (None: skipped), whose lines must lie within
-    one process (whole_lines). On any other mesh, ``(x, mesh)``."""
+    drives (``Mesh.local``), whose shards are the global mesh's at those
+    entries, so the pipeline's result is the global one's at
+    ``local_index``; its halos reach other processes' shards where its
+    lines cross them. On any other mesh, ``(x, mesh)``."""
     if not mesh.spans_processes:
         return x, mesh
-    whole_lines(mesh, *along)
     return x[local_index(x.shape, mesh, spec)], mesh.local()
-
-
-def whole_lines(mesh: Mesh, *axes: Optional[str]) -> None:
-    """Raise ValueError where a line of the mesh along one of ``axes``
-    (None: skipped) crosses processes: a halo along it would cross the
-    network, which the port does not exchange."""
-    for axis in axes:
-        if axis is None or not mesh.spans_processes:
-            continue
-        mesh.size(axis)  # raises for a name the mesh lacks
-        if mesh.crosses(axis):
-            raise ValueError(f"mesh axis {axis!r} crosses processes ({mesh._layout()}): each {axis!r} line must "
-                             f"lie within one process, so that its halos stay on the host")
 
 
 def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]) -> np.ndarray:
@@ -240,13 +291,13 @@ def unshard(blocks: np.ndarray, mesh: Mesh, spec: Sequence[Optional[str]],
     return join(arr, kept)
 
 
-def lines(mesh: Mesh, axis: str):
-    """The mesh indices along ``axis``, one list per position on the other
-    axes, each in order along the axis: the chains a halo runs along."""
-    k = mesh.axis_names.index(axis)
-    shape = mesh.devices.shape
-    for other in np.ndindex(*(shape[:k] + shape[k + 1:])):
-        yield [other[:k] + (i,) + other[k:] for i in range(shape[k])]
+def mesh_array(items: Sequence, shape: Tuple[int, ...]) -> np.ndarray:
+    """An object ndarray of ``shape`` holding ``items`` (flat order) as
+    they are: a tensor stays one entry."""
+    out = np.empty(math.prod(shape), dtype=object)
+    for i, item in enumerate(items):
+        out[i] = item
+    return out.reshape(shape)
 
 
 def per_shard(fn, *arrays: np.ndarray) -> np.ndarray:
@@ -256,16 +307,3 @@ def per_shard(fn, *arrays: np.ndarray) -> np.ndarray:
     for idx in np.ndindex(*arrays[0].shape):
         out[idx] = fn(*(a[idx] for a in arrays))
     return out
-
-
-def along(fn, blocks: np.ndarray, mesh: Mesh, axis: str, n_out: int = 1):
-    """fn on each chain of blocks along ``axis`` (a list in axis order),
-    returning a list per chain (or ``n_out`` lists); the results placed
-    back at their blocks' mesh indices."""
-    outs = [np.empty(blocks.shape, dtype=object) for _ in range(n_out)]
-    for line in lines(mesh, axis):
-        res = fn([blocks[i] for i in line])
-        for k, r in enumerate((res,) if n_out == 1 else res):
-            for i, v in zip(line, r):
-                outs[k][i] = v
-    return outs[0] if n_out == 1 else tuple(outs)

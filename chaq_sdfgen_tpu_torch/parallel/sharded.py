@@ -24,18 +24,27 @@ cards the cards work at once. The result is joined onto the mesh's first
 device.
 
 On a mesh that spans processes (parallel/distributed.global_mesh: the
-batch over 'data' across hosts), each function takes the global tensor,
-checks its shape against the global mesh and runs the pipeline on this
-process's part of it, over its part of the mesh (parallel/mesh.localize),
-with no collective: the halos run along 'y' and 'x' lines, which must lie
-within one process (else ValueError). It returns this process's part of
-the result, at parallel/mesh.local_index.
+batch over 'data' across hosts; parallel/mesh.make_mesh in such a run:
+any axis across them), each function takes the global tensor, checks its
+shape against the global mesh and runs the pipeline on this process's
+part of it, over its part of the mesh (parallel/mesh.localize), and
+returns this process's part of the result, at parallel/mesh.local_index.
+Where a 'y' or 'x' line of that part crosses processes, each halo's rows
+of other processes' shards come by torch.distributed point-to-point, all
+of an exchange's legs at once (parallel/halo.py Plan, the counterpart of
+ppermute across hosts; under rdma the kernel writes the frames from the
+local blocks and the received rows, parallel/cuda_halo.py), and every
+position that decides where the image ends (a shard's live window, JFA's
+coordinates) is the shard's global one. So the rows are the single
+device's: the hard bytes, and the soft field and gradient within the
+tolerances the one-process tier meets. Every process computes the same
+tier from the global mesh, since a shard's height is the same in both.
 
 The soft field (sharded_soft_sdf_field) is differentiable with respect to
-the image: the shards, the halos and the join are autograd operations, the
-ppermute halo by torch autograd and the rdma halo by its own VJP (the
-kernel again, round the reverse ring), so each halo row's cotangent comes
-back to the shard that owns the row. It runs the JAX function's tiers, in
+the image: the shards, the halos and the join are autograd operations,
+each halo exchange one node whose VJP (parallel/halo.py's, and under rdma
+the kernel again) adds each halo row's cotangent back onto the shard that
+owns the row. It runs the JAX function's tiers, in
 its order and on its conditions as it evaluates them on its accelerator:
   1. a declared gray range in the gamut (use_mm):
      a. on shards whose height is a multiple of 128 with both tap radii
@@ -90,7 +99,7 @@ from chaq_sdfgen_tpu_torch.ops import (
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo
 from chaq_sdfgen_tpu_torch.parallel.mesh import (
-    Mesh, along, image_spec, lines, localize, per_shard, shard, unshard,
+    Mesh, image_spec, localize, mesh_array, per_shard, shard, unshard,
 )
 
 
@@ -100,14 +109,16 @@ class XShardingRefused(NotImplementedError):
 
 
 def _halo_fn(impl: str, many: bool = False):
-    """The row-halo exchange of ShardingConfig.halo_impl: 'ppermute' or
-    'rdma'. Both give the same frames. ``many``: the form that takes
-    several chains, each with its fill (one launch for all under rdma),
+    """The row-halo exchange of ShardingConfig.halo_impl on every line of a
+    mesh along an axis, ``(blocks, mesh, axis, band, fill)`` -> frames:
+    'ppermute' (halo.halo_frames) or 'rdma' (cuda_halo.halo_frames_rdma).
+    Both give the same frames. ``many``: the form that takes several
+    arrays of blocks, each with its fill (one launch for all under rdma),
     not differentiable."""
     if impl == "ppermute":
-        return halo.exchange_row_halo_many if many else halo.exchange_row_halo
+        return halo.halo_frames_many if many else halo.halo_frames
     if impl == "rdma":
-        return cuda_halo.exchange_row_halo_rdma_many if many else cuda_halo.exchange_row_halo_rdma
+        return cuda_halo.halo_frames_rdma_many if many else cuda_halo.halo_frames_rdma
     raise ValueError(f"unknown halo implementation {impl!r} (ppermute or rdma)")
 
 
@@ -124,7 +135,7 @@ def _codes_with_col_halo(blocks, mesh: Mesh, x_axis: Optional[str], cols: int):
     codes = per_shard(threshold.as_codes, blocks)
     if x_axis is None:
         return codes
-    return along(lambda c: halo.exchange_col_halo(c, cols, 2), codes, mesh, x_axis)
+    return halo.halo_frames(codes, mesh, x_axis, cols, 2, dim=-1)
 
 
 def _crop_cols(t: torch.Tensor, start: int, width: int) -> torch.Tensor:
@@ -153,7 +164,8 @@ def sharded_hard_sdf_bytes(
     exchange = _halo_fn(halo)
     b = threshold.as_mask(b)
     spec = image_spec(b.dim(), y_axis, x_axis, batch_axis)
-    b, mesh = localize(b, mesh, spec, along=(y_axis, x_axis))
+    apply_sqrt = b.shape[-2] > 1  # the image's height, not the part's
+    b, mesh = localize(b, mesh, spec)
     h_loc = _local_height(b, mesh, y_axis)
     blocks = shard(b, mesh, spec)
     w_loc = blocks.flat[0].shape[-1]
@@ -166,11 +178,11 @@ def sharded_hard_sdf_bytes(
 
     # halos of hr = band rows; beyond the image a fill that pass 2 clips to band + 1
     fill = torch.iinfo(cuda_edt.strip_dtype(band)).max
-    din = along(lambda bl: exchange(bl, band, fill), din, mesh, y_axis)
-    dout = along(lambda bl: exchange(bl, band, fill), dout, mesh, y_axis)
+    din = exchange(din, mesh, y_axis, band, fill)
+    dout = exchange(dout, mesh, y_axis, band, fill)
 
     out = per_shard(lambda di, do: cuda_edt.fused_pass2_bytes(
-        di, do, spread, asymmetric, band, apply_sqrt=b.shape[-2] > 1, row_off=band, out_rows=h_loc),
+        di, do, spread, asymmetric, band, apply_sqrt=apply_sqrt, row_off=band, out_rows=h_loc),
         din, dout)
     return unshard(out, mesh, spec)
 
@@ -196,7 +208,7 @@ def sharded_brute_sdf_bytes(
     exchange = _halo_fn(halo)
     b = threshold.as_mask(b)
     spec = image_spec(b.dim(), y_axis, x_axis, batch_axis)
-    b, mesh = localize(b, mesh, spec, along=(y_axis, x_axis))
+    b, mesh = localize(b, mesh, spec)
     h_loc = _local_height(b, mesh, y_axis)
     if h_loc % 8 != 0 or h_loc < 2:
         raise ValueError(f"sharded brute needs an 8-aligned per-shard height >= 8, "
@@ -211,7 +223,7 @@ def sharded_brute_sdf_bytes(
     if x_axis is not None:
         planes = per_shard(lambda p: _crop_cols(p, spread, w_loc), planes)
 
-    planes = along(lambda bl: exchange(bl, spread, spread + 1), planes, mesh, y_axis)
+    planes = exchange(planes, mesh, y_axis, spread, spread + 1)
     out = per_shard(lambda bb, p: cuda_brute.brute_scan_bytes_halo(bb, p, spread, spread, asymmetric, invert),
                     blocks, planes)
     return unshard(out, mesh, spec)
@@ -230,12 +242,13 @@ def sharded_jfa_distance(
     k above and below through fetch_row_slab, multi-hop where k exceeds a
     shard, and on a 2-D mesh the columns through fetch_col_slab (corner
     taps take both), so each pixel sees the single-device candidates in
-    the single-device order."""
+    the single-device order. A stride's slab crosses processes where the
+    lines do (halo.shifted_slabs)."""
     if seeds.dim() != 2:
         raise ValueError(f"sharded_jfa_distance takes one (H, W) image, got shape {tuple(seeds.shape)}")
     h, w = seeds.shape
     spec = (y_axis, x_axis)
-    seeds, mesh = localize(seeds, mesh, spec, along=(y_axis, x_axis))
+    seeds, mesh = localize(seeds, mesh, spec)
     h_loc = _local_height(seeds, mesh, y_axis)
     blocks = shard(seeds.to(torch.bool), mesh, spec)
     w_loc = blocks.flat[0].shape[-1]
@@ -246,10 +259,10 @@ def sharded_jfa_distance(
 
     coords = blocks.copy()
     for idx in np.ndindex(*blocks.shape):
-        dev = blocks[idx].device
-        yy = torch.arange(h_loc, dtype=torch.int32, device=dev).view(h_loc, 1) + idx[ky] * h_loc
+        dev, pos = blocks[idx].device, mesh.position(idx)  # global coordinates
+        yy = torch.arange(h_loc, dtype=torch.int32, device=dev).view(h_loc, 1) + pos[ky] * h_loc
         xx = torch.arange(w_loc, dtype=torch.int32, device=dev).view(1, w_loc)
-        coords[idx] = (yy, xx + idx[kx] * w_loc if kx is not None else xx)
+        coords[idx] = (yy, xx + pos[kx] * w_loc if kx is not None else xx)
 
     def dist2(p, c):
         yy, xx = c
@@ -264,14 +277,14 @@ def sharded_jfa_distance(
         d2 = per_shard(dist2, sp, coords)
         for dy in (-k, 0, k):
             # row y of the slab holds global row y + dy
-            slab = sp if dy == 0 else along(lambda bl: halo.fetch_row_slab(bl, -dy, -1), sp, mesh, y_axis)
+            slab = sp if dy == 0 else halo.shifted_slabs(sp, mesh, y_axis, -dy, -1)
             for dx in (-k, 0, k):
                 if dy == 0 and dx == 0:
                     continue
                 if x_axis is None:
                     cp = per_shard(lambda s: jfa._shift2d(s, 0, dx, -1), slab)
                 else:
-                    cp = slab if dx == 0 else along(lambda bl: halo.fetch_col_slab(bl, -dx, -1), slab, mesh, x_axis)
+                    cp = slab if dx == 0 else halo.shifted_slabs(slab, mesh, x_axis, -dx, -1, dim=-1)
                 cd2 = per_shard(dist2, cp, coords)
                 p = per_shard(lambda a, b_, c, d: torch.where(c < d, b_, a), p, cp, cd2, d2)
                 d2 = per_shard(torch.minimum, d2, cd2)
@@ -299,27 +312,33 @@ def _mm_fused_ok(h_loc: int, w_loc: int, k1: int, k2: int, two_d: bool) -> bool:
             and (not two_d or w_loc % 128 == 0))
 
 
-def _soft_mm_fused(blocks, mesh, y_axis, x_axis, frames, stats, tau, temperature, eps, test_above):
-    """Tier 1a: the declared kernels on every chain along 'y', each shard
-    with a k2-row gray halo (cuda_soft_mm.sharded_mm_fused); on a 2-D mesh
-    each tile first takes k1 columns of its 'x' neighbours (fill 0, dead),
-    live columns the image's, and is cropped back after."""
+def _soft_mm_fused(blocks, mesh, y_axis, x_axis, frames_many, stats, tau, temperature, eps, test_above):
+    """Tier 1a: the declared kernels on every local shard, each with a
+    k2-row gray halo along 'y' (cuda_soft_mm.sharded_mm_fused, one autograd
+    node for them all, its exchanges ``frames_many`` on every line); on a
+    2-D mesh each tile first takes k1 columns of its 'x' neighbours (fill
+    0, dead), live columns the image's, and is cropped back after. Each
+    window is placed by the shard's global position."""
     k1, k2, shift = stats
     h, w_loc = blocks.flat[0].shape[-2:]
     ext = k1 if x_axis is not None else 0
     if ext:
-        blocks = along(lambda c: halo.exchange_col_halo(c, k1, 0.0), blocks, mesh, x_axis)
-    n = mesh.size(y_axis)
+        blocks = halo.halo_frames(blocks, mesh, x_axis, k1, 0.0, dim=-1)
+    ky = mesh.axis_names.index(y_axis)
     kx = mesh.axis_names.index(x_axis) if ext else None
-    out = np.empty(blocks.shape, dtype=object)
-    for line in lines(mesh, y_axis):
-        cols = _live_span(line[0][kx], mesh.size(x_axis), w_loc, ext) if ext else (0, w_loc)
-        windows = [_live_span(i, n, h, k2) + cols for i in range(n)]
-        fields = cuda_soft_mm.sharded_mm_fused([blocks[i] for i in line], frames, windows, k1, k2, shift, tau,
-                                               temperature, eps, test_above)
-        for i, f in zip(line, fields):
-            out[i] = f[..., ext : ext + w_loc] if ext else f
-    return out
+    windows = []
+    for idx in np.ndindex(*blocks.shape):
+        pos = mesh.position(idx)
+        cols = _live_span(pos[kx], mesh.extent(x_axis), w_loc, ext) if ext else (0, w_loc)
+        windows.append(_live_span(pos[ky], mesh.extent(y_axis), h, k2) + cols)
+
+    def frames(arrays, rows, fills):  # flat lists of the local blocks, as the mesh's arrays
+        arrs = [mesh_array(a, blocks.shape) for a in arrays]
+        return [list(f.flat) for f in frames_many(arrs, mesh, y_axis, rows, fills)]
+
+    fields = cuda_soft_mm.sharded_mm_fused(list(blocks.flat), frames, windows, k1, k2, shift, tau, temperature,
+                                           eps, test_above)
+    return mesh_array([f[..., ext : ext + w_loc] if ext else f for f in fields], blocks.shape)
 
 
 def _soft_mm_local(blocks, mesh, y_axis, exchange, stats, tau, temperature, eps, test_above):
@@ -343,8 +362,8 @@ def _soft_mm_local(blocks, mesh, y_axis, exchange, stats, tau, temperature, eps,
                      for e in (e_in, e_out))
 
     sums = per_shard(rows, blocks)
-    a_in = along(lambda c: exchange(c, k2, 0.0), per_shard(lambda s: s[0], sums), mesh, y_axis)
-    a_out = along(lambda c: exchange(c, k2, 0.0), per_shard(lambda s: s[1], sums), mesh, y_axis)
+    a_in = exchange(per_shard(lambda s: s[0], sums), mesh, y_axis, k2, 0.0)
+    a_out = exchange(per_shard(lambda s: s[1], sums), mesh, y_axis, k2, 0.0)
     if k2 <= cuda_soft_mm.MAX_TAPS:
         return per_shard(lambda ai, ao: soft_mxu.pass2_fused_sym(ai, ao, k2, t, shift, eps), a_in, a_out)
     return per_shard(lambda ai, ao: soft_mxu.tails(soft_mxu.conv_cols_sym(ai, k2, t),
@@ -359,11 +378,11 @@ def _soft_fused_window(blocks, mesh, y_axis, exchange, band, tau, temperature, e
     the halo rows' gradients to their owners."""
     h = blocks.flat[0].shape[-2]
     ky = mesh.axis_names.index(y_axis)
-    n = mesh.size(y_axis)
-    gext = along(lambda c: exchange(c, band, 0.0), blocks, mesh, y_axis)
+    n = mesh.extent(y_axis)
+    gext = exchange(blocks, mesh, y_axis, band, 0.0)
     out = np.empty(blocks.shape, dtype=object)
     for idx in np.ndindex(*blocks.shape):
-        window = _live_span(idx[ky], n, h, band)
+        window = _live_span(mesh.position(idx)[ky], n, h, band)
         field = soft_fused.soft_sdf_field_fused(gext[idx], band, tau, temperature, eps, test_above, window)
         out[idx] = field.narrow(-2, band, h)
     return out
@@ -374,7 +393,7 @@ def _soft_fused_split(blocks, mesh, y_axis, exchange, band, tau, temperature, ep
     (fill 1e30), F2 on the halo'd S1; B2 returns the halo rows' dS1, which
     the S1 halo's VJP adds to their owners'."""
     s1 = per_shard(lambda g: soft_fused.pass1_s1(g, band, tau, temperature, test_above), blocks)
-    s1ext = along(lambda c: exchange(c, band, soft_fused.PAD_H), s1, mesh, y_axis)
+    s1ext = exchange(s1, mesh, y_axis, band, soft_fused.PAD_H)
     return per_shard(lambda s: soft_fused.pass2_ext(s, band, temperature, eps, band), s1ext)
 
 
@@ -384,7 +403,7 @@ def _soft_composed(blocks, mesh, y_axis, exchange, band, tau, temperature, eps, 
     side by side, fill 1e30), the soft-min along y, the tails."""
     w = blocks.flat[0].shape[-1]
     s1 = per_shard(lambda g: softsdf.cols_pass1(g, band, tau, temperature, test_above), blocks)
-    s1ext = along(lambda c: exchange(c, band, soft_fused.PAD_H), s1, mesh, y_axis)
+    s1ext = exchange(s1, mesh, y_axis, band, soft_fused.PAD_H)
     return per_shard(lambda s: softsdf.cols_tails(softsdf.band_softmin_ext(s, band, temperature, axis=-2), w, eps),
                      s1ext)
 
@@ -418,7 +437,7 @@ def sharded_soft_sdf_field(
     exchange = _halo_fn(halo)
     g = gray.to(torch.float32)
     spec = image_spec(g.dim(), y_axis, x_axis, batch_axis)
-    g, mesh = localize(g, mesh, spec, along=(y_axis, x_axis))
+    g, mesh = localize(g, mesh, spec)
     h_loc = _local_height(g, mesh, y_axis)
     w_loc = g.shape[-1] // mesh.size(x_axis)
     stats = soft_mxu.range_stats(band, tau, temperature, gray_range)

@@ -184,8 +184,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (uint16, past its shared memory: the per-pixel walk), each shard
      timed, their sum and the four back to back; the launch
      counters over the rdma main path (the halo kernels and the halo scan
-     must launch, the halo kernel once per exchange, or hop, and device:
-     halo_slab 3 times, halo_ring_shift 4), the ppermute one (no halo
+     must launch, one table per exchange and device, every hop in it, in
+     launches of at most 64 jobs: halo_slab 3 times, halo_ring_shift 4,
+     two for each 78-job table), the ppermute one (no halo
      kernel) and one device (no sharded kernel); times of the 4-shard runs
      against one device;
  25. sharded JFA over both meshes at 1024² bit for bit against
@@ -266,7 +267,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
      same parameters in both workers); times (CUDA events: the atlas call
      alone and with the other process at work, the step; the host's time
      of the step's all_reduce). Both workers must exit 0 with their OK
-     line; past a timeout both are killed and the run fails.
+     line; past a timeout both are killed and the run fails;
+ 33. halos across processes, in the same two workers after phase 32: a
+     (4,) 'y' mesh over both workers' 2 logical shards of cuda:0
+     (spanning_mesh), processes [0, 0, 1, 1], every halo row of the other
+     worker's shards by point-to-point over gloo (staged through pinned
+     host memory: gloo cannot send a CUDA tensor). The sharded pipelines
+     on the 4096² glyph's mask: EXACT at spreads 64 and 1500 (band 1502
+     over 1024-row shards: two hops, uint16 strips) and BRUTE at 64, each
+     under ppermute and rdma, and JFA, each worker's rows byte for byte
+     one device; SDFGenerator(sharding=ShardingConfig((2,))) over its
+     default mesh (each worker's card, one shard each) for EXACT
+     (ppermute, rdma), BRUTE (rdma) and JFA at spread 64, each worker's
+     rows byte for byte one-device generate; the soft tiers (1a on the glyph's
+     alpha, declared, k 10; 1b on its 4000-row top and the wide taps, T 8;
+     2 window and split and 3 at spread 128 on noise in +-2000), field bit
+     for bit and dgray within 1e-6 of the scale of the same call over a
+     (4,) mesh of logical shards in the worker alone (the other worker's
+     rows take no gradient there), under both halo forms; SoftSDFModel
+     over ('data', 'y') (2, 2) with processes [[0, 1], [0, 1]], 2 Adam
+     steps, losses and parameters within phase 32's bounds of the parent's
+     one-process steps (the first step's gradients within 1e-5: each
+     process sums half of each image); the launch counters over these
+     calls must show every kernel of the path in each worker (rows 1-4,
+     6-14, 16-21); times with both workers at once (a crossing call needs
+     its peer, so none runs alone; CUDA events, 5 windows of 3 calls, JFA
+     once) and the host time of the crossing legs a call, beside the same
+     calls over a (4,) logical mesh in the parent.
 `python3 chip_smoke.py --kernel-turn` times rows 1-11 and 14-19 and what
 they serve alone (kernel_turn: edt_turn first, with the row passes, rows
 1, 3 and 14, at 4096^2 on the glyph and the noise: edt_rows at bands 66,
@@ -275,7 +302,7 @@ events, a CUDA graph and the host's time a call, since the wrappers' host
 cost nears their device time, with digests of their outputs;
 band_conv_turn on phase 26's inputs, as CUDA graphs too), on this tree or
 (copied in) its parent. `python3 chip_smoke.py --atlas-turn` runs phases
-29-31 alone, `python3 chip_smoke.py --dcn-turn` phase 32.
+29-31 alone, `python3 chip_smoke.py --dcn-turn` phases 32-33.
 The last three lines are the nvidia-smi line, the kernels' JSON summary
 and {"ok": true, ...}. A kernel's bound_ms is the larger of the bytes it
 must move at 3.35 TB/s and the operations its function needs on these
@@ -308,7 +335,7 @@ import zlib
 import numpy as np
 import torch
 
-from chaq_sdfgen_tpu_torch.config import SdfConfig, ShardingConfig, SoftConfig
+from chaq_sdfgen_tpu_torch.config import Algorithm, SdfConfig, ShardingConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models import checkpoint
 from chaq_sdfgen_tpu_torch.models.atlas import atlas_sdf, atlas_sdf_spread_sweep, sweep_band
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
@@ -319,7 +346,7 @@ from chaq_sdfgen_tpu_torch.ops import (
 )
 from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo, sharded
 from chaq_sdfgen_tpu_torch.parallel.distributed import global_mesh, initialize
-from chaq_sdfgen_tpu_torch.parallel.mesh import local_index, make_mesh
+from chaq_sdfgen_tpu_torch.parallel.mesh import Mesh, local_index, make_mesh, spanning_mesh
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, softplus
 from chaq_sdfgen_tpu_torch.utils import imageio, profiling, sdfio_native
 
@@ -3075,10 +3102,14 @@ def sharded_phases(dev, noise, glyph):
     log(f"main path sharded rdma: launches {launches}")
     for k in err:
         require(launches[k] > 0, f"kernel {k} was not launched on the sharded rdma path")
-    # one launch per exchange and device: EXACT's two exchanges and BRUTE's
-    # one over 4 shards; EXACT's two over 16 shards, 2 hops each
-    require(launches["halo_slab"] == 3 and launches["halo_ring_shift"] == 4,
-            "the rdma exchanges took other than one launch per exchange (and hop) and device")
+    # one table per exchange and device, in as few launches as MAX_JOBS
+    # allows: EXACT's two exchanges and BRUTE's one over 4 shards, one
+    # launch each; EXACT's two over 16 shards, both hops in one table of 78
+    # jobs (each shard's blocks within 2 hops and the edges' fills), two
+    # launches each
+    jobs_16 = -(-78 // cuda_halo.MAX_JOBS)
+    require(launches["halo_slab"] == 3 and launches["halo_ring_shift"] == 2 * jobs_16,
+            "the rdma exchanges took other than one table per exchange and device")
     reset_launches()
     sharded.sharded_hard_sdf_bytes(g, SPREAD, m4)
     sharded.sharded_brute_sdf_bytes(g, SPREAD, m4)
@@ -3757,7 +3788,7 @@ def atlas_phases(dev, glyph):
 
 DCN_PROCS = 2  # worker processes, each a "host"
 DCN_SHARDS = 2  # logical shards of the card a worker drives
-DCN_TIMEOUT = 420  # seconds the parent waits for both workers
+DCN_TIMEOUT = 600  # seconds the parent waits for both workers (phases 32-33)
 
 
 def dcn_batch(dev) -> tuple:
@@ -3834,6 +3865,8 @@ def dcn_worker(pid: int, port: str, tmp: str) -> int:
     cpu_buf = torch.zeros(5)
     run["all_reduce_cpu_host_us"] = host_us(lambda: dist.all_reduce(cpu_buf))
     res["model"] = run
+    del model, step
+    res["crossing"] = crossing_worker(pid, dev, batch, target)
     with open(os.path.join(tmp, f"worker{pid}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -3842,9 +3875,226 @@ def dcn_worker(pid: int, port: str, tmp: str) -> int:
     return 0
 
 
+# phase 33: the meshes whose 'y' lines cross the two workers
+CROSS_HARD = (("exact", 64), ("exact", 1500), ("brute", 64), ("jfa", 64))  # 1500: band 1502 > 1024-row shards
+CROSS_KERNELS = ("edt_rows", "edt_band_bytes", "edt_rows_u16", "edt_band_bytes_u16", "brute_rows",
+                 "brute_scan_bytes_halo", "halo_slab", "halo_ring_shift", "soft_mm_fwd", "soft_mm_bwd",
+                 "p2_fused_fwd", "p2_fused_bwd", "cols_conv", "soft_f1", "soft_f2", "soft_b2", "soft_b1",
+                 "softmin_col_fwd", "softmin_col_bwd")
+
+
+def cross_hard_fn(algo: str, spread: int, mesh, impl: str = "ppermute"):
+    """Phase 33's hard call over ``mesh`` on a thresholded mask: the
+    sharded EXACT, BRUTE or JFA pipeline (JFA's distance), and its
+    one-device twin."""
+    if algo == "exact":
+        return (lambda b: sharded.sharded_hard_sdf_bytes(b, spread, mesh, halo=impl),
+                lambda b: cuda_edt.fused_sdf_bytes(b, spread))
+    if algo == "brute":
+        return (lambda b: sharded.sharded_brute_sdf_bytes(b, spread, mesh, halo=impl),
+                lambda b: cuda_brute.brute_sdf_bytes(b, spread))
+    return lambda b: sharded.sharded_jfa_distance(b, mesh), jfa.jfa_distance
+
+
+def cross_hard_labels():
+    """(algo, spread, halo form) of phase 33's hard calls: both forms but
+    for JFA, which has none."""
+    return [(algo, spread, impl) for algo, spread in CROSS_HARD
+            for impl in (("ppermute", "rdma") if algo != "jfa" else ("ppermute",))]
+
+
+def cross_soft_cases(glyph: np.ndarray, dev) -> list:
+    """Phase 33's soft tiers over a (4,) 'y' mesh: (label, gray, keywords,
+    the tier's kernels) at 4096 x 4096 (1b at 4000 x 4096), tau 2, T 1,
+    spread 64 unless named: 1a the glyph's alpha on a declared range (k
+    10), 1b its 4000-row top (1000-row shards: p2_fused_fwd/bwd) and the
+    wide taps (T 8, k 29: cols_conv), 2 noise in +-2000 (window and
+    split), 3 that noise at spread 128."""
+    alpha = torch.from_numpy(glyph[..., 1].astype(np.float32)).to(dev)
+    pm = torch.from_numpy(pm_noise((SIZE, SIZE), SEED + 27)).to(dev)
+    return [
+        ("1a", alpha, dict(gray_range=U8), ("soft_mm_fwd", "soft_mm_bwd")),
+        ("1b", alpha[:SOFT_ROWS_1B], dict(gray_range=U8), ("p2_fused_fwd", "p2_fused_bwd")),
+        ("1b wide", alpha, dict(gray_range=U8, temperature=WIDE_T), ("cols_conv",)),
+        ("2 window", pm, {}, ("soft_f1", "soft_f2", "soft_b2", "soft_b1")),
+        ("2 split", pm, dict(fused_impl="split"), ("soft_f1", "soft_f2", "soft_b2", "soft_b1")),
+        ("3 spread 128", pm, dict(spread=128), ("softmin_col_fwd", "softmin_col_bwd")),
+    ]
+
+
+def cross_soft_fn(mesh, kw: dict, impl: str = "ppermute"):
+    kw = {"tau": TRAIN_TAU, "temperature": TRAIN_T, "eps": EPS, **kw}
+    return functools.partial(sharded.sharded_soft_sdf_field, spread=kw.pop("spread", SPREAD), mesh=mesh, halo=impl,
+                             **kw)
+
+
+def launches_of(fn) -> tuple:
+    """(fn(), the kernels' launches during it): every counter set to 0
+    just before and read just after."""
+    reset_launches()
+    reset_soft_launches()
+    out = fn()
+    return out, {k: v for k, v in {**read_launches(), **read_soft_launches()}.items() if v}
+
+
+def legs_ms(fn) -> tuple:
+    """(CUDA-event ms a call, as cuda_ms, and the host ms a call spent in
+    the crossing legs: posting, waiting, staging; halo.P2P)."""
+    s0, n0 = halo.P2P["seconds"], halo.P2P["exchanges"]
+    ms = cuda_ms(fn, 3, 5)
+    calls = 1 + 3 * 5  # cuda_ms's warm-up and its windows
+    return ms, (halo.P2P["seconds"] - s0) * 1e3 / calls, (halo.P2P["exchanges"] - n0) // calls
+
+
+def jfa_ms(fn) -> tuple:
+    """legs_ms of one call (JFA's take hundreds of ms): CUDA-event ms,
+    the legs' host ms and the exchanges."""
+    torch.cuda.synchronize()
+    s0, n0 = halo.P2P["seconds"], halo.P2P["exchanges"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), (halo.P2P["seconds"] - s0) * 1e3, halo.P2P["exchanges"] - n0
+
+
+def crossing_worker(pid: int, dev, batch, target) -> dict:
+    """Phase 33 in one worker (both run it at once: every crossing call
+    needs its peer): a (4,) 'y' mesh over both workers' 2 logical shards
+    of the card (spanning_mesh), processes [0, 0, 1, 1]. The sharded EXACT
+    (spreads 64 and 1500), BRUTE and JFA pipelines against one device at
+    its rows; SDFGenerator(sharding=ShardingConfig((2,))) over its default
+    mesh (each worker's card, one shard each) against one-device generate;
+    the soft tiers' field and dgray against the same call over a
+    one-process (4,) mesh of this worker; SoftSDFModel over ('data', 'y')
+    (2, 2) with processes [[0, 1], [0, 1]], 2 Adam steps; the launch counts
+    over these calls; times (both workers at once; the legs' host time)."""
+    dist = torch.distributed
+    glyph = glyph_image(SIZE, SEED + 1)
+    img = torch.from_numpy(glyph).to(dev)
+    out = {"hard": {}, "soft": {}}
+    counts: dict = {}  # the crossing calls' launches (not their references')
+
+    def count(c: dict) -> None:
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    ym = spanning_mesh((SHARDS,), ("y",), [dev] * DCN_SHARDS)
+    require(ym.processes.tolist() == [0, 0, 1, 1], f"worker {pid}: mesh {ym!r}")
+    b = threshold.hard_threshold(img)
+    rows = local_index(b.shape, ym, ("y", None))
+    calls = {}
+    for algo, spread, impl in cross_hard_labels():
+        fn, one = cross_hard_fn(algo, spread, ym, impl)
+        want = one(b)[rows].contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, c = launches_of(lambda: fn(b))
+        wall = (time.perf_counter() - t0) * 1e3
+        count(c)
+        bad = differing_bytes([got], [want])
+        label = f"{algo} {spread} {impl}"
+        log(f"worker {pid}: {label} rows {rows[0].start}-{rows[0].stop - 1}: {bad} bytes differ from one device; "
+            f"first call {wall:.1f} ms wall; launches {c}")
+        require(bad == 0, f"worker {pid}: sharded {label} across processes")
+        out["hard"][label] = dict(bad=bad, first_ms=wall, launches=c)
+        calls[label] = functools.partial(fn, b)
+    del want, got
+    # the entry point over its default mesh: every process's card, one shard each
+    for algo, impl in (("exact", "ppermute"), ("exact", "rdma"), ("brute", "rdma"), ("jfa", "ppermute")):
+        cfg = SdfConfig(spread=SPREAD, algorithm=Algorithm(algo))
+        gen = SDFGenerator(cfg, sharding=ShardingConfig((DCN_PROCS,), halo_impl=impl), device=dev)
+        require(gen._mesh.processes.tolist() == list(range(DCN_PROCS)), f"worker {pid}: mesh {gen._mesh!r}")
+        want = SDFGenerator(cfg, device=dev).generate(img)
+        got, c = launches_of(lambda: gen.generate(img))
+        count(c)
+        own = gen.own_index(want.shape)
+        bad = differing_bytes([got], [want[own].contiguous()])
+        log(f"worker {pid}: SDFGenerator {algo} {SPREAD} {impl} over ShardingConfig(({DCN_PROCS},)), rows "
+            f"{own[0].start}-{own[0].stop - 1}: {bad} bytes differ from one-device generate; launches {c}")
+        require(bad == 0 and got.shape == want[own].shape, f"worker {pid}: SDFGenerator {algo} {impl} across "
+                f"processes")
+        out["hard"][f"generate {algo} {impl}"] = dict(bad=bad, launches=c)
+    del want, got
+    m4 = logical_mesh(dev, (SHARDS,))
+    cases = cross_soft_cases(glyph, dev)
+    for label, g, kw, _ in cases:
+        _, _, g1 = soft_step(cross_soft_fn(m4, kw), g)
+        f1 = cross_soft_fn(m4, kw)(g)
+        rows = local_index(g.shape, ym, ("y", None))
+        for impl in ("ppermute", "rdma"):
+            fn = cross_soft_fn(ym, kw, impl)
+            (_, _, grad), c = launches_of(lambda: soft_step(fn, g))
+            field, c_f = launches_of(lambda: fn(g))
+            count(c)
+            count(c_f)
+            f_err = bits_equal(label, field, f1[rows].contiguous())
+            g_err = float((grad[rows] - g1[rows]).abs().max()) / float(g1.abs().max())
+            elsewhere = float(grad[: rows[0].start].abs().sum() + grad[rows[0].stop :].abs().sum())
+            log(f"worker {pid}: soft {label} {impl} rows {rows[0].start}-{rows[0].stop - 1}: {f_err} field values "
+                f"differ from the one-process (4,) mesh's; dgray within {g_err:.3e} of its scale; the other "
+                f"process's rows take {elsewhere}; the step's launches {c}")
+            require(f_err == 0 and g_err <= 1e-6 and elsewhere == 0 and bool(torch.isfinite(grad).all()),
+                    f"worker {pid}: soft {label} {impl} across processes")
+            out["soft"][f"{label} {impl}"] = dict(field_bits=f_err, grad=g_err, launches=c)
+        del f1, g1, grad, field
+
+    # the model: 'y' across the processes, the batch within each
+    t = spanning_mesh((2, 2), ("y", "data"), [dev] * DCN_SHARDS)
+    mesh = Mesh(t.devices.T.copy(), ("data", "y"), t.processes.T.copy(), t.process)
+    require(mesh.processes.tolist() == [[0, 1], [0, 1]], f"worker {pid}: model mesh {mesh!r}")
+    model = SoftSDFModel(SPREAD, SoftConfig(tau=TRAIN_TAU, temperature=TRAIN_T), mesh=mesh, batch_axis="data")
+    run, step = dcn_steps(model, batch, target)
+    count(run["launches"])
+    log(f"worker {pid}: SoftSDFModel over {mesh.shape} processes {mesh.processes.tolist()}: rows "
+        f"{[(s.start, s.stop) for s in model.own_rows(target.shape)][:2]}, losses {run['losses']}, launches "
+        f"{run['launches']}")
+    missing = [k for k in CROSS_KERNELS if not counts.get(k)]
+    log(f"worker {pid}: phase 33 launches {counts}")
+    require(not missing, f"worker {pid}: phase 33 launched no {missing}")
+    out["model"], out["launches"] = run, counts
+
+    # times: both workers at once (a crossing call needs its peer); JFA once
+    times = {}
+    for label, fn in calls.items():
+        dist.barrier()
+        if label.startswith("jfa"):
+            times[label] = jfa_ms(fn)
+        else:
+            times[label] = legs_ms(fn)
+    for label, g, kw, _ in cases:
+        dist.barrier()
+        times[f"soft {label}"] = legs_ms(lambda: soft_step(cross_soft_fn(ym, kw), g))
+    dist.barrier()
+    times["model step"] = legs_ms(lambda: step(batch, target))
+    out["times"] = times
+    return out
+
+
+def cross_one_process_times(dev, glyph) -> dict:
+    """Phase 33's calls over a (4,) mesh of logical shards of the card in
+    this process (the parent), timed as the workers time theirs."""
+    b = threshold.hard_threshold(torch.from_numpy(glyph).to(dev))
+    m4 = logical_mesh(dev, (SHARDS,))
+    times = {}
+    for algo, spread, impl in cross_hard_labels():
+        fn = functools.partial(cross_hard_fn(algo, spread, m4, impl)[0], b)
+        if algo == "jfa":
+            fn()
+            times[f"{algo} {spread} {impl}"] = jfa_ms(fn)[0]
+        else:
+            times[f"{algo} {spread} {impl}"] = cuda_ms(fn, 3, 5)
+    m4 = logical_mesh(dev, (SHARDS,))
+    for label, g, kw, _ in cross_soft_cases(glyph, dev):
+        times[f"soft {label}"] = cuda_ms(lambda: soft_step(cross_soft_fn(m4, kw), g), 3, 5)
+    return times
+
+
 def dcn_phases(dev, glyph):
-    """Phase 32 (the parent). Its kernels are rows of the hard and adaptive
-    paths, so it adds no row to the kernels line: an empty path."""
+    """Phases 32-33 (the parent; both run in the same two workers, spawned
+    once). Their kernels are rows of the hard, soft and halo paths, so they
+    add no row to the kernels line: an empty path."""
     cfg = SdfConfig(spread=SPREAD)
     pages = torch.from_numpy(atlas_pages(glyph)).to(dev)
     one_ms = cuda_ms(lambda: atlas_sdf(pages, cfg))
@@ -3862,6 +4112,10 @@ def dcn_phases(dev, glyph):
     log(f"main path multi-host reference: SoftSDFModel over (2, 2) logical shards, losses {ref['losses']}, "
         f"step {ref_ms:.4f} ms")
     del model, batch, target, step
+    t0 = time.perf_counter()
+    one = cross_one_process_times(dev, glyph)
+    log(f"phase 33 one-process (4,) mesh times (ms): { {k: round(v, 4) for k, v in one.items()} } "
+        f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
 
     with socket.socket() as sock:
@@ -3890,7 +4144,7 @@ def dcn_phases(dev, glyph):
             outs.append(f.read())
             f.close()
         for pid, (p, out) in enumerate(zip(procs, outs)):
-            for line in out.strip().splitlines()[-40:]:
+            for line in out.strip().splitlines()[-80:]:
                 log(f"  [{pid}] {line}")
             require(p.returncode == 0 and f"DCN_OK p{pid}" in out,
                     f"phase 32 worker {pid} exited {p.returncode} without its OK line")
@@ -3919,6 +4173,30 @@ def dcn_phases(dev, glyph):
         require(e_l <= 1e-6 and e_g <= 1e-6 and e_p <= 1e-5 and all(math.isfinite(v) for v in m["losses"]),
                 f"worker {pid}'s steps differ from one process")
     require(res[0]["model"]["params"] == res[1]["model"]["params"], "the workers' parameters differ")
+
+    # phase 33: the checks ran in the workers; their times and the model against the one-process steps
+    for pid, r in enumerate(res):
+        c = r["crossing"]
+        for label, (ms, legs, exchanges) in c["times"].items():
+            log(f"time phase 33 worker {pid} {label} over a (4,) 'y' mesh across the workers (both at once): "
+                f"{ms:.4f} ms a call (CUDA events), of which {legs:.4f} ms host time in {exchanges} crossing "
+                f"exchanges' legs; one process over (4,) logical shards {one.get(label, float('nan')):.4f} ms")
+        m = c["model"]
+        e_l = max(abs(a - b) / abs(b) for a, b in zip(m["losses"], ref["losses"]))
+        e_g = max(float(np.abs(np.subtract(a, b)).max()) / float(np.abs(b).max())
+                  for a, b in zip(m["grads"], ref["grads"]))
+        e_p = max(float(np.abs(np.subtract(a, b)).max()) / max(float(np.abs(b).max()), 1.0)
+                  for a, b in zip(m["params"], ref["params"]))
+        log(f"main path 'y' across processes: worker {pid} SoftSDFModel over ('data', 'y') (2, 2), processes "
+            f"[[0, 1], [0, 1]], 2 Adam steps, losses {m['losses']} (within {e_l:.3e} relative of one process), "
+            f"first step's gradients within {e_g:.3e} of their scale, parameters within {e_p:.3e}; launches over "
+            f"phase 33 {c['launches']}")
+        # phase 32's bounds on the losses and parameters; a parameter's gradient sums 2 x 4096² pixel terms,
+        # here half an image a process and then the all_reduce, in another order than one process's sum
+        require(e_l <= 1e-6 and e_g <= 1e-5 and e_p <= 1e-5 and all(math.isfinite(v) for v in m["losses"]),
+                f"worker {pid}'s steps with 'y' across the processes differ from one process")
+    require(res[0]["crossing"]["model"]["params"] == res[1]["crossing"]["model"]["params"],
+            "the workers' parameters differ (phase 33)")
     return {}, {}, {}, {}
 
 
@@ -3987,7 +4265,7 @@ def main() -> int:
                                 ("12-15", fused_phases, (glyph,)), ("16-19", brute_dist_phases, (noise, glyph)),
                                 ("20-22", composed_phases, (glyph,)), ("23-25", sharded_phases, (noise, glyph)),
                                 ("26-28", sharded_soft_phases, (noise, glyph)), ("29-31", atlas_phases, (glyph,)),
-                                ("32", dcn_phases, (glyph,))):
+                                ("32-33", dcn_phases, (glyph,))):
         t0 = time.perf_counter()
         paths.append(phases(dev, *args))
         log(f"phases {label}: {time.perf_counter() - t0:.1f} s")

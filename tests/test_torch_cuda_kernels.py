@@ -1138,7 +1138,7 @@ def test_brute_scan_bytes_halo_staged_on_pass_a_frames(dev, kind, spread, h, w, 
 def test_halo_frames_match_ppermute(dev, dtype, n, h, w, band):
     """The frames written in place, bit for bit the ppermute form: one
     halo_slab launch where the band fits in a shard, else one
-    halo_ring_shift launch per hop; plane stacks of (2, 4, h, W) too."""
+    halo_ring_shift launch for every hop; plane stacks of (2, 4, h, W) too."""
     from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo
 
     rng = np.random.default_rng(n * h + band + w)
@@ -1149,7 +1149,7 @@ def test_halo_frames_match_ppermute(dev, dtype, n, h, w, band):
         got = cuda_halo.exchange_row_halo_rdma(blocks, band, fill)
         hops = -(-band // h)
         assert cuda_halo.LAUNCHES["halo_slab"] == before["halo_slab"] + (hops == 1)
-        assert cuda_halo.LAUNCHES["halo_ring_shift"] == before["halo_ring_shift"] + (hops if hops > 1 else 0)
+        assert cuda_halo.LAUNCHES["halo_ring_shift"] == before["halo_ring_shift"] + (hops > 1)
         want = halo.exchange_row_halo(blocks, band, fill)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b_) for a, b_ in zip(got, want))

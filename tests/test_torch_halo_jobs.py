@@ -66,10 +66,18 @@ def test_frames_match_ppermute(dtype, n, band, tables):
     if hops == 1:
         assert tables == [("halo_slab", 3 * n)]
     else:
-        # one ring step per hop, its jobs reading the neighbours' frames; the
-        # first hop also copies each shard's centre rows
-        assert [k for k, _ in tables] == ["halo_ring_shift"] * hops
-        assert tables[0][1] == 3 * n and all(j == 2 * n for _, j in tables[1:])
+        # one table for every hop: a job for each shard within reach and
+        # for each fill, each reading the block that holds its rows
+        assert tables == [("halo_ring_shift", _frame_jobs(n, 6, band))]
+
+
+def _frame_jobs(n: int, h: int, band: int) -> int:
+    """The jobs of the frames of n shards of h rows at ``band``: each
+    shard's own block, every block within ``band`` rows of it, and a fill
+    where the halo passes an edge of the image."""
+    hops = -(-band // h)
+    return sum(min(n - 1, i + hops) - max(0, i - hops) + 1 + (i * h < band) + ((n - 1 - i) * h < band)
+               for i in range(n))
 
 
 @pytest.mark.parametrize("dtype", list(FILLS))
@@ -116,12 +124,12 @@ def test_three_chains_in_one_table(band, tables):
     if band <= 8:
         assert tables == [("halo_slab", 3 * 3 * 4)]
     else:
-        assert tables == [("halo_ring_shift", 3 * 3 * 4), ("halo_ring_shift", 3 * 2 * 4)]
+        assert tables == [("halo_ring_shift", 3 * _frame_jobs(4, 8, band))] == [("halo_ring_shift", 54)]
 
 
 def test_table_longer_than_a_launch(monkeypatch):
     """A table of more jobs than a launch takes runs in as few launches as
-    that allows, in order (a later hop reads what an earlier one wrote)."""
+    that allows, in order, every hop in one table."""
     chunks = []
     plain = cuda_halo.copy_jobs_plain
 
@@ -136,7 +144,30 @@ def test_table_longer_than_a_launch(monkeypatch):
     assert chunks == [5, 5, 5, 5, 4]  # 24 jobs
     chunks.clear()
     _equal(cuda_halo.exchange_row_halo_rdma(blocks, 10, -1), halo.exchange_row_halo(blocks, 10, -1))
-    assert chunks == [5] * 4 + [4] + [5] * 3 + [1] + [5] * 3 + [1]  # hops of 24, 16 and 16 jobs
+    assert chunks == [5] * 10  # three hops, 50 jobs
+
+
+@pytest.mark.parametrize("band", [3, 6, 13])  # 6-row shards: one hop, band = H_local, three hops
+def test_vjp_matches_ppermute_bit_for_bit(band):
+    """Both halo forms' VJPs add each block's cotangents in one order (its
+    own rows first, then the other frames' runs in the plan's order), so
+    their gradients are equal bit for bit, multi-hop included; the fill
+    takes none."""
+    rng = np.random.default_rng(band)
+    x = [torch.from_numpy(rng.standard_normal((2, 6, 9)).astype(np.float32)) for _ in range(4)]
+    cts = [torch.from_numpy(rng.standard_normal((2, 6 + 2 * band, 9)).astype(np.float32)) for _ in range(4)]
+    grads = []
+    for exchange in (cuda_halo.exchange_row_halo_rdma, halo.exchange_row_halo):
+        xs = [t.clone().requires_grad_() for t in x]
+        sum((e * c).sum() for e, c in zip(exchange(xs, band, -7.25), cts)).backward()
+        grads.append([t.grad for t in xs])
+    _equal(grads[0], grads[1])
+    want = np.zeros((2, 24, 9), np.float32)
+    for i, c in enumerate(cts):
+        for r in range(6 + 2 * band):
+            if 0 <= i * 6 - band + r < 24:
+                want[:, i * 6 - band + r] += c[:, r].numpy()
+    np.testing.assert_allclose(torch.cat(grads[0], dim=-2).numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 def test_job_packing_and_fill_words():

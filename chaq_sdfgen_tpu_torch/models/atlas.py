@@ -27,6 +27,7 @@ from chaq_sdfgen_tpu_torch.ops import cuda_edt, threshold
 from chaq_sdfgen_tpu_torch.parallel.distributed import check_mesh
 from chaq_sdfgen_tpu_torch.parallel.mesh import Mesh, localize
 from chaq_sdfgen_tpu_torch.parallel.sharded import sharded_hard_sdf_bytes
+from chaq_sdfgen_tpu_torch.utils.profiling import recording, span
 
 
 def _as_stack(images) -> torch.Tensor:
@@ -58,7 +59,15 @@ def atlas_sdf(
     crosses processes), joined on its first device.
     ``sharding``: alternatively a ShardingConfig, whose
     mesh is built over the cards (or logical CPU shards with
-    ``device="cpu"``); mesh and sharding are mutually exclusive."""
+    ``device="cpu"``); mesh and sharding are mutually exclusive. Span
+    ``sdf.atlas``."""
+    if recording():
+        with span("sdf.atlas"):
+            return _atlas_sdf(images, config, mesh, sharding, device)
+    return _atlas_sdf(images, config, mesh, sharding, device)
+
+
+def _atlas_sdf(images, config: SdfConfig, mesh: Optional[Mesh], sharding, device) -> torch.Tensor:
     if sharding is not None:
         if mesh is not None:
             raise ValueError("pass either mesh or sharding, not both")

@@ -23,6 +23,7 @@ import torch
 
 from chaq_sdfgen_tpu_torch.config import Algorithm, SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, jfa, merge, softsdf, threshold
+from chaq_sdfgen_tpu_torch.utils.profiling import recording, span
 
 
 def hard_sdf_exact(
@@ -178,7 +179,13 @@ class SDFGenerator:
 
     def generate(self, img2ch) -> torch.Tensor:
         """(..., H, W, 2) uint8 (numpy or torch) -> (..., H, W) uint8 on
-        ``self.device``."""
+        ``self.device``. Span ``sdf.generate``."""
+        if recording():
+            with span("sdf.generate"):
+                return self._generate(img2ch)
+        return self._generate(img2ch)
+
+    def _generate(self, img2ch) -> torch.Tensor:
         cfg = self.config
         x = self._as_input(img2ch)
         if self.soft is not None:

@@ -20,6 +20,8 @@ import time
 
 import torch
 
+from chaq_sdfgen_tpu_torch.utils.profiling import recording, span
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
@@ -169,7 +171,15 @@ def load() -> ctypes.CDLL:
 
 def launch(entry: str, device, *args) -> None:
     """Call a launcher of the kernels' library (built at first use) on
-    the current stream of ``device``; raise if the launch failed."""
+    the current stream of ``device``; raise if the launch failed. Under a
+    profiler the call is the span ``launch.<entry>``."""
+    if recording():
+        with span("launch." + entry):
+            return _launch(entry, device, args)
+    _launch(entry, device, args)
+
+
+def _launch(entry: str, device, args: tuple) -> None:
     lib = load()
     with torch.cuda.device(device):
         rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)

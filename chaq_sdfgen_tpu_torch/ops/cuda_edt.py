@@ -41,6 +41,7 @@ import torch
 
 from chaq_sdfgen_tpu_torch.ops import _build, edt, jfa, merge, threshold
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt, walk_done
+from chaq_sdfgen_tpu_torch.utils.profiling import recording, span
 
 LAUNCHES = {"edt_rows": 0, "edt_band_bytes": 0, "edt_dist": 0, "edt_dist_core": 0, "edt_rows_u16": 0,
             "edt_band_bytes_u16": 0}
@@ -80,7 +81,15 @@ def row_distances_u8(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Te
     """Pass 1: (..., H, W) bool mask or uint8 tri-state codes -> (din, dout)
     of strip_dtype(band): the distance along x to the nearest TRUE (code 1)
     and the nearest FALSE (code 0) pixel, clipped at band + 1. Kernel
-    ``edt_rows`` on CUDA, the plain version on the CPU."""
+    ``edt_rows`` on CUDA, the plain version on the CPU. Span
+    ``sdf.edt_rows``."""
+    if recording():
+        with span("sdf.edt_rows"):
+            return _row_distances_u8(b, band)
+    return _row_distances_u8(b, band)
+
+
+def _row_distances_u8(b: torch.Tensor, band: int) -> Tuple[torch.Tensor, torch.Tensor]:
     if b.device.type == "cpu":
         return row_distances_u8_plain(b, band)
     if b.device.type != "cuda":
@@ -162,7 +171,15 @@ def fused_pass2_bytes(
     clamped remap. Output row y is strip row y + row_off; out_rows defaults
     to H - 2 row_off, the rows between two halos of row_off rows (the
     counterpart of pallas_edt.fused_pass2_bytes(row_off=, out_rows=)).
-    Kernel ``edt_band_bytes`` on CUDA, the plain version on the CPU."""
+    Kernel ``edt_band_bytes`` on CUDA, the plain version on the CPU. Span
+    ``sdf.edt_band``."""
+    if recording():
+        with span("sdf.edt_band"):
+            return _fused_pass2_bytes(din, dout, spread, asymmetric, band, apply_sqrt, row_off, out_rows)
+    return _fused_pass2_bytes(din, dout, spread, asymmetric, band, apply_sqrt, row_off, out_rows)
+
+
+def _fused_pass2_bytes(din, dout, spread, asymmetric, band, apply_sqrt, row_off, out_rows) -> torch.Tensor:
     if din.device.type == "cpu":
         return fused_pass2_bytes_plain(din, dout, spread, asymmetric, band, apply_sqrt, row_off, out_rows)
     if din.device.type != "cuda":

@@ -21,7 +21,9 @@ soft_sdf_field dispatches as the JAX package does on its accelerator
      ops/softmin.py twice each way (pass 1 along x on both fields' heights in
      one launch, written into the two halves of S1; pass 2 along y on S1),
      with implicit sentinels: no pad, transpose or cat around them.
-Each runs its kernels on CUDA and their plain versions on the CPU.
+Each runs its kernels on CUDA and their plain versions on the CPU. Under a
+profiler the path taken is the span ``soft.field.<path>`` (mm_fused, wide,
+mm_rt, fused, cols) and the gate's read the span ``soft.gate``.
 
 The streaming scan below (_band_softmin_fwd_impl, _BandSoftmin,
 band_softmin_scan, soft_sdf_field_composed) is plain PyTorch on any device
@@ -39,6 +41,7 @@ import torch
 from chaq_sdfgen_tpu_torch.ops import cuda_soft_mm, merge, soft_fused, soft_mxu, softmin, threshold
 from chaq_sdfgen_tpu_torch.ops.edt import big_sentinel
 from chaq_sdfgen_tpu_torch.ops.numerics import div, softplus
+from chaq_sdfgen_tpu_torch.utils.profiling import span
 
 _PAD_HEIGHT = 1e30  # sentinel height: exp(-(d^2+1e30)/T) underflows to 0
 _NEG_HUGE = -3e38
@@ -210,7 +213,7 @@ def runtime_gate(gray: torch.Tensor, band: int, tau: float, temperature: float) 
     limit = min(140.0 * t, kk * kk - 36.0 * t)
     if not (limit > 0 and cuda_soft_mm.soft_field_mm_rt_ok(gray.shape, band)) or gray.numel() == 0:
         return None
-    with torch.no_grad():
+    with span("soft.gate"), torch.no_grad():
         labs = div((gray.detach().to(torch.float32) - 127.5).abs().max(), tau)
         h_max = np.float32((t * softplus(labs)).item())
     if not h_max <= np.float32(limit):
@@ -242,14 +245,19 @@ def soft_sdf_field(
     stats = soft_mxu.range_stats(band, tau, temperature, gray_range)
     if stats is not None:
         if cuda_soft_mm.mm_fused_ok(stats[0], stats[1]):
-            return cuda_soft_mm.soft_field_mm_fused(gray, band, tau, temperature, eps, test_above, gray_range)
-        return soft_mxu.soft_field_wide(gray, band, tau, temperature, eps, test_above, gray_range)
+            with span("soft.field.mm_fused"):
+                return cuda_soft_mm.soft_field_mm_fused(gray, band, tau, temperature, eps, test_above, gray_range)
+        with span("soft.field.wide"):
+            return soft_mxu.soft_field_wide(gray, band, tau, temperature, eps, test_above, gray_range)
     if soft_fused.fused_geometry_ok(gray, band):
         shift = runtime_gate(gray, band, tau, temperature)
         if shift is not None:
-            return cuda_soft_mm.soft_field_mm_rt(gray, shift, band, tau, temperature, eps, test_above)
-        return soft_fused.soft_sdf_field_fused(gray, band, tau, temperature, eps, test_above)
-    return soft_field_cols(gray, band, tau, temperature, eps, test_above)
+            with span("soft.field.mm_rt"):
+                return cuda_soft_mm.soft_field_mm_rt(gray, shift, band, tau, temperature, eps, test_above)
+        with span("soft.field.fused"):
+            return soft_fused.soft_sdf_field_fused(gray, band, tau, temperature, eps, test_above)
+    with span("soft.field.cols"):
+        return soft_field_cols(gray, band, tau, temperature, eps, test_above)
 
 
 def soft_sdf_bytes(

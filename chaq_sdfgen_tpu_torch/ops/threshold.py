@@ -10,13 +10,22 @@ from __future__ import annotations
 import torch
 
 from chaq_sdfgen_tpu_torch.ops.numerics import div, softplus
+from chaq_sdfgen_tpu_torch.utils.profiling import recording, span
 
 THRESHOLD = 127  # the fixed byte threshold (openmp/sdfgen.c:57)
 
 
 def hard_threshold(img2ch: torch.Tensor, channel: int = 1, test_above: bool = True) -> torch.Tensor:
     """(..., H, W, 2) uint8 -> (..., H, W) bool: chan > 127 (or < when
-    inverted; the OpenMP -n flag flips the test itself, sdfgen.c:58-59)."""
+    inverted; the OpenMP -n flag flips the test itself, sdfgen.c:58-59).
+    Span ``sdf.threshold``."""
+    if recording():
+        with span("sdf.threshold"):
+            return _hard_threshold(img2ch, channel, test_above)
+    return _hard_threshold(img2ch, channel, test_above)
+
+
+def _hard_threshold(img2ch: torch.Tensor, channel: int, test_above: bool) -> torch.Tensor:
     chan = img2ch[..., channel]
     return (chan > THRESHOLD) if test_above else (chan < THRESHOLD)
 

@@ -5,6 +5,15 @@ flag reading CL event profiling (opencl/main.cpp:333-356).
 On the card the device's own clock times a call (CUDA events), as
 chip_smoke.cuda_ms does; on the CPU the host's clock. A trace is a
 torch.profiler Chrome trace, with the card's kernels where one is present.
+
+``span(name)`` marks a piece of the port's host work (an entry, an op, a
+launch, a training step and its parts) as a ``record_function`` range,
+which a running torch.profiler records as a ``user_annotation`` event on
+the clock of the card's kernels; with no profiler running it is one C
+check and a shared null context. The hard path's per-call sites test
+``recording()`` and skip the ``with`` altogether when it is false: the
+null context's ``__enter__`` and ``__exit__`` are Python calls, and the
+host sets the pace of a one-image call.
 """
 
 from __future__ import annotations
@@ -15,6 +24,19 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+
+recording = torch._C._autograd._profiler_enabled  # whether a torch profiler is recording
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records ``name`` as a profiler range while a torch
+    profiler is recording (``device_trace``, or any other), on the thread
+    that enters it; else the shared null context, at the cost of one
+    check."""
+    if not recording():
+        return _NULL
+    return torch.profiler.record_function(name)
 
 
 def _on_card(x: Any) -> bool:

@@ -804,6 +804,26 @@ def test_soft_model_trains_on_the_card(dev):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
+def test_launch_spans_on_the_card(dev):
+    """Under torch.profiler every launch of a training step on the card is
+    a span launch.<entry>: the forward's on the step's thread and the
+    backward's on the thread autograd runs them on."""
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy((rng.random((2, 64, 48, 2)) * 4000 - 2000).astype(np.float32)).to(dev)
+    target = torch.zeros((2, 64, 48), device=dev)
+    model = SoftSDFModel(8, SoftConfig(tau=2.0, temperature=1.0))
+    step = make_train_step(model, create_train_state(model, img))
+    step(img, target)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(img, target)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    for entry in ("chaq_soft_f1", "chaq_soft_f2", "chaq_soft_b2", "chaq_soft_b1"):
+        assert names.count(f"launch.{entry}") == 1, names
+    assert names.count("soft.step") == 1 and names.count("soft.field.fused") == 1
+
+
 def test_soft_fused_wrappers_refuse_what_kernels_do_not_take(dev):
     g = torch.zeros((8, 8), device=dev)
     s1 = torch.zeros((2, 8, 8), device=dev)

@@ -1,5 +1,5 @@
-"""The port's timing and tracing (utils/profiling.py) and the CLI's
---soft-prec, on the CPU."""
+"""The port's timing and tracing (utils/profiling.py: its spans too) and
+the CLI's --soft-prec, on the CPU."""
 
 import glob
 import json
@@ -15,6 +15,8 @@ import jax.numpy as jnp
 from chaq_sdfgen_tpu.ops import merge as jmerge
 from chaq_sdfgen_tpu.ops import pallas_soft_mm as jpm
 import chaq_sdfgen_tpu_torch.cli as tcli
+from chaq_sdfgen_tpu_torch import SDFGenerator, SdfConfig, SoftConfig, SoftSDFModel, create_train_state, make_train_step
+from chaq_sdfgen_tpu_torch.models.atlas import atlas_sdf
 from chaq_sdfgen_tpu_torch.utils import profiling
 
 
@@ -55,6 +57,71 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+
+
+HARD_OPS = ("sdf.threshold", "sdf.edt_rows", "sdf.edt_band")
+SOFT_PARTS = ("soft.front_end", "soft.gate", "soft.backward")
+# each call, the outer span and what it holds; the soft steps' field path is
+# the gate's decision: in gamut (0-255) the declared pair with a runtime
+# shift, out of it (+-2040) the adaptive kernels
+SPAN_CASES = {
+    "atlas": ("sdf.atlas", HARD_OPS, ()),
+    "generate": ("sdf.generate", HARD_OPS, ()),
+    "soft_u8": ("soft.step", SOFT_PARTS + ("soft.field.mm_rt",), ("soft.field.fused",)),
+    "soft_pm2040": ("soft.step", SOFT_PARTS + ("soft.field.fused",), ("soft.field.mm_rt",)),
+}
+
+
+@pytest.fixture(scope="module")
+def span_calls():
+    """The calls of SPAN_CASES at a small size on the CPU (spread 14: band
+    16, the gate's full tap radius)."""
+    img = np.random.default_rng(7).integers(0, 256, (2, 24, 32, 2), dtype=np.uint8)
+    cfg = SdfConfig(spread=6)
+    gen = SDFGenerator(cfg, device="cpu")
+    model = SoftSDFModel(14, SoftConfig(tau=2.0, temperature=1.0), device="cpu")
+    step = make_train_step(model, create_train_state(model))
+    x = torch.from_numpy(img).to(torch.float32)
+    target = torch.zeros(2, 24, 32)
+    return {
+        "atlas": lambda: atlas_sdf(img, cfg, device="cpu"),
+        "generate": lambda: gen.generate(img[0]),
+        "soft_u8": lambda: step(x, target),
+        "soft_pm2040": lambda: step((x - 127.5) * 16.0, target),
+    }
+
+
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_spans_nest_under_the_profiler(span_calls, case):
+    """Under torch.profiler the call records its spans, each inside the
+    outer span on the same thread, and only the field path the gate took."""
+    outer, inner, absent = SPAN_CASES[case]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        span_calls[case]()
+    events = [e for e in prof.events() if e.name.startswith(("sdf.", "soft.", "launch."))]
+    names = [e.name for e in events]
+    assert names.count(outer) == 1, names
+    top = next(e for e in events if e.name == outer)
+    for name in inner:
+        held = [e for e in events if e.name == name]
+        assert held, f"{name} not in {names}"
+        for e in held:
+            assert e.thread == top.thread
+            assert top.time_range.start <= e.time_range.start <= e.time_range.end <= top.time_range.end
+    assert not set(absent) & set(names)
+
+
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_spans_cost_one_check_without_a_profiler(span_calls, case, monkeypatch):
+    """With no profiler running a span is the shared null context: the
+    same calls never enter record_function (patched here to raise)."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler running")
+
+    assert not profiling.recording()
+    assert profiling.span("sdf.atlas") is profiling.span("soft.gate") is profiling._NULL
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    span_calls[case]()
 
 
 @pytest.fixture(scope="module")

@@ -218,7 +218,7 @@ def main(argv: Optional[list] = None) -> int:
 
     from chaq_sdfgen_tpu_torch.config import Algorithm, Channel, SdfConfig, ShardingConfig, SoftConfig
     from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator
-    from chaq_sdfgen_tpu_torch.ops import band_conv, cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, softmin
+    from chaq_sdfgen_tpu_torch.ops import band_conv, cuda_brute, cuda_edt, cuda_soft_mm, soft_front, soft_fused, softmin
     from chaq_sdfgen_tpu_torch.parallel import cuda_halo, sharded
     from chaq_sdfgen_tpu_torch.utils import imageio as iio
 
@@ -288,7 +288,7 @@ def main(argv: Optional[list] = None) -> int:
     log.info("kernel launches %s",
              json.dumps({**cuda_edt.LAUNCHES, **cuda_brute.LAUNCHES, **cuda_soft_mm.LAUNCHES,
                          **soft_fused.LAUNCHES, **softmin.LAUNCHES, **band_conv.LAUNCHES,
-                         **cuda_halo.LAUNCHES}))
+                         **cuda_halo.LAUNCHES, **soft_front.LAUNCHES}))
 
     t0 = time.perf_counter()
     try:

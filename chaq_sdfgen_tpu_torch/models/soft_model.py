@@ -39,7 +39,7 @@ import torch
 
 from chaq_sdfgen_tpu_torch.config import SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import resolve_device
-from chaq_sdfgen_tpu_torch.ops import softsdf
+from chaq_sdfgen_tpu_torch.ops import soft_front, softsdf
 from chaq_sdfgen_tpu_torch.parallel.mesh import local_index, localize
 from chaq_sdfgen_tpu_torch.utils.profiling import span
 
@@ -102,19 +102,17 @@ class SoftSDFModel(torch.nn.Module):
         return self.mesh is not None and self.mesh.spans_processes
 
     def forward(self, img2ch: torch.Tensor) -> torch.Tensor:
-        """The signed soft field; the front end before it is the span
-        ``soft.front_end``."""
+        """The signed soft field; the front end before it
+        (ops/soft_front.front_end) is the span ``soft.front_end``."""
         with span("soft.front_end"):
             mesh = self.mesh
             if mesh is not None:
                 # on a mesh that spans processes, this process's part from the front end on
                 img2ch, mesh = localize(img2ch, mesh, self._spec(img2ch.dim(), 1))
-            mix = torch.softmax(self.channel_mix, dim=0)
-            gray = (img2ch.to(torch.float32) * mix).sum(-1) - self.threshold_bias
-            tau = torch.exp(self.log_tau)
             # fold the learnable tau into the pixel values, so that the kernels
             # run at the configured tau: logits (v - 127.5) / tau_static
-            v = (gray - 127.5) / tau * self.soft.tau + 127.5
+            v = soft_front.front_end(img2ch, torch.softmax(self.channel_mix, dim=0), self.threshold_bias,
+                                     torch.exp(self.log_tau), self.soft.tau)
         kw = dict(tau=self.soft.tau, temperature=self.soft.temperature, eps=self.soft.eps)
         if mesh is not None:
             from chaq_sdfgen_tpu_torch.parallel import sharded
@@ -139,28 +137,25 @@ def _adam(params, lr: float) -> torch.optim.Adam:
 
 def make_train_step(model: SoftSDFModel, opt: torch.optim.Optimizer):
     """train_step(img2ch, target) -> loss: the mean squared error between
-    the model's signed soft field and ``target``, its gradient, and one
-    optimizer step (in place on the model's parameters). On a mesh that
-    spans processes both are the global batch: each process's loss is its
-    part's sum of squares over the global element count (its backward
-    returns the halo rows' cotangents to the processes that own them), and
-    one all_reduce sums the parameters' gradients and the losses over the
-    processes before the step, which returns the global loss. Spans: the
-    step ``soft.step``, its ``loss.backward()`` ``soft.backward``."""
+    the model's signed soft field and ``target`` (ops/soft_front.mse), its
+    gradient, and one optimizer step (in place on the model's parameters).
+    On a mesh that spans processes both are the global batch: each
+    process's loss is its part's sum of squares over the global element
+    count (its backward returns the halo rows' cotangents to the processes
+    that own them), and one all_reduce sums the parameters' gradients and
+    the losses over the processes before the step, which returns the global
+    loss. Spans: the step ``soft.step``, its ``loss.backward()``
+    ``soft.backward``."""
     params = list(model.parameters())
 
     def train_step(img2ch: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         with span("soft.step"):
             opt.zero_grad(set_to_none=True)
-            if not model._spans:
-                loss = torch.mean((model(img2ch) - target) ** 2)
-                with span("soft.backward"):
-                    loss.backward()
-            else:
-                pred = model(img2ch)
-                loss = ((pred - target[model.own_rows(target.shape)].to(pred.device)) ** 2).sum() / target.numel()
-                with span("soft.backward"):
-                    loss.backward()
+            pred = model(img2ch)
+            loss = soft_front.mse(pred, target[model.own_rows(target.shape)].to(pred.device), target.numel())
+            with span("soft.backward"):
+                loss.backward()
+            if model._spans:
                 loss = _sum_over_processes(params, loss.detach())
             opt.step()
             return loss.detach()

@@ -159,6 +159,15 @@ def load() -> ctypes.CDLL:
             getattr(lib, entry).argtypes = [vp] * 5 + conv_frame + [f32, f32, f32, vp]
             getattr(lib, entry).restype = i32
         ll = ctypes.c_longlong
+        # ops/soft_front.py: (img2ch, v, mix, bias, tau, tau_s, pixels, stream);
+        # (dv, img2ch, dimg2ch, partials, grads, mix, bias, tau, tau_s, pixels, stream);
+        # (pred, target, partials, loss, n, divisor, stream); (pred, target, g, dpred, n, inv_n, stream)
+        lib.chaq_soft_front_fwd.argtypes = [vp] * 5 + [f32, ll, vp]
+        lib.chaq_soft_front_bwd.argtypes = [vp] * 8 + [f32, ll, vp]
+        lib.chaq_soft_mse_fwd.argtypes = [vp] * 4 + [ll, ctypes.c_double, vp]
+        lib.chaq_soft_mse_bwd.argtypes = [vp] * 4 + [ll, f32, vp]
+        for entry in ("chaq_soft_front_fwd", "chaq_soft_front_bwd", "chaq_soft_mse_fwd", "chaq_soft_mse_bwd"):
+            getattr(lib, entry).restype = i32
         # (jobs, n_jobs, n_img, row_bytes, stream): jobs packed as parallel/cuda_halo.py packs them
         for entry in ("chaq_halo_slab", "chaq_halo_ring_shift"):
             getattr(lib, entry).argtypes = [ctypes.c_char_p, i32, ll, ll, vp]

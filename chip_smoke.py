@@ -76,7 +76,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
      noise (the gate must launch soft_mm_*) and on noise in +-2000 (it must
      launch soft_f1/f2/b2/b1), the first step's value and gradient held
      against the plain version; 3 Adam steps of SoftSDFModel on a
-     (4096, 4096, 2) image in +-2000, the first held against a plain twin;
+     (4096, 4096, 2) image in +-2000 (the front-end and loss kernels'
+     launch counters read over them: 3 each), the first (its loss through
+     soft_front.mse) held against a plain twin;
      and the CLI --soft --soft-tau 0.25 -s 64 --soft-field f.npy on the
      glyph PNG against the plain pipeline, its launch log showing F1 and F2;
  14. adaptive times (CUDA events, as in phase 6): each of the four kernels
@@ -87,7 +89,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      (b2_loop_taps, f1_loop_taps, f2_loop_taps: live, the kernel's loop,
      the loop of the design before it, whose reach came from a window-wide
      bound; f2_loop_taps also F2's hard-min walk steps; b1_loop_taps also
-     B1's warp steps against those of the design before it);
+     B1's warp steps against those of the design before it); the training
+     step's front-end and loss kernels (csrc/soft_front.cu, front_phase)
+     at (2, 4096, 4096, 2) in [0, 255] and in +-2040, each wrapper against
+     its plain version (v, the pixels' gradient and pred's bit for bit, the
+     parameters' sums and the loss within 1e-6 relative), timed against
+     its plain version and its bytes bound, and the two Functions' forward
+     and backward against autograd through the torch chain they replace;
  15. where the adaptive steps' device time goes: torch.profiler over the
      forced adaptive step and the gated out-of-gamut step;
  16. the BRUTE kernels (csrc/brute.cu: brute_rows, brute_scan_bytes) and the
@@ -341,8 +349,8 @@ from chaq_sdfgen_tpu_torch.models.atlas import atlas_sdf, atlas_sdf_spread_sweep
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
 from chaq_sdfgen_tpu_torch.ops import (
-    _build, band_conv, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, jfa, merge, soft_fused, soft_mxu, softmin,
-    softsdf, threshold,
+    _build, band_conv, brute, cuda_brute, cuda_edt, cuda_soft_mm, edt, jfa, merge, soft_front, soft_fused, soft_mxu,
+    softmin, softsdf, threshold,
 )
 from chaq_sdfgen_tpu_torch.parallel import cuda_halo, halo, sharded
 from chaq_sdfgen_tpu_torch.parallel.distributed import global_mesh, initialize
@@ -471,6 +479,26 @@ KERNELS = {
         "route": "cuda",
         "source": "chaq_sdfgen_tpu_torch/csrc/band_conv.cu",
         "replaces": "chaq_sdfgen_tpu/ops/pallas_band_conv.py:48",
+    },
+    "soft_front_fwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_front.cu",
+        "replaces": "chaq_sdfgen_tpu/models/soft_model.py:57",
+    },
+    "soft_front_bwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_front.cu",
+        "replaces": "chaq_sdfgen_tpu/models/soft_model.py:57",
+    },
+    "soft_mse_fwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_front.cu",
+        "replaces": "chaq_sdfgen_tpu/models/soft_model.py:99",
+    },
+    "soft_mse_bwd": {
+        "route": "cuda",
+        "source": "chaq_sdfgen_tpu_torch/csrc/soft_front.cu",
+        "replaces": "chaq_sdfgen_tpu/models/soft_model.py:99",
     },
 }
 
@@ -1506,6 +1534,108 @@ def digest(x: torch.Tensor) -> str:
     return hashlib.sha1(x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def front_phase(dev, glyph, img_pm) -> tuple:
+    """Phase 14's front-end and loss kernels (csrc/soft_front.cu) at the
+    training cells' shape, (2, 4096, 4096, 2) pixels in [0, 255] (the glyph
+    and u8 noise) and in +-2040 (phase 13's trainer image and the glyph's
+    alpha mapped there): each wrapper against its plain version on the same
+    inputs (v, the pixels' gradient and pred's bit for bit, the parameters'
+    sums and the loss within 1e-6 relative), then each timed against its
+    plain version and its bytes bound, and the two Functions' forward and
+    backward against autograd through the torch chain they replace.
+    Returns (errors, times, bounds)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    shape = (2, SIZE, SIZE)
+    g8 = torch.from_numpy(glyph).to(dev, torch.float32)
+    imgs = {
+        "u8": torch.stack([g8, torch.randint(0, 256, (SIZE, SIZE, 2), generator=gen, device=dev).float()]),
+        "+-2040": torch.stack([img_pm, g8 / 255 * 4080 - 2040]),
+    }
+    mix = torch.softmax(torch.tensor([0.1, 3.9], device=dev), 0)
+    bias, tau = torch.tensor(0.37, device=dev), torch.tensor(TRAIN_TAU * 1.05, device=dev)
+    par = (mix, bias, tau, TRAIN_TAU)
+    dv = torch.randn(shape, generator=gen, device=dev)
+    target = (torch.rand(shape, generator=gen, device=dev) - 0.5) * 32
+    g_out = torch.tensor(0.75, device=dev)
+    n = target.numel()
+    err = {k: 0.0 for k in soft_front.LAUNCHES}
+
+    def rel(a, b):
+        return float(((a.double() - b.double()).abs() / b.double().abs().clamp_min(1e-30)).max())
+
+    for kind, img in imgs.items():
+        with torch.no_grad():
+            v, v_p = soft_front.front_fwd(img, *par), soft_front.front_fwd_plain(img, *par)
+            sums, dimg = soft_front.front_bwd(dv, img, *par, pixels=True)
+            sums_p, dimg_p = soft_front.front_bwd_plain(dv, img, *par, pixels=True)
+            sums_np, _ = soft_front.front_bwd(dv, img, *par)
+            pred = (v - 127.5) / 64.0
+            loss, loss_p = soft_front.mse_fwd(pred, target, n), soft_front.mse_fwd_plain(pred, target, n)
+            dpred, dpred_p = soft_front.mse_bwd(pred, target, g_out, n), soft_front.mse_bwd_plain(pred, target, g_out, n)
+        bits = {"v": bits_err(v, v_p), "dimg2ch": bits_err(dimg, dimg_p), "dpred": bits_err(dpred, dpred_p),
+                "sums without the pixels": bits_err(sums_np, sums)}
+        r_sums, r_loss = rel(sums, sums_p), rel(loss, loss_p)
+        for k, e in (("soft_front_fwd", (v - v_p).abs().max()), ("soft_front_bwd", (sums - sums_p).abs().max()),
+                     ("soft_mse_fwd", (loss - loss_p).abs()), ("soft_mse_bwd", (dpred - dpred_p).abs().max())):
+            err[k] = max(err[k], float(e))
+        log(f"check front end and loss {kind} {tuple(img.shape)}: bits differing {bits}; [d mix0, d mix1, d bias, "
+            f"d tau] {sums.tolist()} rel err {r_sums:.3e}; loss {float(loss):.9g} rel err {r_loss:.3e}")
+        require(not any(bits.values()), f"a front-end or loss kernel differs bitwise from its plain version ({kind})")
+        require(r_sums <= 1e-6 and r_loss <= 1e-6, f"the front-end or loss sums differ from the plain version ({kind})")
+    del sums, dimg, sums_p, dimg_p, sums_np, v_p, loss_p, dpred, dpred_p
+
+    img = imgs["u8"]
+    with torch.no_grad():
+        pred = (soft_front.front_fwd(img, *par) - 127.5) / 64.0
+    times = {
+        "soft_front_fwd": cuda_ms(lambda: soft_front.front_fwd(img, *par)),
+        "soft_front_fwd_plain": cuda_ms(lambda: soft_front.front_fwd_plain(img, *par)),
+        "soft_front_bwd": cuda_ms(lambda: soft_front.front_bwd(dv, img, *par)),
+        "soft_front_bwd_plain": cuda_ms(lambda: soft_front.front_bwd_plain(dv, img, *par), 2, 3),
+        "soft_front_bwd_pixels": cuda_ms(lambda: soft_front.front_bwd(dv, img, *par, pixels=True)),
+        "soft_mse_fwd": cuda_ms(lambda: soft_front.mse_fwd(pred, target, n)),
+        "soft_mse_fwd_plain": cuda_ms(lambda: soft_front.mse_fwd_plain(pred, target, n)),
+        "soft_mse_bwd": cuda_ms(lambda: soft_front.mse_bwd(pred, target, g_out, n)),
+        "soft_mse_bwd_plain": cuda_ms(lambda: soft_front.mse_bwd_plain(pred, target, g_out, n)),
+        "field_clone": cuda_ms(lambda: pred.clone()),
+    }
+
+    def front_fb(fn):
+        leaves = [t.clone().requires_grad_() for t in (mix, bias, tau)]
+        torch.autograd.grad(fn(img, *leaves, TRAIN_TAU), leaves, dv)
+
+    def loss_fb(fn):
+        p = pred.clone().requires_grad_()
+        torch.autograd.grad(fn(p), [p])
+
+    chain = {
+        "front end forward": (times["soft_front_fwd"], times["soft_front_fwd_plain"]),
+        "front end forward and backward": (cuda_ms(lambda: front_fb(soft_front.front_end)),
+                                           cuda_ms(lambda: front_fb(soft_front.front_fwd_plain))),
+        "loss forward and backward": (cuda_ms(lambda: loss_fb(lambda p: soft_front.mse(p, target, n))),
+                                      cuda_ms(lambda: loss_fb(lambda p: torch.mean((p - target) ** 2)))),
+    }
+    npix = img.numel() // 2
+    bounds = {
+        "soft_front_fwd": bound(12 * npix, 8 * npix),
+        "soft_front_bwd": bound(12 * npix, 16 * npix),
+        "soft_mse_fwd": bound(8 * npix, 3 * npix),
+        "soft_mse_bwd": bound(12 * npix, 3 * npix),
+    }
+    for k, ms in times.items():
+        log(f"time front end and loss {k}: {ms:.4f} ms  {npix / ms / 1e6:.3f} Gpix/s")
+    log(f"bound front end and loss soft_front_bwd_pixels: {bound(20 * npix, 18 * npix)[0]:.4f} ms (bytes); "
+        f"measured {times['soft_front_bwd_pixels']:.4f} ms")
+    for k, (b_ms, by) in bounds.items():
+        log(f"bound front end and loss {k}: {b_ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
+            f"roofline share {100 * b_ms / times[k]:.1f}%")
+    for k, (ours, torch_chain) in chain.items():
+        log(f"time front end and loss, {k}: the Functions {ours:.4f} ms, the torch chain {torch_chain:.4f} ms "
+            f"({torch_chain / ours:.2f}x)")
+    return err, times, bounds
+
+
 def fused_phases(dev, glyph):
     """Phases 12-15. Returns (errors, launches, times, bounds)."""
     err = {k: 0.0 for k in soft_fused.LAUNCHES}
@@ -1565,7 +1695,7 @@ def fused_phases(dev, glyph):
 
     def reset_counts():
         torch.cuda.synchronize()
-        for counts in (cuda_soft_mm.LAUNCHES, soft_fused.LAUNCHES):
+        for counts in (cuda_soft_mm.LAUNCHES, soft_fused.LAUNCHES, soft_front.LAUNCHES):
             for k in counts:
                 counts[k] = 0
 
@@ -1611,7 +1741,7 @@ def fused_phases(dev, glyph):
         f = soft_fused.f2_plain(soft_fused.f1_plain(v, band, tau, t), band, t, EPS, memos=False)
         return torch.mean((f - target) ** 2)
 
-    k_loss = torch.mean((model(img) - target) ** 2)
+    k_loss = soft_front.mse(model(img), target, target.numel())
     k_grads = torch.autograd.grad(k_loss, list(model.parameters()))
     p_loss = plain_model_loss()
     p_grads = torch.autograd.grad(p_loss, list(model.parameters()))
@@ -1624,11 +1754,13 @@ def fused_phases(dev, glyph):
     reset_counts()
     losses = [float(train(img, target)) for _ in range(3)]
     torch.cuda.synchronize()
+    front_launches = dict(soft_front.LAUNCHES)
     log(f"main path adaptive: SoftSDFModel {tuple(img.shape)} 3 Adam steps, losses {losses}, "
-        f"launches {dict(cuda_soft_mm.LAUNCHES)} {dict(soft_fused.LAUNCHES)}")
+        f"launches {dict(cuda_soft_mm.LAUNCHES)} {dict(soft_fused.LAUNCHES)} {front_launches}")
     require(all(math.isfinite(v) for v in losses), "SoftSDFModel loss is not finite")
     require(all(v == 3 for v in soft_fused.LAUNCHES.values()) and not any(cuda_soft_mm.LAUNCHES.values()),
             "SoftSDFModel did not run the adaptive kernels")
+    require(all(v == 3 for v in front_launches.values()), "SoftSDFModel did not run the front-end and loss kernels")
 
     # the CLI: out-of-gamut tau on the glyph PNG
     cli_out, cli_log, cli_field = run_cli(glyph, ["--soft", "--soft-tau", "0.25", "-s", str(SPREAD)],
@@ -1679,6 +1811,7 @@ def fused_phases(dev, glyph):
         del s1, d2, ds1, ones
     ms = cuda_ms(lambda: train(img, target), 5, 3)
     log(f"time adaptive SoftSDFModel step {tuple(img.shape)}: {ms:.4f} ms  {SIZE * SIZE / ms / 1e6:.3f} Gpix/s")
+    front_err, front_times, front_bounds = front_phase(dev, glyph, img)
     b2_times_and_taps(big, band, tau, t)
     f1_times_and_taps(big, band, tau, t)
     f2_times_and_taps(big, band, tau, t)
@@ -1689,11 +1822,14 @@ def fused_phases(dev, glyph):
     for k, (b_ms, by) in bounds.items():
         log(f"bound adaptive {k}: {b_ms:.4f} ms ({by}); measured {times[k]:.4f} ms, "
             f"roofline share {100 * b_ms / times[k]:.1f}%")
+    err.update(front_err)
+    times.update(front_times)
+    bounds.update(front_bounds)
 
     # phase 15: device time by kernel over the adaptive steps
     profile_device("adaptive step forced, noise", lambda: forced_step(big["noise"]))
     profile_device("gated out-of-gamut step", lambda: gated_step(big["pm2000"]))
-    return err, launches, times, bounds
+    return err, {**launches, **front_launches}, times, bounds
 
 
 # ------------------------------------------------- BRUTE, JFA, exact distance

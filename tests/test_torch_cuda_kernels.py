@@ -7,7 +7,10 @@ gradient of the whole chain within 1e-4 of the scale of autograd, the
 composed path's column soft-min pair (csrc/softmin.cu) bit for bit, the
 halo kernels (csrc/halo.cu) and the sharded pipelines on logical shards of
 the card, and the sharded soft tier's cols-conv kernels (csrc/band_conv.cu)
-bit for bit with the soft tiers over logical shards. Marked ``gpu``: each
+bit for bit with the soft tiers over logical shards, and the training
+step's front end and loss (csrc/soft_front.cu): v bit for bit the torch
+chain, its gradients and the loss's within 1e-6 beyond the chain's own
+rounding. Marked ``gpu``: each
 test skips where no CUDA device is present. This file imports no JAX, so on
 a machine without it run it past the suite's conftest:
 
@@ -21,7 +24,8 @@ import torch
 from chaq_sdfgen_tpu_torch.config import SdfConfig, SoftConfig
 from chaq_sdfgen_tpu_torch.models.sdf_model import SDFGenerator, signed_distance_field_exact
 from chaq_sdfgen_tpu_torch.models.soft_model import SoftSDFModel, create_train_state, make_train_step
-from chaq_sdfgen_tpu_torch.ops import cuda_brute, cuda_edt, cuda_soft_mm, soft_fused, soft_mxu, softmin, softsdf
+from chaq_sdfgen_tpu_torch.ops import (cuda_brute, cuda_edt, cuda_soft_mm, soft_front, soft_fused, soft_mxu, softmin,
+                                       softsdf)
 from chaq_sdfgen_tpu_torch.ops.numerics import refined_sqrt
 
 pytestmark = pytest.mark.gpu
@@ -822,6 +826,151 @@ def test_launch_spans_on_the_card(dev):
     for entry in ("chaq_soft_f1", "chaq_soft_f2", "chaq_soft_b2", "chaq_soft_b1"):
         assert names.count(f"launch.{entry}") == 1, names
     assert names.count("soft.step") == 1 and names.count("soft.field.fused") == 1
+
+
+# ------------------------------------ the training step's front end and loss
+
+FRONT_SHAPES = [(13, 17), (1, 19, 23), (2, 11, 33), (2, 1024, 1030)]
+
+
+def _front_case(dev, shape, kind, seed):
+    """(..., 2) pixels in [0, 255] ("u8") or mapped to (x - 127.5) x 16
+    ("pm2040"), and the front end's three input tensors as leaves."""
+    x = np.random.default_rng(seed).random(shape + (2,)) * 255
+    img = torch.from_numpy((x if kind == "u8" else (x - 127.5) * 16).astype(np.float32)).to(dev)
+    ins = [torch.tensor(v, device=dev).requires_grad_() for v in ([0.25, 0.75], 1.5, 2.2)]
+    return img, ins
+
+
+def _front_chain(img2ch, mix, bias, tau, tau_s=2.0):
+    """SoftSDFModel.forward's front end as the torch chain it was."""
+    gray = (img2ch * mix).sum(-1) - bias
+    return (gray - 127.5) / tau * tau_s + 127.5
+
+
+def _front_grads(fn, img, ins, target, dtype=torch.float32):
+    """loss and the gradients of (mix, bias, tau, img2ch) through fn and an
+    MSE against target, every input cast to dtype."""
+    leaves = [t.detach().to(dtype).requires_grad_() for t in (*ins, img)]
+    loss = fn(leaves)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _rel_gaps(got, want):
+    """Each of got's tensors against want's, over the larger of its norm and
+    the median tensor's, as the benchmark's training cells take them."""
+    norms = sorted(float(w.double().norm()) for w in want)
+    median = norms[len(norms) // 2]
+    return [float((a.double() - b.double()).norm()) / max(float(b.double().norm()), median) for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("shape", FRONT_SHAPES)
+@pytest.mark.parametrize("kind", ["u8", "pm2040"])
+@pytest.mark.parametrize("offset", [0, 2])
+def test_soft_front_v_is_the_chain_bitwise(dev, shape, kind, offset):
+    """v bitwise the chain's on the card, so the gate decides as before;
+    offset 2 takes the kernel's scalar path (not 16-byte aligned)."""
+    img, (mix, bias, tau) = _front_case(dev, shape, kind, len(shape))
+    img = _at_offset(img, offset)
+    before = soft_front.LAUNCHES["soft_front_fwd"]
+    with torch.no_grad():
+        v = soft_front.front_fwd(img, mix, bias, tau, 2.0)
+        want = _front_chain(img, mix, bias, tau)
+    assert soft_front.LAUNCHES["soft_front_fwd"] == before + 1
+    assert torch.equal(v, want)
+
+
+@pytest.mark.parametrize("shape", FRONT_SHAPES)
+@pytest.mark.parametrize("kind", ["u8", "pm2040"])
+def test_soft_front_and_loss_match_the_chain(dev, shape, kind):
+    """The loss and the gradients of mix, bias, tau and the pixels through
+    front_end and mse against autograd through the chain on the card: within
+    1e-6 of the float64 chain, and within 1e-6 of the float32 chain beyond
+    that chain's own gap to float64 (its float32 sums cancel); the pixels'
+    and pred's gradients bit for bit the chain's."""
+    img, ins = _front_case(dev, shape, kind, 5)
+    target = torch.from_numpy(np.random.default_rng(6).uniform(-16, 16, shape).astype(np.float32)).to(dev)
+
+    def ours(leaves):
+        v = soft_front.front_end(leaves[3], *leaves[:3], 2.0)
+        return soft_front.mse((v - 127.5) / 64.0, target, target.numel())
+
+    def chain(leaves):
+        v = _front_chain(leaves[3], *leaves[:3])
+        return torch.mean(((v - 127.5) / 64.0 - target.to(v.dtype)) ** 2)
+
+    loss, grads = _front_grads(ours, img, ins, target)
+    loss32, grads32 = _front_grads(chain, img, ins, target)
+    loss64, grads64 = _front_grads(chain, img, ins, target, torch.float64)
+    assert abs(float(loss) - float(loss64)) <= 1e-6 * float(loss64)
+    assert abs(float(loss) - float(loss32)) <= 1e-6 * float(loss32)
+    own = _rel_gaps(grads[:3], grads64[:3])
+    assert max(own) <= 1e-6, own
+    chain_own = _rel_gaps(grads32[:3], grads64[:3])
+    for gap, slack in zip(_rel_gaps(grads[:3], grads32[:3]), chain_own):
+        assert gap <= 1e-6 + slack, (gap, slack)
+    assert torch.equal(grads[3], grads32[3])
+
+
+def test_soft_front_steps_are_deterministic(dev):
+    """Two identical forward and backward passes: the same bits."""
+    img, ins = _front_case(dev, (2, 1024, 1030), "pm2040", 7)
+    target = torch.zeros((2, 1024, 1030), device=dev)
+
+    def ours(leaves):
+        return soft_front.mse(soft_front.front_end(leaves[3], *leaves[:3], 2.0) / 64.0, target, target.numel())
+
+    runs = [_front_grads(ours, img, ins, target) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_soft_front_runs_without_a_host_sync(dev):
+    img, ins = _front_case(dev, (2, 64, 48), "u8", 8)
+    target = torch.zeros((2, 64, 48), device=dev)
+    x = img.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = soft_front.mse(soft_front.front_end(x, *ins, 2.0), target, target.numel())
+        grads = torch.autograd.grad(loss, [*ins, x])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def test_soft_front_takes_strided_pixels_and_refuses_them_below(dev):
+    """front_end copies a strided img2ch to a contiguous one; the wrappers
+    under it refuse what the kernels do not take."""
+    img, (mix, bias, tau) = _front_case(dev, (2, 17, 46), "u8", 9)
+    strided = img[:, :, ::2]
+    with torch.no_grad():
+        assert torch.equal(soft_front.front_end(strided, mix, bias, tau, 2.0), _front_chain(strided, mix, bias, tau))
+        with pytest.raises(ValueError, match="contiguous"):
+            soft_front.front_fwd(strided, mix, bias, tau, 2.0)
+        with pytest.raises(ValueError, match="pixels"):
+            soft_front.front_fwd(img[..., :1].contiguous(), mix, bias, tau, 2.0)
+        with pytest.raises(ValueError, match="tensors on"):
+            soft_front.front_fwd(img, mix.cpu(), bias, tau, 2.0)
+        with pytest.raises(ValueError, match="contiguous"):
+            soft_front.mse_fwd(img[..., 0], img[..., 1], 10)
+        with pytest.raises(ValueError, match="target"):
+            soft_front.mse_fwd(img[..., 0].contiguous(), img[:1, ..., 1].contiguous(), 10)
+        with pytest.raises(ValueError, match="target"):
+            soft_front.mse_bwd(img[..., 0].contiguous(), img[:1, ..., 1].contiguous(), mix[:1].reshape(()), 10)
+
+
+def test_soft_model_step_launches_each_front_kernel_once(dev):
+    rng = np.random.default_rng(10)
+    img = torch.from_numpy((rng.random((2, 64, 48, 2)) * 255).astype(np.float32)).to(dev)
+    target = torch.from_numpy(rng.standard_normal((2, 64, 48)).astype(np.float32)).to(dev)
+    model = SoftSDFModel(8, SoftConfig(tau=2.0, temperature=1.0))
+    step = make_train_step(model, create_train_state(model))
+    before = dict(soft_front.LAUNCHES)
+    step(img, target)
+    torch.cuda.synchronize()
+    assert {k: soft_front.LAUNCHES[k] - before[k] for k in before} == {k: 1 for k in before}
 
 
 def test_soft_fused_wrappers_refuse_what_kernels_do_not_take(dev):

@@ -22,7 +22,10 @@ image itself.
 
 A wrapper runs the plain version only for a tensor on the CPU. For a CUDA
 tensor it launches the kernel or raises; it never falls back. ``LAUNCHES``
-counts kernel launches.
+counts kernel launches. Under a torch profiler pass A is the span
+``sdf.brute_rows`` and either scan ``sdf.brute_scan`` (each site tests
+``profiling.recording()`` first, so with no profiler a call costs one
+check).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from chaq_sdfgen_tpu_torch.ops import _build, brute, threshold
+from chaq_sdfgen_tpu_torch.utils.profiling import recording, span
 
 LAUNCHES = {"brute_rows": 0, "brute_scan_bytes": 0, "brute_scan_bytes_halo": 0}
 
@@ -64,7 +68,14 @@ def seed_strips(b: torch.Tensor, spread: int) -> torch.Tensor:
     """Pass A: (..., H, W) bool mask or uint8 tri-state codes (1 seeds TRUE,
     0 seeds FALSE, 2 neither; threshold.as_codes) -> (2, 4, ..., H, W)
     strips of strip_dtype(spread). Kernel ``brute_rows`` on CUDA, the plain
-    version on the CPU."""
+    version on the CPU. Span ``sdf.brute_rows``."""
+    if recording():
+        with span("sdf.brute_rows"):
+            return _seed_strips(b, spread)
+    return _seed_strips(b, spread)
+
+
+def _seed_strips(b: torch.Tensor, spread: int) -> torch.Tensor:
     if b.device.type == "cpu":
         return seed_strips_plain(b, spread)
     _check_spread(spread)
@@ -98,7 +109,15 @@ def brute_scan_bytes(b: torch.Tensor, strips: torch.Tensor, spread: int,
     seeds of the other value (|dx| == |dy| excluded), found = D <=
     spread^2, then the sqrt, the sign rule decider = invert ^ value, the
     +-INF fallback and the clamped remap. Kernel ``brute_scan_bytes`` on
-    CUDA, the plain version on the CPU."""
+    CUDA, the plain version on the CPU. Span ``sdf.brute_scan``."""
+    if recording():
+        with span("sdf.brute_scan"):
+            return _brute_scan_bytes(b, strips, spread, asymmetric, invert)
+    return _brute_scan_bytes(b, strips, spread, asymmetric, invert)
+
+
+def _brute_scan_bytes(b: torch.Tensor, strips: torch.Tensor, spread: int, asymmetric: bool,
+                      invert: bool) -> torch.Tensor:
     if b.device.type == "cpu":
         return brute_scan_bytes_plain(b, strips, spread, asymmetric, invert)
     _check_spread(spread)
@@ -141,7 +160,15 @@ def brute_scan_bytes_halo(b: torch.Tensor, strips: torch.Tensor, spread: int, ro
     Byte for byte brute_scan_bytes on the whole image wherever the strips
     hold at least ``spread`` rows on either side of the shard (or the image
     ends there). Kernel ``brute_scan_bytes_halo`` on CUDA, the plain version
-    on the CPU."""
+    on the CPU. Span ``sdf.brute_scan``."""
+    if recording():
+        with span("sdf.brute_scan"):
+            return _brute_scan_bytes_halo(b, strips, spread, row_off, asymmetric, invert)
+    return _brute_scan_bytes_halo(b, strips, spread, row_off, asymmetric, invert)
+
+
+def _brute_scan_bytes_halo(b: torch.Tensor, strips: torch.Tensor, spread: int, row_off: int,
+                           asymmetric: bool, invert: bool) -> torch.Tensor:
     if b.device.type == "cpu":
         return brute_scan_bytes_halo_plain(b, strips, spread, row_off, asymmetric, invert)
     _check_spread(spread)

@@ -244,10 +244,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
      launch (read from the counters), every image byte for byte per-image
      SDFGenerator.generate, both kernels on each stack's mask against their
      plain versions; times (CUDA events, as in phase 6; time_compiled's best
-     of 5) against per-image generate;
+     of 5) against per-image generate; atlas_sdf with algorithm="brute" on
+     the 4096 pages (the OpenCL binary's job): one brute_rows and one
+     brute_scan_bytes launch, byte for byte per-image
+     SDFGenerator(BRUTE).generate, timed beside it;
  30. atlas_sdf over a (2, 2) ('data', 'y') global_mesh of logical shards of
      the card, byte for byte one device (4 launches of each kernel), and
-     timed; atlas_sdf_spread_sweep over spreads 8, 64, 128 and 300 (pass 1
+     timed, BRUTE too (4 brute_rows and 4 brute_scan_bytes_halo launches); atlas_sdf_spread_sweep over spreads 8, 64, 128 and 300 (pass 1
      at band 304, uint16 strips; pass 2 at each spread + 2): 1 edt_rows and
      4 edt_band_bytes launches, every level byte for byte per-spread
      atlas_sdf, the uint16 kernels on the stack against their plain
@@ -3783,6 +3786,20 @@ def check_passes(label: str, b: torch.Tensor, spread: int, band: int) -> None:
     require(e1 == 0 and e2 == 0, f"an EXACT kernel disagrees with its plain version on the atlas {label}")
 
 
+def check_brute_passes(label: str, b: torch.Tensor, spread: int) -> None:
+    """Both BRUTE kernels on a stack's mask against their plain versions,
+    byte for byte, the scan on the same strips (checks: not counted as
+    main-path launches)."""
+    strips = cuda_brute.seed_strips(b, spread)
+    plain = cuda_brute.seed_strips_plain(b, spread)
+    e1 = max_abs_err(strips, plain)
+    got = cuda_brute.brute_scan_bytes(b, plain, spread)
+    e2 = max_abs_err(got, cuda_brute.brute_scan_bytes_plain(b, plain, spread))
+    log(f"check atlas brute {label} {tuple(b.shape)} {strips.dtype} spread {spread}: brute_rows err {e1}, "
+        f"brute_scan_bytes err {e2}")
+    require(e1 == 0 and e2 == 0, f"a BRUTE kernel disagrees with its plain version on the atlas {label}")
+
+
 def atlas_phases(dev, glyph):
     """Phases 29-31. Every kernel of these paths is a row of the hard path,
     so they add no row to the kernels line: an empty path."""
@@ -3813,6 +3830,26 @@ def atlas_phases(dev, glyph):
             f"of 5 {best:.4f} ms); per-image generate {per_image:.4f} ms ({npix / per_image / 1e6:.3f} Gpix/s)")
         outs[label] = out
 
+    # phase 29, BRUTE (the OpenCL binary's job): one launch of each BRUTE kernel a call
+    x = stacks["4x4096"]
+    bcfg = SdfConfig(spread=SPREAD, algorithm="brute")
+    bgen = SDFGenerator(bcfg, device=dev)
+    reset_launches()
+    bout = atlas_sdf(x, bcfg)
+    c = read_launches()
+    log(f"main path atlas brute 4x4096: launches { {k: v for k, v in c.items() if v} }")
+    require(c["brute_rows"] == 1 and c["brute_scan_bytes"] == 1 and sum(c.values()) == 2,
+            "the BRUTE atlas did not run one brute_rows and one brute_scan_bytes launch")
+    bad = [i for i in range(x.shape[0]) if not torch.equal(bout[i], bgen.generate(x[i]))]
+    log(f"check atlas brute 4x4096: images differing from per-image SDFGenerator(BRUTE).generate: {bad}")
+    require(not bad, "the BRUTE atlas differs from per-image generate")
+    check_brute_passes("4x4096", threshold.hard_threshold(x), SPREAD)
+    ms = cuda_ms(lambda: atlas_sdf(x, bcfg))
+    per_image = cuda_ms(lambda: [bgen.generate(x[i]) for i in range(x.shape[0])])
+    npix = x[..., 0].numel()
+    log(f"time atlas brute 4x4096 spread {SPREAD}: {ms:.4f} ms ({npix / ms / 1e6:.3f} Gpix/s); per-image "
+        f"generate {per_image:.4f} ms")
+
     # phase 30: the atlas over a ('data', 'y') mesh of logical shards; the sweep
     x, want = stacks["4x4096"], outs["4x4096"]
     mesh = global_mesh(y_per_host=2, devices=[dev] * 4)
@@ -3827,6 +3864,13 @@ def atlas_phases(dev, glyph):
             "the atlas over the mesh differs from one device or skipped its kernels")
     ms = cuda_ms(lambda: atlas_sdf(x, cfg, mesh=mesh))
     log(f"time atlas 4x4096 over {mesh.shape}: {ms:.4f} ms ({x[..., 0].numel() / ms / 1e6:.3f} Gpix/s)")
+    reset_launches()
+    e = max_abs_err(atlas_sdf(x, bcfg, mesh=mesh), bout)
+    c = read_launches()
+    log(f"check atlas brute 4x4096 over {mesh.shape}: max abs err vs one device {e}, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    require(e == 0 and c["brute_rows"] == 4 and c["brute_scan_bytes_halo"] == 4,
+            "the BRUTE atlas over the mesh differs from one device or skipped its kernels")
 
     reset_launches()
     sweep = atlas_sdf_spread_sweep(x, ATLAS_SPREADS)

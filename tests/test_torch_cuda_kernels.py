@@ -828,6 +828,34 @@ def test_launch_spans_on_the_card(dev):
     assert names.count("soft.step") == 1 and names.count("soft.field.fused") == 1
 
 
+@pytest.mark.parametrize("kw", [dict(spread=64), dict(spread=9, asymmetric=True, invert=True)])
+def test_brute_atlas_on_the_card(dev, kw):
+    """atlas_sdf with algorithm="brute" on the card: one brute_rows and one
+    brute_scan_bytes launch over the stack, each image byte for byte
+    per-image SDFGenerator(BRUTE); under torch.profiler the call records
+    sdf.atlas, the threshold, the two BRUTE op spans and their launches."""
+    from chaq_sdfgen_tpu_torch.models.atlas import atlas_sdf
+
+    rng = np.random.default_rng(11)
+    imgs = torch.from_numpy(np.where(rng.random((3, 96, 130, 2)) < 0.03, 255, 0).astype(np.uint8)).to(dev)
+    cfg = SdfConfig(algorithm="brute", **kw)
+    before = dict(cuda_brute.LAUNCHES)
+    got = atlas_sdf(imgs, cfg)
+    torch.cuda.synchronize()
+    assert {k: cuda_brute.LAUNCHES[k] - before[k] for k in before} == {
+        "brute_rows": 1, "brute_scan_bytes": 1, "brute_scan_bytes_halo": 0}
+    gen = SDFGenerator(cfg)
+    for i in range(3):
+        assert torch.equal(got[i], gen.generate(imgs[i]))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        atlas_sdf(imgs, cfg)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    for name in ("sdf.atlas", "sdf.threshold", "sdf.brute_rows", "sdf.brute_scan", "launch.chaq_brute_rows",
+                 "launch.chaq_brute_scan_bytes"):
+        assert names.count(name) == 1, (name, names)
+
+
 # ------------------------------------ the training step's front end and loss
 
 FRONT_SHAPES = [(13, 17), (1, 19, 23), (2, 11, 33), (2, 1024, 1030)]
